@@ -1,0 +1,285 @@
+// Bloom-signature kernels of the LazyPIM simulator for Hopper (sm_90a).
+//
+// Four kernels, each the CUDA counterpart of a Pallas TPU kernel in
+// src/repro/kernels/bloom/bloom.py.  Packed words are uint32 here; the
+// PyTorch side stores the same bits as int32.  Every kernel launches on
+// the caller's stream, allocates nothing and returns cudaGetLastError().
+//
+// h3_hash (ports _h3_hash_block, bloom.py:62): byte-sliced H3, four
+//   table gathers and three XORs per (address, segment).  Bound by the
+//   bytes it moves (4 B in, 4*M B out per address).  Design: the
+//   offset-folded tables (S x 256 x M uint32, 16 KB for the paper's
+//   geometry) are staged once per block in shared memory and a
+//   grid-stride loop of a few hundred blocks amortizes that load; the
+//   gathers then hit shared memory instead of device memory.
+//
+// bloom_insert (ports bloom_insert_pallas, bloom.py:135): OR hashed
+//   positions into packed signatures, either from an id list with a
+//   validity mask (one block per lane) or from a packed line bitmap
+//   (register = line % R, the CPUWriteSet bank).  Bound by the bytes of
+//   its inputs.  Design: each block ORs into a private signature bank in
+//   shared memory with atomicOr (OR is order-free, so the result is
+//   deterministic) and writes it out once; bitmap blocks walk only the
+//   set bits (__ffs) and skip empty chunks before loading the tables.
+//
+// bloom_query (ports bloom_query_pallas, bloom.py:205): per-line
+//   membership of the lines set in a packed bitmap, ANDed with that
+//   bitmap and packed 32 lines a word.  Bound by the bitmap bytes.
+//   Design: one warp per 32-line word; only lines whose bit is set hash,
+//   the warp ballot packs the word, lines past num_lines stay zero.
+//
+// bloom_intersect (ports bloom_intersect_pallas, bloom.py:316): the
+//   AND-prefilter, true iff every segment of a & b has a set bit.  Bound
+//   by bytes.  Design: one warp per row, a per-thread segment mask and
+//   one __reduce_or_sync.
+
+#include <algorithm>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kByteVals = 256;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t h3(const uint32_t* __restrict__ tab,
+                                       uint32_t a, int m, int S, int M) {
+  uint32_t h = tab[(a & 0xFFu) * M + m];
+  for (int k = 1; k < S; ++k) {
+    h ^= tab[(k * kByteVals + ((a >> (8 * k)) & 0xFFu)) * M + m];
+  }
+  return h;
+}
+
+__device__ __forceinline__ void copy_to_shared(uint32_t* dst,
+                                               const uint32_t* __restrict__ src,
+                                               int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void zero_shared(uint32_t* dst, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0u;
+}
+
+__global__ void h3_hash_kernel(const uint32_t* __restrict__ addrs,
+                               const uint32_t* __restrict__ tabs,
+                               int32_t* __restrict__ out, int n, int S, int M) {
+  extern __shared__ uint32_t smem[];
+  copy_to_shared(smem, tabs, S * kByteVals * M);
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const uint32_t a = addrs[i];
+    for (int m = 0; m < M; ++m) {
+      out[static_cast<size_t>(i) * M + m] = static_cast<int32_t>(h3(smem, a, m, S, M));
+    }
+  }
+}
+
+// One block per lane: ids (L, A), valid (L, A) -> out (L, R, NW).
+__global__ void insert_ids_kernel(const int32_t* __restrict__ ids,
+                                  const uint8_t* __restrict__ valid,
+                                  const uint32_t* __restrict__ tabs,
+                                  uint32_t* __restrict__ out, int A, int S,
+                                  int M, int R, int NW) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* stab = smem;
+  uint32_t* sbank = smem + S * kByteVals * M;
+  const int lane = blockIdx.x;
+  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
+  copy_to_shared(stab, tabs, S * kByteVals * M);
+  zero_shared(sbank, R * NW);
+  __syncthreads();
+  for (int j = threadIdx.x; j < A; j += blockDim.x) {
+    const size_t k = static_cast<size_t>(lane) * A + j;
+    if (!valid[k]) continue;  // invalid slots never hash: a hashed -1 sets real bits
+    const uint32_t a = static_cast<uint32_t>(ids[k]);
+    uint32_t* reg = sbank + (a % static_cast<uint32_t>(R)) * NW;
+    for (int m = 0; m < M; ++m) {
+      const uint32_t p = h3(stab, a, m, S, M);
+      if (p < nbits) atomicOr(reg + (p >> 5), 1u << (p & 31u));
+    }
+  }
+  __syncthreads();
+  uint32_t* dst = out + static_cast<size_t>(lane) * R * NW;
+  for (int i = threadIdx.x; i < R * NW; i += blockDim.x) dst[i] = sbank[i];
+}
+
+// grid (chunks, L): bitmap (L, NWL) -> out (L, R, NW), out zeroed by the caller.
+__global__ void insert_bitmap_kernel(const uint32_t* __restrict__ bitmap,
+                                     const uint32_t* __restrict__ tabs,
+                                     uint32_t* __restrict__ out, int NWL,
+                                     int num_lines, int chunk, int S, int M,
+                                     int R, int NW) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* stab = smem;
+  uint32_t* sbank = smem + S * kByteVals * M;
+  const int lane = blockIdx.y;
+  const int w0 = blockIdx.x * chunk;
+  const int w1 = min(w0 + chunk, NWL);
+  const uint32_t* row = bitmap + static_cast<size_t>(lane) * NWL;
+  int any = 0;
+  for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) any |= row[w] != 0u;
+  if (!__syncthreads_or(any)) return;
+  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
+  copy_to_shared(stab, tabs, S * kByteVals * M);
+  zero_shared(sbank, R * NW);
+  __syncthreads();
+  for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) {
+    uint32_t bits = row[w];
+    while (bits) {
+      const uint32_t b = static_cast<uint32_t>(__ffs(bits) - 1);
+      bits &= bits - 1u;
+      const uint32_t line = static_cast<uint32_t>(w) * 32u + b;
+      if (line >= static_cast<uint32_t>(num_lines)) break;  // later bits are further out
+      uint32_t* reg = sbank + (line % static_cast<uint32_t>(R)) * NW;
+      for (int m = 0; m < M; ++m) {
+        const uint32_t p = h3(stab, line, m, S, M);
+        if (p < nbits) atomicOr(reg + (p >> 5), 1u << (p & 31u));
+      }
+    }
+  }
+  __syncthreads();
+  uint32_t* dst = out + static_cast<size_t>(lane) * R * NW;
+  for (int i = threadIdx.x; i < R * NW; i += blockDim.x) {
+    const uint32_t v = sbank[i];
+    if (v) atomicOr(dst + i, v);
+  }
+}
+
+// grid (chunks, L): sig (L, NW), words (L, NWL) -> out (L, NWL).
+__global__ void query_kernel(const uint32_t* __restrict__ sig,
+                             const uint32_t* __restrict__ words,
+                             const uint32_t* __restrict__ tabs,
+                             uint32_t* __restrict__ out, int NWL,
+                             int num_lines, int chunk, int S, int M, int NW) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* stab = smem;
+  uint32_t* ssig = smem + S * kByteVals * M;
+  const int lane = blockIdx.y;
+  const int w0 = blockIdx.x * chunk;
+  const int w1 = min(w0 + chunk, NWL);
+  const uint32_t* row = words + static_cast<size_t>(lane) * NWL;
+  uint32_t* orow = out + static_cast<size_t>(lane) * NWL;
+  int any = 0;
+  for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) any |= row[w] != 0u;
+  if (!__syncthreads_or(any)) {
+    for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) orow[w] = 0u;
+    return;
+  }
+  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
+  copy_to_shared(stab, tabs, S * kByteVals * M);
+  copy_to_shared(ssig, sig + static_cast<size_t>(lane) * NW, NW);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int w = w0 + warp; w < w1; w += nwarps) {
+    const uint32_t word = row[w];
+    const uint32_t line = static_cast<uint32_t>(w) * 32u + static_cast<uint32_t>(t);
+    bool member = ((word >> t) & 1u) && line < static_cast<uint32_t>(num_lines);
+    for (int m = 0; m < M && member; ++m) {
+      const uint32_t p = h3(stab, line, m, S, M);
+      member = p < nbits && ((ssig[p >> 5] >> (p & 31u)) & 1u);
+    }
+    const uint32_t packed = __ballot_sync(0xFFFFFFFFu, member);
+    if (t == 0) orow[w] = packed;
+  }
+}
+
+// One warp per row: a (B, NW), b (B / R, NW), row i pairs with b[i / R].
+__global__ void intersect_kernel(const uint32_t* __restrict__ a,
+                                 const uint32_t* __restrict__ b,
+                                 uint8_t* __restrict__ out, int B, int R,
+                                 int NW, int WPS, int M) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int t = threadIdx.x & 31;
+  if (row >= B) return;  // uniform per warp
+  const uint32_t* ar = a + static_cast<size_t>(row) * NW;
+  const uint32_t* br = b + static_cast<size_t>(row / R) * NW;
+  uint32_t segs = 0u;
+  for (int j = t; j < NW; j += 32) {
+    if (ar[j] & br[j]) segs |= 1u << (j / WPS);
+  }
+  segs = __reduce_or_sync(0xFFFFFFFFu, segs);
+  const uint32_t full = M >= 32 ? 0xFFFFFFFFu : ((1u << M) - 1u);
+  if (t == 0) out[row] = segs == full ? 1 : 0;
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+int chunks_of(int nwl) { return (nwl + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" {
+
+int h3_hash_launch(const void* addrs, const void* tabs, void* out, int n,
+                   int S, int M, void* stream) {
+  const size_t smem = static_cast<size_t>(S) * kByteVals * M * sizeof(uint32_t);
+  if (int rc = set_smem(h3_hash_kernel, smem)) return rc;
+  const int blocks = std::min((n + kThreads - 1) / kThreads, 264);
+  h3_hash_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(addrs), static_cast<const uint32_t*>(tabs),
+      static_cast<int32_t*>(out), n, S, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bloom_insert_ids_launch(const void* ids, const void* valid, const void* tabs,
+                            void* out, int L, int A, int S, int M, int R,
+                            int NW, void* stream) {
+  const size_t smem =
+      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(R) * NW) *
+      sizeof(uint32_t);
+  if (int rc = set_smem(insert_ids_kernel, smem)) return rc;
+  insert_ids_kernel<<<L, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ids), static_cast<const uint8_t*>(valid),
+      static_cast<const uint32_t*>(tabs), static_cast<uint32_t*>(out), A, S, M,
+      R, NW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bloom_insert_bitmap_launch(const void* bitmap, const void* tabs, void* out,
+                               int L, int NWL, int num_lines, int S, int M,
+                               int R, int NW, void* stream) {
+  const size_t smem =
+      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(R) * NW) *
+      sizeof(uint32_t);
+  if (int rc = set_smem(insert_bitmap_kernel, smem)) return rc;
+  const dim3 grid(chunks_of(NWL), L);
+  insert_bitmap_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(bitmap), static_cast<const uint32_t*>(tabs),
+      static_cast<uint32_t*>(out), NWL, num_lines, kThreads, S, M, R, NW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bloom_query_launch(const void* sig, const void* words, const void* tabs,
+                       void* out, int L, int NWL, int num_lines, int S, int M,
+                       int NW, void* stream) {
+  const size_t smem =
+      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(NW)) *
+      sizeof(uint32_t);
+  if (int rc = set_smem(query_kernel, smem)) return rc;
+  const dim3 grid(chunks_of(NWL), L);
+  query_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(sig), static_cast<const uint32_t*>(words),
+      static_cast<const uint32_t*>(tabs), static_cast<uint32_t*>(out), NWL,
+      num_lines, kThreads, S, M, NW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bloom_intersect_launch(const void* a, const void* b, void* out, int B,
+                           int R, int NW, int WPS, int M, void* stream) {
+  const int rows_per_block = kThreads / 32;
+  const int blocks = (B + rows_per_block - 1) / rows_per_block;
+  intersect_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint8_t*>(out), B, R, NW, WPS, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

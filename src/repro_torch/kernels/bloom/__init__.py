@@ -1,0 +1,7 @@
+from repro_torch.kernels.bloom.ops import (
+    bloom_insert,
+    bloom_intersect,
+    bloom_query,
+)
+
+__all__ = ["bloom_insert", "bloom_query", "bloom_intersect"]

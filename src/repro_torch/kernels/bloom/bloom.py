@@ -1,0 +1,405 @@
+"""Hand-written CUDA Bloom-signature kernels and their plain PyTorch versions.
+
+Four kernels carry every Bloom-signature operation of the LazyPIM step on
+the card; the sources are ``repro_torch/csrc/bloom.cu`` (one note per
+kernel there: the TPU kernel it replaces, what bounds it, what its design
+does about that).  Each wrapper here:
+
+* checks device, dtype, shape and contiguity and allocates the outputs;
+* on a CPU tensor runs the plain PyTorch version beside it (the CPU path
+  and the oracle the kernel is held against);
+* on a CUDA tensor launches the kernel, raises if the launch reports an
+  error, and adds one to its ``launches`` counter — there is no fallback.
+
+* ``h3_hash`` ports ``_h3_hash_block`` (``repro/kernels/bloom/bloom.py:62``):
+  the line table of ``prepare`` / ``pad_trace`` / ``dummy_trace``;
+* ``bloom_insert`` ports ``bloom_insert_pallas`` (``bloom.py:135``): the
+  per-window read/write images and the CPUWriteSet bank;
+* ``bloom_query`` ports ``bloom_query_pallas`` (``bloom.py:205``): the
+  flush / merge / invalidate membership masks;
+* ``bloom_intersect`` ports ``bloom_intersect_pallas`` (``bloom.py:316``):
+  the two conflict checks of each LazyPIM window.
+
+The shared library is built with ``nvcc`` for ``sm_90a`` on first use into
+the checkout's ``build/`` directory (content-addressed by the source hash)
+and bound with ``ctypes``; nothing is built or imported at module import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from repro_torch.core.signatures import hash_with_tables, pack_words, unpack_words
+
+__all__ = [
+    "h3_hash", "bloom_insert", "bloom_query", "bloom_intersect",
+    "h3_hash_plain", "bloom_insert_plain", "bloom_query_plain",
+    "bloom_intersect_plain", "KERNELS", "reset_launch_counts",
+    "launch_counts", "build_library",
+]
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+SOURCE = _PKG / "csrc" / "bloom.cu"
+BUILD_DIR = _PKG.parents[1] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the Bloom CUDA kernels are built from "
+                       f"{SOURCE} with the CUDA toolkit")
+
+
+def build_library() -> pathlib.Path:
+    """Compile ``csrc/bloom.cu`` into ``build/libbloom-<hash>.so`` unless that
+    exact build exists; returns its path.  The write is atomic (temp file +
+    rename), so concurrent first users cannot load a half-written file."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libbloom-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "h3_hash_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "bloom_insert_ids_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_insert_bitmap_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_query_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, *args) -> None:
+    rc = getattr(_lib(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Argument checks
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {ndim} dims")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True for an all-CPU call (plain path); False for an all-CUDA call
+    (kernel path); anything else raises — no silent device fallback."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(f"Bloom kernels need all tensors on one CUDA device or "
+                     f"all on the CPU, got {sorted(str(t.device) for t in ts)}")
+
+
+def _check_lanes(lanes: int) -> None:
+    """Bitmap kernels put lanes on gridDim.y, which CUDA caps at 65,535."""
+    if lanes > 65_535:
+        raise ValueError(f"{lanes} lanes exceed the kernels' 65,535-lane grid")
+
+
+def _check_tables(tabs: torch.Tensor) -> tuple[int, int]:
+    _check("tabs", tabs, torch.int32, 3)
+    s, vals, m = tabs.shape
+    if vals != 256 or not 1 <= s <= 4 or not 1 <= m <= 32:
+        raise ValueError(f"tabs: shape {tuple(tabs.shape)}, want (S<=4, 256, M<=32)")
+    return s, m
+
+
+# ---------------------------------------------------------------------------
+# h3_hash
+# ---------------------------------------------------------------------------
+
+
+def h3_hash_plain(addrs: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
+    """Plain version: (N,) int32 addresses -> (N, M) int32 positions."""
+    return hash_with_tables(addrs, tabs)
+
+
+def h3_hash(addrs: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
+    """Byte-sliced H3: (N,) int32 addresses (uint32 bits) x (S, 256, M) int32
+    offset-folded tables -> (N, M) int32 global bit positions.
+
+    Ports ``_h3_hash_block`` (``src/repro/kernels/bloom/bloom.py:62``);
+    its bound and design are noted in ``csrc/bloom.cu``."""
+    _check("addrs", addrs, torch.int32, 1)
+    s, m = _check_tables(tabs)
+    if _on_cpu(addrs, tabs):
+        return h3_hash_plain(addrs, tabs)
+    n = addrs.shape[0]
+    out = torch.empty((n, m), dtype=torch.int32, device=addrs.device)
+    if n:
+        _launch("h3_hash_launch", addrs.data_ptr(), tabs.data_ptr(),
+                out.data_ptr(), n, s, m, _stream(addrs))
+        h3_hash.launches += 1
+    return out
+
+
+h3_hash.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bloom_insert
+# ---------------------------------------------------------------------------
+
+
+def _stage_and_pack(lane, reg, pos, lanes, num_regs, num_words):
+    """Scatter (lane, register, position) triples into packed registers."""
+    sig_bits = num_words * 32
+    flat = (lane * num_regs + reg)[:, None] * sig_bits + pos.to(torch.int64)
+    staged = torch.zeros((lanes * num_regs * sig_bits,), dtype=torch.bool,
+                         device=pos.device)
+    staged[flat.reshape(-1)] = True
+    return pack_words(staged.reshape(lanes, num_regs, sig_bits))
+
+
+def bloom_insert_plain(tabs: torch.Tensor, num_words: int, *,
+                       ids: torch.Tensor | None = None,
+                       valid: torch.Tensor | None = None,
+                       bitmap: torch.Tensor | None = None,
+                       num_lines: int = 0, num_regs: int = 1) -> torch.Tensor:
+    """Plain version of :func:`bloom_insert` (same arguments and result)."""
+    if ids is not None:
+        lanes = ids.shape[0]
+        lane, slot = torch.nonzero(valid, as_tuple=True)
+        addr = ids[lane, slot]
+    else:
+        lanes = bitmap.shape[0]
+        bits = unpack_words(bitmap, num_lines)
+        lane, addr = torch.nonzero(bits, as_tuple=True)
+    a64 = addr.to(torch.int64) & 0xFFFFFFFF
+    pos = hash_with_tables(addr, tabs)
+    return _stage_and_pack(lane, a64 % num_regs, pos, lanes, num_regs, num_words)
+
+
+def bloom_insert(tabs: torch.Tensor, num_words: int, *,
+                 ids: torch.Tensor | None = None,
+                 valid: torch.Tensor | None = None,
+                 bitmap: torch.Tensor | None = None,
+                 num_lines: int = 0, num_regs: int = 1) -> torch.Tensor:
+    """Packed Bloom images (L, num_regs, num_words) int32 of
+
+    * an id list: ``ids`` (L, A) int32 with ``valid`` (L, A) bool — invalid
+      slots are skipped before hashing; or
+    * a packed line bitmap: ``bitmap`` (L, ceil(num_lines/32)) int32 — every
+      set line < ``num_lines``.
+
+    Each address goes to register ``address % num_regs`` (``num_regs=16``
+    with a bitmap is the CPUWriteSet bank of ``prep.bank_bits_from_bitmap``;
+    ``num_regs=1`` a single PIMReadSet/PIMWriteSet image).
+
+    Ports ``bloom_insert_pallas`` (``src/repro/kernels/bloom/bloom.py:135``);
+    its bound and design are noted in ``csrc/bloom.cu``."""
+    s, m = _check_tables(tabs)
+    if (ids is None) == (bitmap is None):
+        raise ValueError("bloom_insert takes exactly one of ids= or bitmap=")
+    if num_regs < 1 or num_words < 1:
+        raise ValueError(f"num_regs={num_regs}, num_words={num_words} must be >= 1")
+    if ids is not None:
+        _check("ids", ids, torch.int32, 2)
+        _check("valid", valid, torch.bool, 2)
+        if valid.shape != ids.shape:
+            raise ValueError(f"valid {tuple(valid.shape)} != ids {tuple(ids.shape)}")
+        inputs = (ids, valid, tabs)
+    else:
+        _check("bitmap", bitmap, torch.int32, 2)
+        if bitmap.shape[1] != (num_lines + 31) // 32:
+            raise ValueError(f"bitmap width {bitmap.shape[1]} != "
+                             f"ceil(num_lines/32) for num_lines={num_lines}")
+        inputs = (bitmap, tabs)
+    if _on_cpu(*inputs):
+        return bloom_insert_plain(tabs, num_words, ids=ids, valid=valid,
+                                  bitmap=bitmap, num_lines=num_lines,
+                                  num_regs=num_regs)
+    dev = tabs.device
+    lanes = inputs[0].shape[0]
+    if ids is not None:
+        out = torch.empty((lanes, num_regs, num_words), dtype=torch.int32, device=dev)
+        if lanes:
+            _launch("bloom_insert_ids_launch", ids.data_ptr(), valid.data_ptr(),
+                    tabs.data_ptr(), out.data_ptr(), lanes, ids.shape[1], s, m,
+                    num_regs, num_words, _stream(tabs))
+            bloom_insert.launches += 1
+        return out
+    _check_lanes(lanes)
+    out = torch.zeros((lanes, num_regs, num_words), dtype=torch.int32, device=dev)
+    if lanes and bitmap.shape[1]:
+        _launch("bloom_insert_bitmap_launch", bitmap.data_ptr(), tabs.data_ptr(),
+                out.data_ptr(), lanes, bitmap.shape[1], num_lines, s, m,
+                num_regs, num_words, _stream(tabs))
+        bloom_insert.launches += 1
+    return out
+
+
+bloom_insert.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bloom_query
+# ---------------------------------------------------------------------------
+
+
+def bloom_query_plain(sig: torch.Tensor, words: torch.Tensor,
+                      tabs: torch.Tensor, num_lines: int) -> torch.Tensor:
+    """Plain version of :func:`bloom_query` (same arguments and result)."""
+    bits = unpack_words(words, num_lines)
+    lane, line = torch.nonzero(bits, as_tuple=True)
+    pos = hash_with_tables(line, tabs).to(torch.int64)
+    w = sig[lane[:, None], pos >> 5]
+    member = (((w >> (pos & 31)) & 1) != 0).all(1)
+    out = torch.zeros_like(bits)
+    out[lane[member], line[member]] = True
+    return pack_words(out)
+
+
+def bloom_query(sig: torch.Tensor, words: torch.Tensor, tabs: torch.Tensor,
+                num_lines: int) -> torch.Tensor:
+    """Packed membership of the lines set in ``words``: bit ``i`` of lane
+    ``l`` is set iff line ``i < num_lines`` is set in ``words[l]`` and all M
+    of its H3 positions are set in ``sig[l]`` (real false positives).
+    ``sig`` (L, NW) int32, ``words`` (L, ceil(num_lines/32)) int32 ->
+    (L, ceil(num_lines/32)) int32 with zero pad bits.
+
+    Ports ``bloom_query_pallas`` (``src/repro/kernels/bloom/bloom.py:205``);
+    its bound and design are noted in ``csrc/bloom.cu``."""
+    s, m = _check_tables(tabs)
+    _check("sig", sig, torch.int32, 2)
+    _check("words", words, torch.int32, 2)
+    if sig.shape[0] != words.shape[0]:
+        raise ValueError(f"sig lanes {sig.shape[0]} != words lanes {words.shape[0]}")
+    if words.shape[1] != (num_lines + 31) // 32:
+        raise ValueError(f"words width {words.shape[1]} != ceil(num_lines/32) "
+                         f"for num_lines={num_lines}")
+    if _on_cpu(sig, words, tabs):
+        return bloom_query_plain(sig, words, tabs, num_lines)
+    _check_lanes(words.shape[0])
+    out = torch.empty_like(words)
+    if words.numel():
+        _launch("bloom_query_launch", sig.data_ptr(), words.data_ptr(),
+                tabs.data_ptr(), out.data_ptr(), words.shape[0], words.shape[1],
+                num_lines, s, m, sig.shape[1], _stream(sig))
+        bloom_query.launches += 1
+    return out
+
+
+bloom_query.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bloom_intersect
+# ---------------------------------------------------------------------------
+
+
+def bloom_intersect_plain(a: torch.Tensor, b: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """Plain version of :func:`bloom_intersect` (same arguments and result)."""
+    rows, nw = a.shape
+    per = rows // b.shape[0]
+    inter = a.reshape(b.shape[0], per, nw) & b[:, None, :]
+    seg = inter.reshape(rows, num_segments, nw // num_segments)
+    return (seg != 0).any(2).all(1)
+
+
+def bloom_intersect(a: torch.Tensor, b: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """AND-prefilter: ``a`` (B, NW), ``b`` (L, NW) int32 with ``B % L == 0``;
+    row ``i`` of ``a`` pairs with row ``i // (B // L)`` of ``b`` (so a
+    CPUWriteSet bank of ``B // L`` registers per lane meets its lane's read
+    image).  -> (B,) bool, True iff every segment of the AND is non-empty.
+
+    Ports ``bloom_intersect_pallas``
+    (``src/repro/kernels/bloom/bloom.py:316``); its bound and design are
+    noted in ``csrc/bloom.cu``."""
+    _check("a", a, torch.int32, 2)
+    _check("b", b, torch.int32, 2)
+    rows, nw = a.shape
+    if b.shape[1] != nw or b.shape[0] == 0 or rows % b.shape[0]:
+        raise ValueError(f"bloom_intersect: a {tuple(a.shape)} vs b {tuple(b.shape)}")
+    if not 1 <= num_segments <= 32 or nw % num_segments:
+        raise ValueError(f"num_segments={num_segments} must divide {nw} words "
+                         f"and be <= 32")
+    if _on_cpu(a, b):
+        return bloom_intersect_plain(a, b, num_segments)
+    out = torch.empty((rows,), dtype=torch.bool, device=a.device)
+    if rows:
+        _launch("bloom_intersect_launch", a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), rows, rows // b.shape[0], nw,
+                nw // num_segments, num_segments, _stream(a))
+        bloom_intersect.launches += 1
+    return out
+
+
+bloom_intersect.launches = 0
+
+
+KERNELS = {"h3_hash": h3_hash, "bloom_insert": bloom_insert,
+           "bloom_query": bloom_query, "bloom_intersect": bloom_intersect}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,180 @@
+"""Workload traces (PyTorch port of :mod:`repro.sim.trace` for the paper's
+12 workloads, Fig. 7).
+
+A trace is a sequence of partial-kernel windows (<= 250 signature
+insertions per set, §5.4): per window the cache-line addresses touched by
+the PIM kernel and by the concurrently running processor threads, the
+instruction counts, and a per-kernel pre-write line set for the
+inter-kernel processor phase.  :func:`make_trace` synthesizes one on the
+device (:mod:`repro_torch.sim.synth`); :func:`trace_from_numpy` builds one
+from the fields of any other trace, e.g. one made by ``repro``, so both
+packages can simulate the very same input.
+
+Ported here: the Ligra graph apps and the HTAP IMDB.  The extended
+families (frontier, streaming, multi-tenant) and the captured model
+traces come with later slices of the port and raise a ``ValueError``
+naming that slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.sim import synth
+
+GRAPH_APPS = ("pagerank", "radii", "components")
+GRAPH_INPUTS = ("enron", "arxiv", "gnutella")
+HTAP_APPS = ("htap128", "htap192", "htap256")
+
+# app -> needs a graph input?
+ALL_APPS = {**{a: True for a in GRAPH_APPS},
+            **{a: False for a in HTAP_APPS}}
+
+EXTENDED_SLICE = ("the extended workload families (bfs, sssp, htap_stream, "
+                  "mtmix) come with a later port slice (ROADMAP queue A, "
+                  "'extended families')")
+CAPTURED_SLICE = ("captured model traces (capture/*) come with the capture "
+                  "slice of the port (ROADMAP queue A12)")
+_LATER_APPS = {"bfs": EXTENDED_SLICE, "sssp": EXTENDED_SLICE,
+               "htap_stream": EXTENDED_SLICE, "mtmix": EXTENDED_SLICE}
+
+
+def check_app(app: str) -> None:
+    """Raise a ``ValueError`` for an app this slice does not synthesize."""
+    if app in ALL_APPS:
+        return
+    if app.startswith("capture/"):
+        raise ValueError(f"{app!r}: {CAPTURED_SLICE}")
+    if app in _LATER_APPS:
+        raise ValueError(f"{app!r}: {_LATER_APPS[app]}")
+    raise ValueError(f"unknown app {app!r} (know {sorted(ALL_APPS)})")
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowTrace:
+    """Fixed-shape trace of W partial-kernel windows (tensors on one
+    device)."""
+
+    name: str
+    threads: int
+    num_lines: int
+    pim_reads: torch.Tensor    # (W, AR) int32, -1 = empty slot
+    pim_writes: torch.Tensor   # (W, AW) int32
+    cpu_reads: torch.Tensor    # (W, BR) int32
+    cpu_writes: torch.Tensor   # (W, BW) int32
+    kernel_id: torch.Tensor    # (W,) int32
+    kernel_start: torch.Tensor  # (W,) bool
+    kernel_end: torch.Tensor   # (W,) bool
+    pre_writes: torch.Tensor   # (K, num_lines) bool
+    pim_instr: torch.Tensor    # (W,) float32
+    cpu_instr: torch.Tensor    # (W,) float32
+    cpu_priv_accesses: torch.Tensor  # (W,) float32
+    cpu_priv_miss_rate: float
+    cpu_reuse: float = 6.0
+
+    @property
+    def num_windows(self) -> int:
+        return int(self.pim_reads.shape[0])
+
+    @property
+    def num_kernels(self) -> int:
+        return int(self.pre_writes.shape[0])
+
+
+_TENSOR_DTYPES = {
+    "pim_reads": torch.int32, "pim_writes": torch.int32,
+    "cpu_reads": torch.int32, "cpu_writes": torch.int32,
+    "kernel_id": torch.int32, "kernel_start": torch.bool,
+    "kernel_end": torch.bool, "pre_writes": torch.bool,
+    "pim_instr": torch.float32, "cpu_instr": torch.float32,
+    "cpu_priv_accesses": torch.float32,
+}
+
+
+def trace_from_numpy(fields: dict, device=None) -> WindowTrace:
+    """Build a :class:`WindowTrace` on ``device`` from a dict of numpy
+    arrays and scalars keyed by the WindowTrace field names (for example
+    the fields of a ``repro`` trace), converting each array to its declared
+    dtype."""
+    dev = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(WindowTrace):
+        if f.name not in fields:
+            if f.default is dataclasses.MISSING:
+                raise ValueError(f"trace_from_numpy: missing field {f.name!r}")
+            continue
+        v = fields[f.name]
+        if f.name in _TENSOR_DTYPES:
+            v = torch.from_numpy(np.array(v)).to(
+                device=dev, dtype=_TENSOR_DTYPES[f.name])
+        elif f.name == "name":
+            v = str(v)
+        elif f.name in ("threads", "num_lines"):
+            v = int(v)
+        elif f.name in ("cpu_priv_miss_rate", "cpu_reuse"):
+            v = float(v)
+        kw[f.name] = v
+    return WindowTrace(**kw)
+
+
+def build_plan(app: str, graph_name: str | None = None, threads: int = 16,
+               num_kernels: int = 24, windows_per_kernel: int = 3,
+               seed: int = 0, scale: float | None = None,
+               cpu_reuse: float | None = None):
+    """(plan, edges-or-None, display name) with the reference's per-family
+    defaults (scale 0.01 for the HTAP tables)."""
+    check_app(app)
+    if ALL_APPS[app] and graph_name not in GRAPH_INPUTS:
+        raise ValueError(
+            f"{app!r} needs a graph input from {GRAPH_INPUTS}, got {graph_name!r}")
+    if not ALL_APPS[app] and graph_name is not None:
+        raise ValueError(f"{app!r} is a table workload: graph_name must be "
+                         f"None, got {graph_name!r}")
+    if scale is None:
+        scale = 0.01 if app in HTAP_APPS else 1.0
+    if cpu_reuse is None:
+        cpu_reuse = 6.0
+    if app in GRAPH_APPS:
+        plan, edges = synth.build_graph_plan(
+            app, graph_name, threads, num_kernels, windows_per_kernel, seed,
+            scale, cpu_reuse)
+        return plan, edges, f"{app}-{graph_name}"
+    plan = synth.build_htap_plan(app, threads, num_kernels, windows_per_kernel,
+                                 seed, scale, cpu_reuse)
+    return plan, None, app
+
+
+def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
+               seed: int = 0, num_kernels: int = 24,
+               windows_per_kernel: int = 3, scale: float | None = None,
+               cpu_reuse: float | None = None, device=None) -> WindowTrace:
+    """Synthesize a paper workload on ``device`` (``None`` = the CUDA card;
+    pass ``"cpu"`` for the CPU).  Bit-identical with ``repro``'s
+    ``make_trace`` for the same arguments."""
+    dev = resolve_device(device)
+    plan, edges, name = build_plan(app, graph_name, threads, num_kernels,
+                                   windows_per_kernel, seed, scale, cpu_reuse)
+    arrays = synth.synthesize(plan, seed, edges, dev)
+    return WindowTrace(name=name, threads=plan.threads,
+                       num_lines=plan.total_lines,
+                       cpu_priv_miss_rate=plan.cpu_priv_miss_rate,
+                       cpu_reuse=plan.cpu_reuse, **arrays)
+
+
+def all_workloads(extended: bool = False,
+                  captured: bool = False) -> list[tuple[str, str | None]]:
+    """The paper's 12 evaluated (app, input) pairs (Fig. 7).  The extended
+    and captured families are not ported yet and raise a ``ValueError``."""
+    if extended:
+        raise ValueError(f"all_workloads(extended=True): {EXTENDED_SLICE}")
+    if captured:
+        raise ValueError(f"all_workloads(captured=True): {CAPTURED_SLICE}")
+    out: list[tuple[str, str | None]] = [
+        (a, g) for a in GRAPH_APPS for g in GRAPH_INPUTS
+    ]
+    out += [(a, None) for a in HTAP_APPS]
+    return out
