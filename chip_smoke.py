@@ -7,22 +7,52 @@ Phases, in order; any failure exits non-zero before the final line:
 
 1. environment — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; no CUDA device is a failure;
-2. build — compile ``src/repro_torch/csrc/bloom.cu`` with ``nvcc`` (sm_90a);
-3. one phase per kernel — each kernel against its plain PyTorch version on
-   the card on the main path's data (the HTAP bucket: 3 lanes of 262,144
-   lines, 72 windows of 256 PIM slots; every window checked); integer
-   results, so the tolerance is exact equality; device time of the kernel
-   and of the plain version (``torch.profiler``), their time per call
-   (CUDA events), and the kernel's bound (bytes over 3.35 TB/s vs integer
-   operations over 67 Top/s, whichever is larger);
-4. main path — ``Study(all_workloads())`` with all six mechanisms on
-   ``engine="batch"`` and on ``engine="sequential"``, launch counts reset
+2. build — compile every ``src/repro_torch/csrc/*.cu`` (``bloom.cu``,
+   ``lazy_merge.cu``) with ``nvcc`` for sm_90a, one process each, started
+   together, into the gitignored ``build/``;
+3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
+   ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
+   its plain PyTorch version on the card on that path's data (the HTAP
+   bucket: 3 lanes of 262,144 lines, 72 windows of 256 PIM slots; every
+   window checked); integer results, so the tolerance is exact equality;
+   time per call of the kernel and of the plain version from CUDA events
+   over back-to-back calls on input copies rotated through 100 MB (twice
+   the L2), and the kernel's bound (bytes over 3.35 TB/s vs operations
+   over 67 Top/s, whichever is larger); a time under its bound fails;
+4. Fig. 7 path — ``Study(all_workloads())`` with all six mechanisms on
+   ``engine="batch"`` and ``engine="sequential"``, launch counts set to 0
    just before and read just after each run; the engines must agree on
    every field and ``pagerank-arxiv`` / ``htap128`` must match the goldens
    in ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
-5. profile — one more batch run under ``torch.profiler``: device time by
-   kernel and the device's idle share of the unprofiled batch wall time;
-6. the ``kernels`` JSON line, then the result line.
+5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
+   by kernel and the device's idle share of the unprofiled batch wall time;
+6. capture path — ``Study(["capture/lazy_embed"])`` (the live LazySync
+   protocol recorded at its default scale: vocab 24,000, 48,000 lines in
+   the 65,536-line bucket, 24 kernels x 3 steps) with all six mechanisms on
+   both engines, held against the port's own ``device="cpu"`` run of the
+   same study (event counts exact, ratios 1e-6, raw 1e-4); all six kernels
+   must launch; every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
+   protocol made is held against its plain version on its own inputs;
+7. LazySync at qwen3-4b width — ``LazyEmbed(get_config("qwen3_4b"),
+   LazySyncConfig())`` (G = 4, vocab 151,936, d_model 2,560, bf16, 2,048-bit
+   signatures, budget 1,024, commit every 16 steps): 24 ``sync_step``s with
+   4,096 zipf-drawn touched ids per group and a sparse gradient on those
+   rows, both from numpy seeds; each step's ``bloom_detect_conflicts`` and
+   ``lazy_merge`` calls held against their plain versions (exact), every
+   replica equal to ``base`` after the commit; step wall times, conflict
+   rows, pinned rows, bytes against the dense all-reduce, peak memory;
+   then 8 more steps twice from one snapshot, unprofiled and under
+   ``torch.profiler``, for the device's idle share of a step;
+8. LazySync kernel phases — first, at qwen3-4b width, B5 on a draw of
+   1,024 ids a group, whose hit counts must vary (the path's own draw
+   saturates the signatures), and B6 on the path's reconcile rows with
+   about half of them valid; then ``bloom_detect_conflicts`` at the
+   capture's shape (G = 4, N = 192) and at qwen3-4b width (N = 16,384);
+   ``lazy_merge`` at the reconcile shape (4, 1,024, 2,560) and the commit
+   shape (4, 151,936, 2,560) in bf16, on inputs the two paths gave them:
+   times and bounds as in phase 3 (merge: exact expected, 1e-6 relative
+   allowed);
+9. the ``kernels`` JSON line (six kernels), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -30,6 +60,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import pathlib
@@ -48,13 +79,25 @@ RATIO_RTOL, RAW_RTOL = 1e-6, 1e-4
 # float32 rate outside the tensor cores used as the integer-ALU ceiling.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+ROTATE_BYTES = 2 * 50 * 2**20  # twice the H100's L2
+SPIN_CYCLES_PER_S = 2.0e9      # above the H100's top SM clock, 1.98 GHz
 TPU_KERNEL = {
     "h3_hash": "src/repro/kernels/bloom/bloom.py:62",
     "bloom_insert": "src/repro/kernels/bloom/bloom.py:135",
     "bloom_query": "src/repro/kernels/bloom/bloom.py:205",
     "bloom_intersect": "src/repro/kernels/bloom/bloom.py:316",
+    "bloom_detect_conflicts": "src/repro/kernels/bloom/bloom.py:266",
+    "lazy_merge": "src/repro/kernels/lazy_merge/lazy_merge.py:30",
 }
-SOURCE = "src/repro_torch/csrc/bloom.cu"
+SOURCE = {name: "src/repro_torch/csrc/bloom.cu" for name in TPU_KERNEL}
+SOURCE["lazy_merge"] = "src/repro_torch/csrc/lazy_merge.cu"
+FIG7_KERNELS = ("h3_hash", "bloom_insert", "bloom_query", "bloom_intersect")
+MERGE_RTOL = 1e-6
+CAPTURE_APP = "capture/lazy_embed"
+LAZY_STEPS = 24          # qwen3-4b-width sync_steps (commit fires at 16)
+LAZY_PROFILE_STEPS = 8   # steps timed twice for the idle share
+LAZY_TOUCHED = 4096      # touched ids per group per step
+LAZY_ZIPF = 3.0
 
 # Main-path shapes: the HTAP geometry bucket (3 lanes of 262,144 lines,
 # 72 windows of 256 PIM slots), the paper's 2048-bit / 4-segment signature.
@@ -96,65 +139,84 @@ def environment():
 def build():
     phase("build")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
     from repro_torch.kernels.bloom import bloom as K
 
+    LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
     t0 = time.perf_counter()
-    lib = K.build_library()
+    libs = _build.build_all()
     K._lib()
-    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    LM._lib()
+    print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
+          f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+          f"parallel)", flush=True)
     return K
 
 
-def event_ms(fn, iters: int) -> float:
-    """Mean time per call of ``fn`` between CUDA events over ``iters``
-    back-to-back calls, after a warm-up: the device time plus any gap the
-    host leaves between launches."""
+def rotations(args: tuple, iters: int) -> list[tuple]:
+    """``args`` and copies of its tensors: enough sets (at most ``iters``)
+    that one pass through them reads ``ROTATE_BYTES``, so a timed loop that
+    cycles through them reads its inputs from HBM and not from the 50 MB
+    L2, as a caller with fresh data does."""
     import torch
 
-    for _ in range(3):
-        fn()
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    n = max(1, min(iters, math.ceil(ROTATE_BYTES / max(nbytes, 1))))
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args) for _ in range(n - 1)]
+
+
+def event_ms(fn, sets: list[tuple], iters: int) -> float:
+    """Mean time per call of ``fn(*sets[i % len(sets)])`` between CUDA
+    events over ``iters`` back-to-back calls, after a warm-up.  A spin
+    kernel holds the stream while the host enqueues the calls, so the
+    events time the device running them back to back, not the host's
+    launch rate (a call that synchronizes inside still shows its gap)."""
+    import torch
+
+    for args in sets[:3]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * enqueue_s, 2.0) * SPIN_CYCLES_PER_S))
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, iters: int) -> float | None:
-    """Mean device time per call of ``fn``: the sum of every CUDA kernel,
-    memset and copy it ran, from ``torch.profiler``; None when the profiler
-    records no device activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / iters / 1e3 if total_us > 0 else None
-
-
-def time_pair(fn, iters: int) -> tuple[float, float, str]:
-    """(device ms, per-call ms, timing source) for one callable."""
-    call = event_ms(fn, iters)
-    dev = device_ms(fn, iters)
-    return (dev, call, "profiler") if dev is not None else (call, call, "events")
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def measure(label: str, err: float, fn, plain, args: tuple, nbytes: float,
+            ops: float, iters: int = 200, plain_iters: int = 10) -> dict:
+    """Time ``fn(*args)`` and its plain version on the same inputs, rotated
+    out of L2 (:func:`rotations`), with CUDA events; the kernel's bound
+    from the bytes and operations the call needs.  A time under the bound
+    is a fault of the timing and fails the phase."""
+    sets = rotations(args, iters)
+    ms = event_ms(fn, sets, iters)
+    plain_ms = event_ms(plain, sets, plain_iters)
+    b, by = bound_ms(nbytes, ops)
+    print(f"{label}: max |err| {err}; per call (CUDA events, {len(sets)} input "
+          f"sets) kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; bound {b:.6f} ms "
+          f"({by}, {b / ms:.3f} of it reached)", flush=True)
+    check(ms >= b, f"{label}: {ms:.6f} ms is under the bound {b:.6f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, timing="events",
+                input_sets=len(sets))
 
 
 def kernel_phases(K) -> dict[str, dict]:
@@ -202,16 +264,8 @@ def kernel_phases(K) -> dict[str, dict]:
                         f"(max |diff| {err}, {int((diff != 0).sum())} elements)")
         return err
 
-    def record(name, err, fn, plain, nbytes, ops):
-        ms, call_ms, src = time_pair(fn, 200)
-        plain_ms, plain_call_ms, _ = time_pair(plain, 10)
-        b, by = bound_ms(nbytes, ops)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=None,
-                         timing=src, call_ms=call_ms, plain_call_ms=plain_call_ms)
-        print(f"{name}: exact; device time ({src}) kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms; per call kernel {call_ms:.5f} ms, plain "
-              f"{plain_call_ms:.5f} ms; bound {b:.6f} ms ({by})", flush=True)
+    def record(name, err, fn, plain, args, nbytes, ops):
+        out[name] = measure(name, err, fn, plain, args, nbytes, ops)
 
     phase("kernel h3_hash")
     lines = torch.arange(LINES, dtype=torch.int32, device=dev)
@@ -220,8 +274,7 @@ def kernel_phases(K) -> dict[str, dict]:
                          generator=torch.Generator(device=dev).manual_seed(0))
     exact("h3_hash (32-bit addresses)", K.h3_hash(full, tabs),
           K.h3_hash_plain(full, tabs))
-    record("h3_hash", err, lambda: K.h3_hash(lines, tabs),
-           lambda: K.h3_hash_plain(lines, tabs),
+    record("h3_hash", err, K.h3_hash, K.h3_hash_plain, (lines, tabs),
            nbytes=LINES * 4 + LINES * M * 4 + tabs.numel() * 4,
            ops=LINES * M * (2 * S - 1))
 
@@ -236,16 +289,15 @@ def kernel_phases(K) -> dict[str, dict]:
         tabs, NW, bitmap=dirty, num_lines=LINES, num_regs=16))
     ids, valid = st.pim_reads[:, 0].contiguous(), st.pim_r_valid[:, 0].contiguous()
     n_valid = int(valid.sum())
-    record("bloom_insert", err, lambda: K.bloom_insert(tabs, NW, ids=ids, valid=valid),
-           lambda: K.bloom_insert_plain(tabs, NW, ids=ids, valid=valid),
+    record("bloom_insert", err, lambda i, v: K.bloom_insert(tabs, NW, ids=i, valid=v),
+           lambda i, v: K.bloom_insert_plain(tabs, NW, ids=i, valid=v), (ids, valid),
            nbytes=ids.numel() * 5 + L * NW * 4 + tabs.numel() * 4,
            ops=n_valid * M * (2 * S + 2))
-    bank_ms, bank_call_ms, src = time_pair(
-        lambda: K.bloom_insert(tabs, NW, bitmap=dirty, num_lines=LINES,
-                               num_regs=16), 200)
+    bank_ms = event_ms(lambda d: K.bloom_insert(tabs, NW, bitmap=d, num_lines=LINES,
+                                                num_regs=16),
+                       rotations((dirty,), 200), 200)
     print(f"bloom_insert bank mode ({n_dirty} dirty lines in {L} lanes): exact; "
-          f"device time ({src}) {bank_ms:.5f} ms incl. its zero fill, per call "
-          f"{bank_call_ms:.5f} ms", flush=True)
+          f"per call (CUDA events) {bank_ms:.5f} ms incl. its zero fill", flush=True)
 
     phase("kernel bloom_query")
     sigs = sigs[:, 0].contiguous()                          # (L * W, NW)
@@ -253,8 +305,8 @@ def kernel_phases(K) -> dict[str, dict]:
     err = exact("bloom_query", K.bloom_query(sigs, words_all, tabs, LINES),
                 K.bloom_query_plain(sigs, words_all, tabs, LINES))
     read_sig = sigs.reshape(L, W, NW)[:, 0].contiguous()
-    record("bloom_query", err, lambda: K.bloom_query(read_sig, present, tabs, LINES),
-           lambda: K.bloom_query_plain(read_sig, present, tabs, LINES),
+    record("bloom_query", err, lambda sg, w: K.bloom_query(sg, w, tabs, LINES),
+           lambda sg, w: K.bloom_query_plain(sg, w, tabs, LINES), (read_sig, present),
            nbytes=2 * present.numel() * 4 + read_sig.numel() * 4 + tabs.numel() * 4,
            ops=present.numel() * 2 + n_present * M * (2 * S + 2))
 
@@ -263,8 +315,8 @@ def kernel_phases(K) -> dict[str, dict]:
     err = exact("bloom_intersect", K.bloom_intersect(bank_all, sigs, M),
                 K.bloom_intersect_plain(bank_all, sigs, M))
     flat_bank = bank.reshape(L * 16, NW)
-    record("bloom_intersect", err, lambda: K.bloom_intersect(flat_bank, read_sig, M),
-           lambda: K.bloom_intersect_plain(flat_bank, read_sig, M),
+    record("bloom_intersect", err, lambda a, b: K.bloom_intersect(a, b, M),
+           lambda a, b: K.bloom_intersect_plain(a, b, M), (flat_bank, read_sig),
            nbytes=flat_bank.numel() * 4 + read_sig.numel() * 4 + L * 16,
            ops=flat_bank.numel() * 2)
     return out
@@ -303,25 +355,27 @@ def check_golden(rs, golden: dict, label: str) -> float:
 def main_path(K) -> dict[str, dict[str, int]]:
     import torch
 
+    from repro_torch import kernels as KS
     from repro_torch.api import MECHANISMS, Study, all_workloads
 
     golden = json.loads((GOLDEN_DIR / "fig7_golden.json").read_text())
     golden_batch = json.loads((GOLDEN_DIR / "fig7_batched_golden.json").read_text())
     runs, counts, walls = {}, {}, {}
     for engine in ("batch", "sequential"):
-        phase(f"main path, engine={engine}")
+        phase(f"Fig. 7 path, engine={engine}")
         torch.cuda.synchronize()
-        K.reset_launch_counts()
+        KS.reset_launch_counts()
         t0 = time.perf_counter()
         rs = Study(all_workloads()).run(engine=engine)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[engine] = K.launch_counts()
+        counts[engine] = KS.launch_counts()
         runs[engine], walls[engine] = rs, wall
         print(f"{engine}: {len(rs)} workloads x {len(MECHANISMS)} mechanisms "
               f"in {wall:.2f} s wall; launches {counts[engine]}", flush=True)
-        for name, n in counts[engine].items():
-            check(n > 0, f"{engine}: kernel {name} was never launched")
+        for name in FIG7_KERNELS:
+            check(counts[engine][name] > 0,
+                  f"{engine}: kernel {name} was never launched")
         check(len(rs) == 12, f"{engine}: {len(rs)} points, want 12")
         for p in rs:
             for m, r in p.results.items():
@@ -354,7 +408,7 @@ def main_path_profile(batch_wall_s: float) -> dict:
 
     from repro_torch.api import Study, all_workloads
 
-    phase("main path profile, engine=batch")
+    phase("Fig. 7 path profile, engine=batch")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         Study(all_workloads()).run(engine="batch")
         torch.cuda.synchronize()
@@ -375,6 +429,419 @@ def main_path_profile(batch_wall_s: float) -> dict:
     return summary
 
 
+class KernelTap:
+    """While active, records every ``bloom_detect_conflicts`` and
+    ``lazy_merge`` call the LazySync module makes — inputs and result —
+    by wrapping the two names it calls; the wrapped calls launch exactly
+    what they would have, and the tap itself launches nothing.
+    :meth:`check` then holds each recorded result against the kernel's
+    plain version on the same inputs (those launches are not counted)."""
+
+    def __init__(self):
+        self.b5, self.b6 = [], []
+
+    def __enter__(self):
+        import repro_torch.core.lazy_sync as LS
+
+        self._mod = LS
+        self._orig = (LS.bloom_detect_conflicts, LS.lazy_merge)
+        detect, merge = self._orig
+
+        def tapped_detect(spec, sigs, addrs):
+            out = detect(spec, sigs, addrs)
+            self.b5.append((spec, sigs, addrs, out))
+            return out
+
+        def tapped_merge(rows, base, valid):
+            out = merge(rows, base, valid)
+            self.b6.append((rows, base, valid, out))
+            return out
+
+        LS.bloom_detect_conflicts, LS.lazy_merge = tapped_detect, tapped_merge
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.bloom_detect_conflicts, self._mod.lazy_merge = self._orig
+        return False
+
+    def clear(self) -> None:
+        self.b5.clear()
+        self.b6.clear()
+
+    def check(self, label: str) -> tuple[int, float]:
+        """(max |diff| of the B5 counts, max relative diff of the B6 merges)
+        over every recorded call; fails past exact / ``MERGE_RTOL``."""
+        import torch
+
+        from repro_torch.core.signatures import tables_tensor, to_addr_i32
+        from repro_torch.kernels.bloom import bloom as K
+
+        LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
+        err5, err6 = 0, 0.0
+        for spec, sigs, addrs, out in self.b5:
+            want = K.bloom_detect_conflicts_plain(
+                sigs.contiguous(), to_addr_i32(addrs), tables_tensor(spec, sigs.device))
+            err5 = max(err5, int((out.to(torch.int64) - want).abs().max())
+                       if out.numel() else 0)
+        for rows, base, valid, out in self.b6:
+            want = LM.lazy_merge_plain(rows, base, valid)
+            err6 = max(err6, merge_rel_err(out, want))
+        check(err5 == 0, f"{label}: bloom_detect_conflicts disagrees with its "
+                         f"plain version (max |diff| {err5})")
+        check(err6 <= MERGE_RTOL, f"{label}: lazy_merge disagrees with its plain "
+                                  f"version (max rel diff {err6:.3g})")
+        return err5, err6
+
+
+def merge_rel_err(got, want) -> float:
+    if not got.numel():
+        return 0.0
+    diff = (got - want).abs()
+    return float((diff / want.abs().clamp_min(1e-30)).max())
+
+
+def compare_results(a, b, label: str) -> float:
+    """Hold one ResultSet's SimResults to another's: event counts exact,
+    raw accumulators 1e-4 relative, the summary ratios 1e-6; returns the
+    worst relative gap seen."""
+    from repro_torch.api import summarize
+
+    worst = 0.0
+    check([p.workload for p in a] == [p.workload for p in b],
+          f"{label}: workloads differ")
+    for pa, pb in zip(a.points, b.points):
+        check(set(pa.results) == set(pb.results), f"{label}: mechanisms differ")
+        for m in pa.results:
+            da, db = dataclasses.asdict(pa.results[m]), dataclasses.asdict(pb.results[m])
+            for k, want in db.items():
+                have = da[k]
+                if isinstance(want, str):
+                    check(have == want, f"{label}/{m}/{k}: {have!r} vs {want!r}")
+                elif k in EVENT_KEYS:
+                    check(have == want, f"{label}/{m}/{k}: {have} vs {want} (exact)")
+                else:
+                    gap = _rel(have, want)
+                    worst = max(worst, gap)
+                    check(gap < RAW_RTOL, f"{label}/{m}/{k}: {have!r} vs {want!r}")
+        sa, sb = summarize(pa.results, pa.hw), summarize(pb.results, pb.hw)
+        for m in sb:
+            for k in RATIO_KEYS:
+                gap = _rel(sa[m][k], sb[m][k])
+                worst = max(worst, gap)
+                check(gap < RATIO_RTOL, f"{label}/{m}/{k}: {sa[m][k]!r} vs {sb[m][k]!r}")
+    return worst
+
+
+def capture_path() -> tuple[dict, dict, KernelTap]:
+    """``Study(["capture/lazy_embed"])`` on both engines against the port's
+    CPU run of the same study; every B5/B6 call held against its plain
+    version.  Returns (launch counts, wall s, the tap of the batch run)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import MECHANISMS, Study
+
+    counts, walls, taps = {}, {}, {}
+    for engine in ("batch", "sequential"):
+        phase(f"capture path, engine={engine}")
+        tap = KernelTap()
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tap:
+            rs = Study([CAPTURE_APP]).run(engine=engine)
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        counts[engine] = KS.launch_counts()
+        print(f"{engine}: {CAPTURE_APP} x {len(MECHANISMS)} mechanisms in "
+              f"{walls[engine]:.2f} s wall; launches {counts[engine]}", flush=True)
+        for name in TPU_KERNEL:
+            check(counts[engine][name] > 0,
+                  f"capture/{engine}: kernel {name} was never launched")
+        t0 = time.perf_counter()
+        cpu = Study([CAPTURE_APP], device="cpu").run(engine=engine)
+        cpu_wall = time.perf_counter() - t0
+        worst = compare_results(rs, cpu, f"capture/{engine}")
+        err5, err6 = tap.check(f"capture/{engine}")
+        print(f"{engine}: equals the port's CPU run ({cpu_wall:.2f} s) on every "
+              f"field (worst rel gap {worst:.3g}); {len(tap.b5)} "
+              f"bloom_detect_conflicts calls exact, {len(tap.b6)} lazy_merge "
+              f"calls within {err6:.3g} of their plain versions", flush=True)
+        taps[engine] = tap
+    return counts, walls, taps["batch"]
+
+
+def _lazy_touched(rng, vocab: int, groups: int, per_group: int):
+    """(G, per_group) int32 touched ids drawn as ``capture_lazy_embed``
+    draws them: zipf ranks with a small per-group shift through a fixed
+    hot-set permutation."""
+    import numpy as np
+
+    base_rng = np.random.default_rng(0)
+    order = base_rng.permutation(vocab)
+    shifts = base_rng.integers(0, vocab // 64, size=groups)
+    u = rng.random((groups, per_group))
+    ranks = np.minimum((vocab * u ** LAZY_ZIPF).astype(np.int64), vocab - 1)
+    return order[np.minimum(ranks + shifts[:, None], vocab - 1)].astype(np.int32)
+
+
+def _lazy_batch(step: int, vocab: int, d: int, groups: int, dev):
+    """One step's inputs at full width, from numpy seeds: (G, T) touched
+    ids (:func:`_lazy_touched`) and a dense (G, V, d) float32 gradient that
+    is nonzero on exactly those rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng([1, step])
+    touched = _lazy_touched(rng, vocab, groups, LAZY_TOUCHED)
+    grads = torch.zeros((groups, vocab, d), dtype=torch.float32, device=dev)
+    for g in range(groups):
+        rows = np.unique(touched[g])
+        vals = rng.standard_normal((rows.size, d), dtype=np.float32) * np.float32(0.01)
+        grads[g, torch.from_numpy(rows).to(dev)] = torch.from_numpy(vals).to(dev)
+    return torch.from_numpy(touched).to(dev), grads
+
+
+def lazysync_path() -> dict:
+    """24 ``sync_step``s of LazySync at qwen3-4b width on the card, each
+    step's kernel calls held against their plain versions; then the idle
+    share from 8 more steps run twice from one snapshot."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.core.lazy_sync import LazyEmbed, LazySyncConfig, init_state
+
+    phase("LazySync at qwen3-4b width")
+    dev = torch.device("cuda", 0)
+    mcfg, cfg = get_config("qwen3_4b"), LazySyncConfig()
+    emb = LazyEmbed(mcfg, cfg)
+    vocab, d, groups = mcfg.vocab, mcfg.d_model, cfg.num_groups
+    print(f"{mcfg.name}: vocab {vocab}, d_model {d}, {groups} groups, "
+          f"{cfg.sig_bits}-bit signatures / {cfg.num_segments} segments, budget "
+          f"{cfg.max_reconcile_rows}, commit every {cfg.commit_interval}, "
+          f"{mcfg.param_dtype}; {LAZY_TOUCHED} touched ids per group", flush=True)
+    params = emb.init(torch.Generator(device=dev).manual_seed(0))
+    state = init_state(cfg, vocab, dev)
+    counts = {name: 0 for name in TPU_KERNEL}
+    steps, keep = [], {}
+    tap = KernelTap()
+    for step in range(LAZY_STEPS):
+        touched, grads = _lazy_batch(step, vocab, d, groups, dev)
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tap:
+            params, state, m = emb.sync_step(params, state, touched, grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, n in KS.launch_counts().items():
+            counts[name] += n
+        del grads
+        err5, err6 = tap.check(f"qwen3 step {step + 1}")
+        if "detect" not in keep:
+            keep["detect"] = tap.b5[0]
+            keep["reconcile"] = tap.b6[0]
+        row = dict(step=step + 1, wall_s=wall,
+                   lazy_conflict_rows=int(m["lazy_conflict_rows"]),
+                   lazy_pinned=int(m["lazy_pinned"]),
+                   lazy_commit=bool(m["lazy_commit"]),
+                   lazy_bytes=int(m["lazy_bytes"]), dense_bytes=int(m["dense_bytes"]),
+                   b5_err=err5, b6_rel_err=err6)
+        if row["lazy_commit"]:
+            keep["commit"] = tap.b6[-1]
+            table, base = params["table"], params["base"]
+            for g in range(groups):
+                check(torch.equal(table[g], base),
+                      f"qwen3 step {step + 1}: replica {g} != base after the commit")
+            row["replicas_equal_base"] = True
+        tap.clear()
+        steps.append(row)
+        print(f"step {row['step']:2d}: {wall * 1e3:9.3f} ms; conflict rows "
+              f"{row['lazy_conflict_rows']}, pinned {row['lazy_pinned']}, commit "
+              f"{row['lazy_commit']}, lazy {row['lazy_bytes']} B vs dense "
+              f"{row['dense_bytes']} B; B5 exact, B6 rel err {err6:.3g}", flush=True)
+    check(sum(r["lazy_commit"] for r in steps) >= 1, "qwen3: no commit fired")
+    check("commit" in keep, "qwen3: the commit's merge was not seen")
+    for name in ("h3_hash", "bloom_detect_conflicts", "lazy_merge"):
+        check(counts[name] > 0, f"qwen3: kernel {name} was never launched")
+
+    # idle share: the same 8 steps from one snapshot, unprofiled then
+    # profiled, on one step's inputs reused (bounded memory)
+    snap_p = {k: v.clone() for k, v in params.items()}
+    snap_s = {k: v.clone() for k, v in state.items()}
+    del params, state
+    window_inputs = _lazy_batch(LAZY_STEPS, vocab, d, groups, dev)
+
+    def run_window():
+        p, st = snap_p, snap_s
+        for _ in range(LAZY_PROFILE_STEPS):
+            p, st, _ = emb.sync_step(p, st, *window_inputs)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_window()
+    window_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_window()
+    by_name = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(t for t, _, _ in by_name)
+    for t, c, k in by_name[:8]:
+        print(f"  {t:9.4f} s {c:5d}x  {k[:100]}")
+    idle = 1.0 - busy / window_wall
+    walls = [r["wall_s"] for r in steps]
+    plain_walls = [r["wall_s"] for r in steps if not r["lazy_commit"]]
+    summary = dict(steps=steps, launches=counts,
+                   step_wall_s_median=sorted(plain_walls)[len(plain_walls) // 2],
+                   commit_step_wall_s=[r["wall_s"] for r in steps if r["lazy_commit"]],
+                   total_wall_s=sum(walls), idle_window_steps=LAZY_PROFILE_STEPS,
+                   idle_window_wall_s=window_wall, idle_window_busy_s=busy,
+                   idle_share=idle, peak_mem_window_bytes=peak,
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in by_name[:8]])
+    print(f"24 steps: {sum(walls):.3f} s; median non-commit step "
+          f"{summary['step_wall_s_median'] * 1e3:.3f} ms; commit step(s) "
+          f"{[round(w * 1e3, 3) for w in summary['commit_step_wall_s']]} ms; "
+          f"launches {counts}", flush=True)
+    print(f"idle share: device busy {busy:.4f} s of {window_wall:.4f} s over "
+          f"{LAZY_PROFILE_STEPS} steps (idle share {idle:.3f}); peak memory "
+          f"allocated over those steps {peak / 2**30:.2f} GiB (a 3.9 GB "
+          f"snapshot of the params included)", flush=True)
+    summary["keep"] = keep
+    return summary
+
+
+def unsaturated_checks(keep: dict) -> dict:
+    """B5 and B6 against their plain versions at qwen3-4b width where their
+    outputs vary.  At the path's load the 2,048-bit signatures saturate and
+    every touched id tests as a member of all G groups, and every budget
+    row is valid; so B5 also runs on a draw of a quarter the size (1,024
+    ids a group) at vocab 151,936, whose hit counts must take at least
+    three values, and B6 on the path's reconcile rows with about half the
+    valid flags cleared."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lazy_sync import LazyEmbed, LazySyncConfig
+    from repro_torch.core.signatures import pack_words, tables_tensor, to_addr_i32
+    from repro_torch.kernels.bloom import bloom as K
+
+    LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
+    dev = torch.device("cuda", 0)
+    mcfg, cfg = get_config("qwen3_4b"), LazySyncConfig()
+    emb = LazyEmbed(mcfg, cfg)
+    touched = torch.from_numpy(_lazy_touched(np.random.default_rng(2), mcfg.vocab,
+                                             cfg.num_groups, 1024)).to(dev)
+    sigs = pack_words(emb.signatures(touched)).contiguous()
+    ids = to_addr_i32(touched.reshape(-1))
+    tabs = tables_tensor(emb.spec, dev)
+    got = K.bloom_detect_conflicts(sigs, ids, tabs)
+    want = K.bloom_detect_conflicts_plain(sigs, ids, tabs)
+    err5 = int((got.to(torch.int64) - want).abs().max())
+    check(err5 == 0, f"B5 off saturation: kernel disagrees with plain version "
+                     f"(max |diff| {err5})")
+    hist = torch.bincount(want.to(torch.int64), minlength=cfg.num_groups + 1).tolist()
+    check(sum(1 for c in hist if c) >= 3,
+          f"B5 off saturation: hit counts {hist} do not vary")
+    print(f"bloom_detect_conflicts (G={cfg.num_groups}, N={ids.numel()}, vocab "
+          f"{mcfg.vocab}): exact; ids by hit-group count 0..{cfg.num_groups}: "
+          f"{hist}", flush=True)
+
+    rows, base, _, _ = keep["reconcile"]
+    r = rows.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    valid = torch.rand((r,), generator=gen, device=dev) < 0.5
+    n_valid = int(valid.sum())
+    check(0 < n_valid < r, f"B6 mixed flags: {n_valid} of {r} valid")
+    got = LM.lazy_merge(rows, base, valid)
+    want = LM.lazy_merge_plain(rows, base, valid)
+    err6 = merge_rel_err(got, want)
+    check(err6 <= MERGE_RTOL, f"B6 mixed flags: kernel disagrees with plain "
+                              f"version (rel {err6:.3g})")
+    check(torch.equal(got[~valid], base[~valid].to(torch.float32)),
+          "B6 mixed flags: an invalid row is not its base row")
+    print(f"lazy_merge {tuple(rows.shape)} {rows.dtype}, {n_valid} of {r} rows "
+          f"valid: max rel diff {err6:.3g}, invalid rows equal base", flush=True)
+    return dict(b5=dict(G=cfg.num_groups, N=ids.numel(), vocab=mcfg.vocab,
+                        hit_count_histogram=hist, max_abs_err=err5),
+                b6=dict(shape=list(rows.shape), dtype=str(rows.dtype),
+                        valid=n_valid, max_rel_err=err6))
+
+
+def lazysync_kernel_phases(capture_tap: KernelTap, keep: dict) -> dict[str, dict]:
+    """B5 and B6 against their plain versions, timed, on inputs the two
+    paths gave them: B5 at the capture's shape and at qwen3-4b width, B6
+    at the qwen3 reconcile and commit shapes (and the capture's, printed)."""
+    import torch
+
+    from repro_torch.core.signatures import tables_tensor, to_addr_i32
+    from repro_torch.kernels.bloom import bloom as K
+
+    LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
+    out = {}
+
+    def b5(label, rec):
+        spec, sigs, addrs, _ = rec
+        sigs = sigs.contiguous()
+        ids = to_addr_i32(addrs)
+        tabs = tables_tensor(spec, sigs.device)
+        got = K.bloom_detect_conflicts(sigs, ids, tabs)
+        want = K.bloom_detect_conflicts_plain(sigs, ids, tabs)
+        err = int((got.to(torch.int64) - want).abs().max())
+        check(err == 0, f"{label}: kernel disagrees with plain version")
+        g, nw = sigs.shape
+        n = ids.numel()
+        m, s = spec.num_segments, spec.num_byte_slices
+        st = measure(f"{label} (G={g}, N={n})", err, K.bloom_detect_conflicts,
+                     K.bloom_detect_conflicts_plain, (sigs, ids, tabs),
+                     nbytes=n * 4 + n * 4 + g * nw * 4 + tabs.numel() * 4,
+                     ops=n * m * (2 * s - 1) + n * m * g * 2 + n * g)
+        return dict(st, shape=dict(G=g, N=n))
+
+    def b6(label, rec, iters=200):
+        rows, base, valid, _ = rec
+        got = LM.lazy_merge(rows, base, valid)
+        want = LM.lazy_merge_plain(rows, base, valid)
+        err = merge_rel_err(got, want)
+        check(err <= MERGE_RTOL, f"{label}: kernel disagrees with plain version "
+                                 f"(rel {err:.3g})")
+        abs_err = float((got - want).abs().max()) if got.numel() else 0.0
+        g, r, dd = rows.shape
+        n_valid = int(valid.sum())
+        es = rows.element_size()
+        st = measure(f"{label} (G={g}, R={r}, D={dd}, {rows.dtype}, {n_valid} valid)",
+                     abs_err, LM.lazy_merge, LM.lazy_merge_plain, (rows, base, valid),
+                     nbytes=g * n_valid * dd * es + r * dd * es + r + r * dd * 4,
+                     ops=(2 * g + 1) * n_valid * dd, iters=iters)
+        return dict(st, shape=dict(G=g, R=r, D=dd, dtype=str(rows.dtype),
+                                   valid=n_valid), max_rel_err=err)
+
+    phase("LazySync kernels off saturation, qwen3-4b width")
+    off = unsaturated_checks(keep)
+    phase("kernel bloom_detect_conflicts")
+    cap = b5("bloom_detect_conflicts, capture", capture_tap.b5[0])
+    full = b5("bloom_detect_conflicts, qwen3-4b width", keep["detect"])
+    out["bloom_detect_conflicts"] = dict(full, other_shapes=[cap],
+                                         unsaturated_check=off["b5"])
+    phase("kernel lazy_merge")
+    cap_rec = b6("lazy_merge, capture reconcile", capture_tap.b6[0])
+    commits = [r for r in capture_tap.b6 if r[2].all()]
+    cap_commit = b6("lazy_merge, capture commit", commits[0]) if commits else None
+    rec = b6("lazy_merge, qwen3-4b reconcile", keep["reconcile"])
+    com = b6("lazy_merge, qwen3-4b commit", keep["commit"], iters=50)
+    out["lazy_merge"] = dict(rec, other_shapes=[com, cap_rec]
+                             + ([cap_commit] if cap_commit else []),
+                             mixed_valid_check=off["b6"])
+    return out
+
+
 def main() -> int:
     try:
         environment()
@@ -384,14 +851,25 @@ def main() -> int:
         stats = kernel_phases(K)
         counts, walls = main_path(K)
         profile = main_path_profile(walls["batch"])
+        cap_counts, cap_walls, cap_tap = capture_path()
+        lazy = lazysync_path()
+        keep = lazy.pop("keep")
+        stats.update(lazysync_kernel_phases(cap_tap, keep))
+        del keep, cap_tap
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    by_path = {"fig7_batch": counts["batch"], "fig7_sequential": counts["sequential"],
+               "capture_batch": cap_counts["batch"],
+               "capture_sequential": cap_counts["sequential"],
+               "qwen3_lazysync": lazy["launches"]}
+    kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=TPU_KERNEL[name],
-                    launches=counts["batch"][name] + counts["sequential"][name],
+                    launches=sum(c[name] for c in by_path.values()),
+                    launches_by_path={p: c[name] for p, c in by_path.items()},
                     **stats[name]) for name in TPU_KERNEL]
-    print(json.dumps({"profile": profile, "main_path_wall_s": walls}))
+    print(json.dumps({"profile": profile, "fig7_wall_s": walls,
+                      "capture_wall_s": cap_walls, "lazysync": lazy}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,56 @@
+"""Coherence-trace capture from live execution, PyTorch port of
+:mod:`repro.capture`.
+
+Each adapter runs live code and records the integer index streams it
+already computes as a :class:`repro_torch.sim.trace.WindowTrace`, through
+the recorder (:mod:`.recorder`), the line-mapper (:mod:`.layout`) and the
+windower.  Ported here: ``capture/lazy_embed``, which records the LazySync
+protocol (:mod:`repro_torch.core.lazy_sync`).  ``capture/kv_serve`` and
+``capture/moe_experts`` drive the model zoo and come with that slice of
+the port (ROADMAP A11 / A12); asking for them raises a ``ValueError``
+naming it.
+"""
+
+from __future__ import annotations
+
+from repro_torch.capture.lazy_embed import LazyEmbedConfig, capture_lazy_embed
+from repro_torch.capture.layout import LineLayout, Region
+from repro_torch.capture.recorder import WindowRecorder
+from repro_torch.sim.trace import (
+    CAPTURE_APPS,
+    MODEL_ZOO_SLICE,
+    PORTED_CAPTURE_APPS,
+    WindowTrace,
+)
+
+_ADAPTERS = {"capture/lazy_embed": capture_lazy_embed}
+assert set(_ADAPTERS) == set(PORTED_CAPTURE_APPS)
+
+# Per-adapter cpu_reuse default (the reference's value for this adapter).
+_CPU_REUSE = {"capture/lazy_embed": 6.0}
+
+
+def capture_trace(app: str, threads: int = 16, seed: int = 0,
+                  num_kernels: int = 24, windows_per_kernel: int = 3,
+                  scale: float | None = None, cpu_reuse: float | None = None,
+                  device=None) -> WindowTrace:
+    """``make_trace`` backend for ``capture/*`` apps, on ``device``
+    (``None`` = the CUDA card)."""
+    fn = _ADAPTERS.get(app)
+    if fn is None:
+        if app in CAPTURE_APPS:
+            raise ValueError(f"{app!r}: {MODEL_ZOO_SLICE}")
+        raise ValueError(
+            f"unknown capture spec {app!r} (know {sorted(CAPTURE_APPS)}); "
+            f"capture workloads are named 'capture/<adapter>'")
+    return fn(threads=threads, seed=seed, num_kernels=num_kernels,
+              windows_per_kernel=windows_per_kernel,
+              scale=1.0 if scale is None else scale,
+              cpu_reuse=_CPU_REUSE[app] if cpu_reuse is None else cpu_reuse,
+              device=device)
+
+
+__all__ = [
+    "CAPTURE_APPS", "LazyEmbedConfig", "LineLayout", "Region",
+    "WindowRecorder", "capture_lazy_embed", "capture_trace",
+]

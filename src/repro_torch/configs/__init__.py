@@ -1,0 +1,52 @@
+"""Architecture registry, PyTorch port of :mod:`repro.configs`:
+``get_config(name)`` / ``get_smoke_config(name)``.
+
+Every architecture of the reference is named in :data:`ARCHS`, but only
+``qwen3_4b`` is ported (the LazySync slice drives its embedding table at
+full width); any other one raises a ``ValueError`` naming the model-zoo
+slice of the port (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+ARCHS = (
+    "recurrentgemma_2b",
+    "phi3_mini_3_8b",
+    "deepseek_67b",
+    "nemotron_4_340b",
+    "qwen3_4b",
+    "seamless_m4t_large_v2",
+    "qwen2_moe_a2_7b",
+    "moonshot_v1_16b_a3b",
+    "internvl2_26b",
+    "falcon_mamba_7b",
+)
+
+# Canonical ids (hyphenated, as in the assignment) -> module names.
+ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+
+PORTED = ("qwen3_4b",)
+
+
+def _module(name: str):
+    key = name.replace("-", "_").replace(".", "_")
+    key = ALIASES.get(name, key)
+    if key not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ALIASES)}")
+    if key not in PORTED:
+        raise ValueError(f"arch {name!r} is not ported yet: the model zoo comes "
+                         f"with a later slice of the port (ROADMAP A11); "
+                         f"ported: {PORTED}")
+    return importlib.import_module(f"repro_torch.configs.{key}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke()

@@ -1,6 +1,6 @@
 // Bloom-signature kernels of the LazyPIM simulator for Hopper (sm_90a).
 //
-// Four kernels, each the CUDA counterpart of a Pallas TPU kernel in
+// Five kernels, each the CUDA counterpart of a Pallas TPU kernel in
 // src/repro/kernels/bloom/bloom.py.  Packed words are uint32 here; the
 // PyTorch side stores the same bits as int32.  Every kernel launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
@@ -32,6 +32,21 @@
 //   AND-prefilter, true iff every segment of a & b has a set bit.  Bound
 //   by bytes.  Design: one warp per row, a per-thread segment mask and
 //   one __reduce_or_sync.
+//
+// bloom_detect_conflicts (ports bloom_detect_conflicts_pallas,
+//   bloom.py:266, kernel _conflict_kernel :240): LazySync's fused hash ->
+//   membership in each of G packed group signatures -> hit-group count.
+//   Bound by bytes at the shapes LazySync gives it (4 B in and 4 B out
+//   per address; G x 64 words of signature and the 16 KB of tables are
+//   read once per block).  The TPU kernel does its word lookup as a
+//   one-hot (BLK*M, W) select and sum, because a TPU has no cheap
+//   gather; on Hopper one thread per address gathers the word it needs
+//   straight from shared memory.  Design: the H3 tables and all G
+//   signatures (G <= 16) are staged in shared memory once per block; a
+//   grid-stride loop over a bounded grid amortizes that staging; each
+//   thread hashes its address once per segment (the h3 device function
+//   shared with the kernels above) and tests that position in every
+//   group, so no position is stored.
 
 #include <algorithm>
 #include <cstdint>
@@ -206,6 +221,37 @@ __global__ void intersect_kernel(const uint32_t* __restrict__ a,
   if (t == 0) out[row] = segs == full ? 1 : 0;
 }
 
+// sigs (G, NW), addrs (N,) -> out (N,): groups holding every position.
+__global__ void detect_conflicts_kernel(const uint32_t* __restrict__ sigs,
+                                        const uint32_t* __restrict__ addrs,
+                                        const uint32_t* __restrict__ tabs,
+                                        int32_t* __restrict__ out, int n, int G,
+                                        int NW, int S, int M) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* stab = smem;
+  uint32_t* ssig = smem + S * kByteVals * M;
+  copy_to_shared(stab, tabs, S * kByteVals * M);
+  copy_to_shared(ssig, sigs, G * NW);
+  __syncthreads();
+  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
+  constexpr int kMaxGroups = 16;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const uint32_t a = addrs[i];
+    uint32_t hit = (1u << G) - 1u;  // groups still holding every position
+    for (int m = 0; m < M && hit; ++m) {
+      const uint32_t p = h3(stab, a, m, S, M);
+      if (p >= nbits) { hit = 0u; break; }
+      const uint32_t w = p >> 5, b = 1u << (p & 31u);
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g) {
+        if (g < G && !(ssig[g * NW + w] & b)) hit &= ~(1u << g);
+      }
+    }
+    out[i] = __popc(hit);
+  }
+}
+
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -279,6 +325,22 @@ int bloom_intersect_launch(const void* a, const void* b, void* out, int B,
   intersect_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint8_t*>(out), B, R, NW, WPS, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bloom_detect_conflicts_launch(const void* sigs, const void* addrs,
+                                  const void* tabs, void* out, int n, int G,
+                                  int NW, int S, int M, void* stream) {
+  const size_t smem =
+      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(G) * NW) *
+      sizeof(uint32_t);
+  if (int rc = set_smem(detect_conflicts_kernel, smem)) return rc;
+  const int blocks = std::min((n + kThreads - 1) / kThreads, 264);
+  detect_conflicts_kernel<<<blocks, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(sigs), static_cast<const uint32_t*>(addrs),
+      static_cast<const uint32_t*>(tabs), static_cast<int32_t*>(out), n, G, NW,
+      S, M);
   return static_cast<int>(cudaGetLastError());
 }
 

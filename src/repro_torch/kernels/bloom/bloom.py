@@ -1,7 +1,8 @@
 """Hand-written CUDA Bloom-signature kernels and their plain PyTorch versions.
 
-Four kernels carry every Bloom-signature operation of the LazyPIM step on
-the card; the sources are ``repro_torch/csrc/bloom.cu`` (one note per
+Five kernels carry every Bloom-signature operation of the LazyPIM step and
+of the LazySync protocol on the card; the source is
+``repro_torch/csrc/bloom.cu`` (one note per
 kernel there: the TPU kernel it replaces, what bounds it, what its design
 does about that).  Each wrapper here:
 
@@ -18,10 +19,13 @@ does about that).  Each wrapper here:
 * ``bloom_query`` ports ``bloom_query_pallas`` (``bloom.py:205``): the
   flush / merge / invalidate membership masks;
 * ``bloom_intersect`` ports ``bloom_intersect_pallas`` (``bloom.py:316``):
-  the two conflict checks of each LazyPIM window.
+  the two conflict checks of each LazyPIM window;
+* ``bloom_detect_conflicts`` ports ``bloom_detect_conflicts_pallas``
+  (``bloom.py:266``): LazySync's per-address hit-group counts
+  (``LazyEmbed.detect_conflicts``).
 
 The shared library is built with ``nvcc`` for ``sm_90a`` on first use into
-the checkout's ``build/`` directory (content-addressed by the source hash)
+the checkout's ``build/`` directory (:mod:`repro_torch.kernels._build`)
 and bound with ``ctypes``; nothing is built or imported at module import.
 """
 
@@ -29,69 +33,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from repro_torch.core.signatures import hash_with_tables, pack_words, unpack_words
+from repro_torch.kernels import _build
 
 __all__ = [
     "h3_hash", "bloom_insert", "bloom_query", "bloom_intersect",
-    "h3_hash_plain", "bloom_insert_plain", "bloom_query_plain",
-    "bloom_intersect_plain", "KERNELS", "reset_launch_counts",
-    "launch_counts", "build_library",
+    "bloom_detect_conflicts", "h3_hash_plain", "bloom_insert_plain",
+    "bloom_query_plain", "bloom_intersect_plain",
+    "bloom_detect_conflicts_plain", "KERNELS", "reset_launch_counts",
+    "launch_counts",
 ]
 
-_PKG = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "bloom.cu"
-BUILD_DIR = _PKG.parents[1] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "bloom.cu"
 
 
 # ---------------------------------------------------------------------------
 # Build and bind
 # ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the Bloom CUDA kernels are built from "
-                       f"{SOURCE} with the CUDA toolkit")
-
-
-def build_library() -> pathlib.Path:
-    """Compile ``csrc/bloom.cu`` into ``build/libbloom-<hash>.so`` unless that
-    exact build exists; returns its path.  The write is atomic (temp file +
-    rename), so concurrent first users cannot load a half-written file."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libbloom-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -101,27 +62,21 @@ _SIGNATURES = {
     "bloom_insert_bitmap_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bloom_query_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bloom_detect_conflicts_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind(SOURCE, _SIGNATURES)
 
 
 def _launch(name: str, *args) -> None:
-    rc = getattr(_lib(), name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    _build.launch(_lib(), name, *args)
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _build.stream(t)
 
 
 # ---------------------------------------------------------------------------
@@ -143,13 +98,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
 def _on_cpu(*ts: torch.Tensor) -> bool:
     """True for an all-CPU call (plain path); False for an all-CUDA call
     (kernel path); anything else raises — no silent device fallback."""
-    kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
-        return False
-    raise ValueError(f"Bloom kernels need all tensors on one CUDA device or "
-                     f"all on the CPU, got {sorted(str(t.device) for t in ts)}")
+    return _build.on_cpu("Bloom kernels", *ts)
 
 
 def _check_lanes(lanes: int) -> None:
@@ -392,8 +341,55 @@ def bloom_intersect(a: torch.Tensor, b: torch.Tensor,
 bloom_intersect.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# bloom_detect_conflicts
+# ---------------------------------------------------------------------------
+
+
+def bloom_detect_conflicts_plain(sigs: torch.Tensor, addrs: torch.Tensor,
+                                 tabs: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bloom_detect_conflicts` (same arguments and
+    result)."""
+    pos = hash_with_tables(addrs, tabs).to(torch.int64)       # (N, M)
+    w = sigs[:, pos >> 5]                                      # (G, N, M)
+    member = (((w >> (pos & 31)) & 1) != 0).all(-1)           # (G, N)
+    return member.sum(0, dtype=torch.int32)
+
+
+def bloom_detect_conflicts(sigs: torch.Tensor, addrs: torch.Tensor,
+                           tabs: torch.Tensor) -> torch.Tensor:
+    """Hit-group counts: ``sigs`` (G, NW) int32 packed group signatures,
+    ``addrs`` (N,) int32 addresses (uint32 bits) -> (N,) int32, the number
+    of group signatures holding all M of the address's H3 positions
+    (LazySync flags a conflict at >= 2).
+
+    Ports ``bloom_detect_conflicts_pallas``
+    (``src/repro/kernels/bloom/bloom.py:266``); its bound and design are
+    noted in ``csrc/bloom.cu``."""
+    s, m = _check_tables(tabs)
+    _check("sigs", sigs, torch.int32, 2)
+    _check("addrs", addrs, torch.int32, 1)
+    g, nw = sigs.shape
+    if not 1 <= g <= 16:
+        raise ValueError(f"sigs: {g} groups, the kernel takes 1 to 16")
+    if _on_cpu(sigs, addrs, tabs):
+        return bloom_detect_conflicts_plain(sigs, addrs, tabs)
+    n = addrs.shape[0]
+    out = torch.empty((n,), dtype=torch.int32, device=addrs.device)
+    if n:
+        _launch("bloom_detect_conflicts_launch", sigs.data_ptr(),
+                addrs.data_ptr(), tabs.data_ptr(), out.data_ptr(), n, g, nw,
+                s, m, _stream(addrs))
+        bloom_detect_conflicts.launches += 1
+    return out
+
+
+bloom_detect_conflicts.launches = 0
+
+
 KERNELS = {"h3_hash": h3_hash, "bloom_insert": bloom_insert,
-           "bloom_query": bloom_query, "bloom_intersect": bloom_intersect}
+           "bloom_query": bloom_query, "bloom_intersect": bloom_intersect,
+           "bloom_detect_conflicts": bloom_detect_conflicts}
 
 
 def reset_launch_counts() -> None:

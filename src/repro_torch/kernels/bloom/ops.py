@@ -1,8 +1,8 @@
 """Signature-level Bloom API over the CUDA kernels (the counterpart of
 ``repro.kernels.bloom.ops``).  On a CUDA tensor every call runs the
-kernels of :mod:`.bloom`; on a CPU tensor their plain PyTorch versions.
-The fused LazySync conflict detector (``bloom_detect_conflicts``) is not
-ported yet (ROADMAP queue B5)."""
+kernels of :mod:`.bloom`, the fused LazySync conflict detector
+(``bloom_detect_conflicts``) included; on a CPU tensor their plain
+PyTorch versions."""
 
 from __future__ import annotations
 
@@ -34,6 +34,18 @@ def bloom_query(spec: SignatureSpec, sig: torch.Tensor,
     pos = hash_positions(spec, addrs).to(torch.int64)
     w = sig[pos >> 5]
     return (((w >> (pos & 31)) & 1) != 0).all(1)
+
+
+def bloom_detect_conflicts(spec: SignatureSpec, sigs: torch.Tensor,
+                           addrs: torch.Tensor) -> torch.Tensor:
+    """Fused hash + membership across groups + hit count: ``sigs``
+    (G, num_words) int32 packed, ``addrs`` (N,) -> (N,) int32 hit-group
+    counts (conflict iff >= 2)."""
+    if sigs.dim() != 2 or sigs.shape[1] != spec.num_words:
+        raise ValueError(f"sigs {tuple(sigs.shape)}: want (G, {spec.num_words}) "
+                         f"packed words of a {spec.sig_bits}-bit signature")
+    return _k.bloom_detect_conflicts(sigs.contiguous(), to_addr_i32(addrs),
+                                     tables_tensor(spec, sigs.device))
 
 
 def bloom_intersect(spec: SignatureSpec, a: torch.Tensor,

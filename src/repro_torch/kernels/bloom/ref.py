@@ -24,6 +24,18 @@ def bloom_query_ref(spec: SignatureSpec, sig: torch.Tensor,
     return sig_lib.query(spec, sig, addrs)
 
 
+def bloom_detect_conflicts_ref(spec: SignatureSpec, sigs: torch.Tensor,
+                               addrs: torch.Tensor) -> torch.Tensor:
+    """Hit-group counts: sigs (G, num_words) packed, addrs (N,) -> (N,)
+    int32 number of group signatures containing each address (LazySync
+    conflicts are counts >= 2)."""
+    pos = sig_lib.hash_with_tables(
+        addrs, sig_lib.tables_tensor(spec, sigs.device)).to(torch.int64)
+    bits = sig_lib.unpack_bits(spec, sigs)                   # (G, sig_bits)
+    member = bits[:, pos].all(-1)                            # (G, N)
+    return member.to(torch.int32).sum(0, dtype=torch.int32)
+
+
 def bloom_intersect_ref(spec: SignatureSpec, a: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:
     """Batched AND-prefilter: a, b (B, num_words) -> (B,) bool."""

@@ -10,10 +10,12 @@ device (:mod:`repro_torch.sim.synth`); :func:`trace_from_numpy` builds one
 from the fields of any other trace, e.g. one made by ``repro``, so both
 packages can simulate the very same input.
 
-Ported here: the Ligra graph apps and the HTAP IMDB.  The extended
-families (frontier, streaming, multi-tenant) and the captured model
-traces come with later slices of the port and raise a ``ValueError``
-naming that slice.
+Ported here: the Ligra graph apps, the HTAP IMDB, and the captured
+LazySync trace ``capture/lazy_embed`` (recorded from the live protocol by
+:mod:`repro_torch.capture`).  The extended families (frontier, streaming,
+multi-tenant) and the captures that drive the model zoo
+(``capture/kv_serve``, ``capture/moe_experts``) come with later slices of
+the port and raise a ``ValueError`` naming that slice.
 """
 
 from __future__ import annotations
@@ -30,27 +32,37 @@ GRAPH_APPS = ("pagerank", "radii", "components")
 GRAPH_INPUTS = ("enron", "arxiv", "gnutella")
 HTAP_APPS = ("htap128", "htap192", "htap256")
 
+# Recorded from live execution (repro_torch.capture), not synthesized.
+CAPTURE_APPS = ("capture/kv_serve", "capture/moe_experts",
+                "capture/lazy_embed")
+PORTED_CAPTURE_APPS = ("capture/lazy_embed",)
+
 # app -> needs a graph input?
 ALL_APPS = {**{a: True for a in GRAPH_APPS},
-            **{a: False for a in HTAP_APPS}}
+            **{a: False for a in HTAP_APPS + PORTED_CAPTURE_APPS}}
 
 EXTENDED_SLICE = ("the extended workload families (bfs, sssp, htap_stream, "
                   "mtmix) come with a later port slice (ROADMAP queue A, "
                   "'extended families')")
-CAPTURED_SLICE = ("captured model traces (capture/*) come with the capture "
-                  "slice of the port (ROADMAP queue A12)")
+MODEL_ZOO_SLICE = ("the captures that drive the model zoo (capture/kv_serve, "
+                   "capture/moe_experts) come with the model-zoo slice of the "
+                   "port (ROADMAP queue A11 / A12)")
 _LATER_APPS = {"bfs": EXTENDED_SLICE, "sssp": EXTENDED_SLICE,
-               "htap_stream": EXTENDED_SLICE, "mtmix": EXTENDED_SLICE}
+               "htap_stream": EXTENDED_SLICE, "mtmix": EXTENDED_SLICE,
+               **{a: MODEL_ZOO_SLICE for a in CAPTURE_APPS
+                  if a not in PORTED_CAPTURE_APPS}}
 
 
 def check_app(app: str) -> None:
-    """Raise a ``ValueError`` for an app this slice does not synthesize."""
+    """Raise a ``ValueError`` for an app this slice does not produce."""
     if app in ALL_APPS:
         return
-    if app.startswith("capture/"):
-        raise ValueError(f"{app!r}: {CAPTURED_SLICE}")
     if app in _LATER_APPS:
         raise ValueError(f"{app!r}: {_LATER_APPS[app]}")
+    if app.startswith("capture/"):
+        raise ValueError(f"unknown capture spec {app!r} (know "
+                         f"{sorted(CAPTURE_APPS)}); capture workloads are "
+                         f"named 'capture/<adapter>'")
     raise ValueError(f"unknown app {app!r} (know {sorted(ALL_APPS)})")
 
 
@@ -127,6 +139,11 @@ def build_plan(app: str, graph_name: str | None = None, threads: int = 16,
                cpu_reuse: float | None = None):
     """(plan, edges-or-None, display name) with the reference's per-family
     defaults (scale 0.01 for the HTAP tables)."""
+    if app.startswith("capture/"):
+        raise ValueError(
+            f"{app!r} is a captured workload: it is recorded from live "
+            f"execution (repro_torch.capture), not synthesized — use "
+            f"make_trace")
     check_app(app)
     if ALL_APPS[app] and graph_name not in GRAPH_INPUTS:
         raise ValueError(
@@ -152,10 +169,21 @@ def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
                seed: int = 0, num_kernels: int = 24,
                windows_per_kernel: int = 3, scale: float | None = None,
                cpu_reuse: float | None = None, device=None) -> WindowTrace:
-    """Synthesize a paper workload on ``device`` (``None`` = the CUDA card;
-    pass ``"cpu"`` for the CPU).  Bit-identical with ``repro``'s
-    ``make_trace`` for the same arguments."""
+    """Synthesize a paper workload, or record a captured one, on ``device``
+    (``None`` = the CUDA card; pass ``"cpu"`` for the CPU).  Bit-identical
+    with ``repro``'s ``make_trace`` for the same arguments."""
     dev = resolve_device(device)
+    if app.startswith("capture/"):
+        if graph_name is not None:
+            raise ValueError(f"{app!r} is a captured workload: graph_name "
+                             f"must be None, got {graph_name!r}")
+        check_app(app)
+        from repro_torch import capture
+
+        return capture.capture_trace(
+            app, threads=threads, seed=seed, num_kernels=num_kernels,
+            windows_per_kernel=windows_per_kernel, scale=scale,
+            cpu_reuse=cpu_reuse, device=dev)
     plan, edges, name = build_plan(app, graph_name, threads, num_kernels,
                                    windows_per_kernel, seed, scale, cpu_reuse)
     arrays = synth.synthesize(plan, seed, edges, dev)
@@ -168,11 +196,13 @@ def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
 def all_workloads(extended: bool = False,
                   captured: bool = False) -> list[tuple[str, str | None]]:
     """The paper's 12 evaluated (app, input) pairs (Fig. 7).  The extended
-    and captured families are not ported yet and raise a ``ValueError``."""
+    families and the full captured set are not ported yet and raise a
+    ``ValueError`` (``capture/lazy_embed`` alone is ported: name it in a
+    study's workloads)."""
     if extended:
         raise ValueError(f"all_workloads(extended=True): {EXTENDED_SLICE}")
     if captured:
-        raise ValueError(f"all_workloads(captured=True): {CAPTURED_SLICE}")
+        raise ValueError(f"all_workloads(captured=True): {MODEL_ZOO_SLICE}")
     out: list[tuple[str, str | None]] = [
         (a, g) for a in GRAPH_APPS for g in GRAPH_INPUTS
     ]

@@ -1,4 +1,4 @@
-"""The four Bloom kernels' plain PyTorch versions (the CPU path of each
+"""The five Bloom kernels' plain PyTorch versions (the CPU path of each
 wrapper in repro_torch.kernels.bloom.bloom) held against repro's
 primitives on the CPU, plus the wrappers' dispatch rule: plain version for
 a CPU tensor, the kernel (or an error) for a CUDA tensor, never a
@@ -216,6 +216,8 @@ def _kernel_calls(tabs):
         "bloom_insert": lambda: K.bloom_insert(tabs, 64, ids=ids, valid=valid),
         "bloom_query": lambda: K.bloom_query(sig, words, tabs, 40),
         "bloom_intersect": lambda: K.bloom_intersect(sig, sig, 4),
+        "bloom_detect_conflicts": lambda: K.bloom_detect_conflicts(
+            sig, ids[0].contiguous(), tabs),
     }
 
 
@@ -238,7 +240,7 @@ def test_cuda_path_launches_kernel_or_raises_never_plain(monkeypatch, rc):
                 call()
         else:
             call()
-    assert len(fake.calls) == 4
+    assert len(fake.calls) == len(K.KERNELS)
     want = 0 if rc else 1
     assert K.launch_counts() == {name: want for name in K.KERNELS}
     K.reset_launch_counts()
@@ -268,3 +270,87 @@ def test_wrappers_check_arguments():
                           torch.zeros((2, 64), dtype=torch.int32), 4)
     with pytest.raises(ValueError):
         K.h3_hash(torch.zeros(4, dtype=torch.int32, device="meta"), tabs)
+
+
+# ---------------------------------------------------------------------------
+# bloom_detect_conflicts (B5): plain version against repro's oracle and its
+# Pallas kernel in interpret mode, at tests/test_bloom_word_kernels.py's
+# shapes; integer results, so exact equality
+# ---------------------------------------------------------------------------
+
+
+def _r_addrs(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, size=(n,), dtype=np.uint64).astype(np.uint32)
+
+
+def _group_sigs(r_spec, num_groups, n=100):
+    """(G, num_words) uint32 packed signatures of G seeded address sets,
+    built by the reference's insert oracle."""
+    from repro.core import signatures as RS
+    from repro.kernels.bloom import ref as RR
+
+    return np.stack([np.asarray(RR.bloom_insert_ref(
+        r_spec, RS.empty_signature(r_spec), jnp.asarray(_r_addrs(n, seed=g))))
+        for g in range(num_groups)])
+
+
+@pytest.mark.parametrize("sig_bits,m", [(512, 2), (2048, 4), (4096, 8)])
+@pytest.mark.parametrize("num_groups", [2, 4, 8])
+def test_detect_conflicts_plain_equals_reference(sig_bits, m, num_groups):
+    from repro.core.signatures import SignatureSpec as RSpec
+    from repro.kernels.bloom import bloom as RK
+    from repro.kernels.bloom import ref as RR
+    from repro_torch.core.signatures import SignatureSpec as TSpec
+    from repro_torch.kernels.bloom import ops as TO
+    from repro_torch.kernels.bloom import ref as TR
+
+    r_spec, t_spec = RSpec(sig_bits, m), TSpec(sig_bits, m)
+    sigs = _group_sigs(r_spec, num_groups)
+    probes = np.concatenate([_r_addrs(100, seed=0)[:50], _r_addrs(78, seed=1234)])
+    want = np.asarray(RR.bloom_detect_conflicts_ref(
+        r_spec, jnp.asarray(sigs), jnp.asarray(probes)))
+    pallas = np.asarray(RK.bloom_detect_conflicts_pallas(
+        r_spec, jnp.asarray(sigs), jnp.asarray(probes), interpret=True, block_n=64))
+    np.testing.assert_array_equal(pallas, want)
+    t_sigs = torch.from_numpy(sigs.view(np.int32))
+    t_probes = torch.from_numpy(probes.view(np.int32))
+    plain = K.bloom_detect_conflicts_plain(
+        t_sigs, t_probes, tables_tensor(t_spec, torch.device("cpu")))
+    assert plain.dtype == torch.int32
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(TO.bloom_detect_conflicts(t_spec, t_sigs, t_probes).numpy(), want)
+    np.testing.assert_array_equal(TR.bloom_detect_conflicts_ref(t_spec, t_sigs, t_probes).numpy(), want)
+    # every group's own addresses are counted (no false negatives)
+    own = TO.bloom_detect_conflicts(t_spec, t_sigs,
+                                    torch.from_numpy(_r_addrs(100, seed=0).view(np.int32)))
+    assert int(own.min()) >= 1
+
+
+def test_detect_conflicts_ops_takes_any_integer_ids():
+    """The signature-level wrapper takes int64 ids (its low 32 bits) and an
+    empty batch, as the reference's ops wrapper does."""
+    from repro.core.signatures import SignatureSpec as RSpec
+    from repro_torch.kernels.bloom import ops as TO
+
+    spec = default_spec()
+    sigs = torch.from_numpy(_group_sigs(RSpec(), 4).view(np.int32))
+    ids = torch.from_numpy(_r_addrs(64, seed=0).astype(np.int64))
+    want = TO.bloom_detect_conflicts(spec, sigs, ids.to(torch.int32))
+    np.testing.assert_array_equal(TO.bloom_detect_conflicts(spec, sigs, ids).numpy(),
+                                  want.numpy())
+    assert TO.bloom_detect_conflicts(spec, sigs, ids[:0]).shape == (0,)
+    with pytest.raises(ValueError, match="packed words"):
+        TO.bloom_detect_conflicts(spec, sigs[:, :32].contiguous(), ids)
+
+
+def test_detect_conflicts_checks_arguments():
+    tabs = tables_tensor(default_spec(), torch.device("cpu"))
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 to 16"):
+        K.bloom_detect_conflicts(torch.zeros((17, 64), dtype=torch.int32), ids, tabs)
+    with pytest.raises(TypeError):
+        K.bloom_detect_conflicts(torch.zeros((4, 64), dtype=torch.int64), ids, tabs)
+    with pytest.raises(ValueError):
+        K.bloom_detect_conflicts(torch.zeros((4, 64), dtype=torch.int32),
+                                 ids.to("meta"), tabs)

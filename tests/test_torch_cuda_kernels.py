@@ -1,8 +1,11 @@
-"""The Bloom CUDA kernels against their plain PyTorch versions on the card,
-at edge shapes the main path can produce (ragged line counts, one slot,
-empty lanes, pad bits carrying garbage, sign-bit addresses), and one small
-end-to-end run held against the CPU path.  Integer results: the tolerance
-is exact equality.
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+edge shapes the main paths can produce (ragged line counts, one slot,
+empty lanes, pad bits carrying garbage, sign-bit addresses; for the
+LazySync kernels 1 to 16 groups, ragged rows and widths, both dtypes,
+all/none/some rows valid), and small end-to-end runs (the Fig. 7 study,
+the capture study, nine LazySync steps) held against the CPU path.  The
+Bloom kernels give integers and the merge sums in the plain version's
+order, so the tolerance is exact equality throughout.
 
 These tests need a CUDA device and nvcc; without them they skip.  On the
 GPU machine run them with
@@ -13,6 +16,7 @@ GPU machine run them with
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import pytest
 import torch
@@ -126,6 +130,125 @@ def test_small_study_on_card_equals_cpu(dev):
     from repro_torch.api import Study
 
     wl = ["pagerank-arxiv", "htap128"]
+    gpu = Study(wl, device=dev).run()
+    cpu = Study(wl, device="cpu").run()
+    for a, b in zip(gpu.points, cpu.points):
+        for m in a.results:
+            assert dataclasses.asdict(a.results[m]) == dataclasses.asdict(b.results[m])
+
+
+# ---------------------------------------------------------------------------
+# LazySync kernels: bloom_detect_conflicts (B5) and lazy_merge (B6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("groups", [1, 4, 16])
+@pytest.mark.parametrize("n", [1, 255, 257, 16_384])
+def test_detect_conflicts(dev, spec, groups, n):
+    """Sign-bit ids included; the signatures are dense enough that counts
+    from 0 to G all occur at the larger N."""
+    tabs = tables_tensor(spec, dev)
+    g = _gen(dev, n * groups)
+    ids = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    sigs = _words((groups, spec.num_words), 0.7, dev, n + groups)
+    got = K.bloom_detect_conflicts(sigs, ids, tabs)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got, K.bloom_detect_conflicts_plain(sigs, ids, tabs))
+
+
+def test_detect_conflicts_counts_own_ids(dev):
+    """Every group's own ids are found in its signature (no false
+    negatives), through the signature-level wrapper."""
+    from repro_torch.core.signatures import insert
+    from repro_torch.kernels.bloom import ops
+
+    spec = default_spec()
+    ids = torch.randint(-2**31, 2**31 - 1, (4, 100), generator=_gen(dev, 1),
+                        device=dev, dtype=torch.int32)
+    sigs = torch.stack([insert(spec, torch.zeros(spec.num_words, dtype=torch.int32,
+                                                 device=dev), ids[g]) for g in range(4)])
+    counts = ops.bloom_detect_conflicts(spec, sigs, ids.reshape(-1))
+    assert int(counts.min()) >= 1
+
+
+LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,r,d", [(1, 1, 1), (4, 1024, 2560), (3, 37, 13),
+                                   (16, 5, 2559), (2, 300, 64), (4, 129, 130)])
+@pytest.mark.parametrize("valid_kind", ["random", "all", "none"])
+def test_lazy_merge(dev, dtype, g, r, d, valid_kind):
+    """Ragged R and D (no padding), both dtypes, every validity pattern:
+    the kernel equals the plain version bit for bit."""
+    gen = _gen(dev, g * r * d)
+    rows = torch.randn((g, r, d), generator=gen, device=dev).to(dtype)
+    base = torch.randn((r, d), generator=gen, device=dev).to(dtype)
+    valid = {"random": torch.rand((r,), generator=gen, device=dev) < 0.5,
+             "all": torch.ones((r,), dtype=torch.bool, device=dev),
+             "none": torch.zeros((r,), dtype=torch.bool, device=dev)}[valid_kind]
+    got = LM.lazy_merge(rows, base, valid)
+    assert got.dtype == torch.float32 and got.shape == (r, d)
+    assert torch.equal(got, LM.lazy_merge_plain(rows, base, valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lazy_merge_unaligned_rows(dev, dtype):
+    """A view that starts off a 16-byte boundary takes the scalar path."""
+    flat = torch.randn((4 * 100 * 64 + 1,), generator=_gen(dev, 5), device=dev).to(dtype)
+    rows = flat[1:].view(4, 100, 64)
+    base = torch.randn((100, 64), generator=_gen(dev, 6), device=dev).to(dtype)
+    valid = torch.ones((100,), dtype=torch.bool, device=dev)
+    assert torch.equal(LM.lazy_merge(rows, base, valid),
+                       LM.lazy_merge_plain(rows, base, valid))
+
+
+def test_lazysync_on_card_equals_cpu(dev):
+    """Nine sync_steps (two commits) of the smoke-width LazyEmbed on the
+    card equal the same steps on the CPU: rows, streak, metrics and params
+    bit for bit, and B5 and B6 were launched."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.lazy_sync import LazyEmbed, LazySyncConfig, init_state
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    mcfg = get_smoke_config("qwen3_4b")
+    cfg = LazySyncConfig(num_groups=4, commit_interval=4, max_reconcile_rows=64)
+    emb = LazyEmbed(mcfg, cfg)
+    cpu = emb.init(torch.Generator().manual_seed(0))
+    gpu = {k: v.to(dev) for k, v in cpu.items()}
+    s_cpu, s_gpu = init_state(cfg, mcfg.vocab, "cpu"), init_state(cfg, mcfg.vocab, dev)
+    rng = np.random.default_rng(0)
+    reset_launch_counts()
+    for _ in range(9):
+        u = rng.random((4, 32))
+        touched = torch.from_numpy(np.minimum(mcfg.vocab * u ** 3, mcfg.vocab - 1)
+                                   .astype(np.int32))
+        grads = torch.zeros((4, mcfg.vocab, mcfg.d_model))
+        grads[:, :64] = torch.from_numpy(rng.normal(size=(4, 64, mcfg.d_model))
+                                         .astype(np.float32))
+        cpu, s_cpu, m_cpu = emb.sync_step(cpu, s_cpu, touched, grads)
+        gpu, s_gpu, m_gpu = emb.sync_step(gpu, s_gpu, touched.to(dev), grads.to(dev))
+        for k in m_cpu:
+            assert int(m_cpu[k]) == int(m_gpu[k]), k
+        assert torch.equal(s_cpu["streak"], s_gpu["streak"].cpu())
+        for k in cpu:
+            assert torch.equal(cpu[k], gpu[k].cpu()), k
+    counts = launch_counts()
+    assert counts["bloom_detect_conflicts"] == 9 and counts["lazy_merge"] == 9 + 2
+    reset_launch_counts()
+
+
+def test_capture_study_on_card_equals_cpu(dev):
+    from repro_torch.api import Study
+
+    kw = dict(num_kernels=3, windows_per_kernel=2, scale=0.05)
+    from repro_torch.api import workload
+
+    wl = [workload("capture/lazy_embed", **kw)]
     gpu = Study(wl, device=dev).run()
     cpu = Study(wl, device="cpu").run()
     for a, b in zip(gpu.points, cpu.points):

@@ -1,0 +1,35 @@
+"""The port stands alone: every module of repro_torch imports in a fresh
+interpreter in which ``jax`` and ``repro`` cannot be imported at all."""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    # the package, its subpackages and modules: at least the ones of this slice
+    assert int(out.stdout.strip()) >= 30
