@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero before the final line:
 1. environment — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; no CUDA device is a failure;
 2. build — compile every ``src/repro_torch/csrc/*.cu`` (``bloom.cu``,
-   ``lazy_merge.cu``) with ``nvcc`` for sm_90a, one process each, started
-   together, into the gitignored ``build/``;
+   ``lazy_merge.cu``, ``flash_attention.cu``) with ``nvcc`` for sm_90a, one
+   process each, started together, into the gitignored ``build/``;
 3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
    ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
    its plain PyTorch version on the card on that path's data (the HTAP
@@ -52,14 +52,43 @@ Phases, in order; any failure exits non-zero before the final line:
    shape (4, 151,936, 2,560) in bf16, on inputs the two paths gave them:
    times and bounds as in phase 3 (merge: exact expected, 1e-6 relative
    allowed);
-9. the ``kernels`` JSON line (six kernels), then the result line.
+9. capture/kv_serve — ``Study(["capture/kv_serve"])`` (the paged-KV decode
+   loop at its default scale: 500 pages, batch 24, 24 kernels x 3 steps)
+   with all six mechanisms on both engines, each held to one
+   ``device="cpu"`` run of the port (the engines agree bit for bit) at the
+   same tolerances; B1–B4 must launch;
+10. qwen3-4b prefill — ``get_config("qwen3_4b")`` at full width and depth
+   (36 layers, ~4.02 B parameters, ~8.0 GB in bf16) initialised on the card
+   from a seeded generator; ``make_prefill_step`` on 4 prompts of 4,096
+   seeded tokens, three times: counted and tapped (exactly 36
+   ``flash_attention`` launches; every call held to the plain version at
+   the row-scaled tolerance of ``fa_excess``), unprofiled (wall time, peak memory), under ``torch.profiler``
+   (the device's idle share);
+11. kernel flash_attention — B7 at the prefill path's shape, q (4, 4,096,
+   32, 128) and k / v (4, 4,096, 8, 128) bf16 causal, on layer 0's inputs:
+   against its plain version (``fa_excess``), timed as in phase 3 with its bound in
+   operations at the bf16 tensor-core rate (989 TFLOP/s), and one
+   ``scaled_dot_product_attention`` call on the same inputs as the
+   library yardstick (the port never calls it);
+12. qwen3-4b serve — ``launch.serve.serve`` at full width with the
+   reference serve loop's defaults (8 requests, batch 4, max-new 16, max-len
+   64) on the same weights: all 8 served, tokens per second; 8 decode
+   steps at batch 4 timed and then profiled (kernels a step, device busy
+   time, idle share); then one teacher-forced 64-token prompt through
+   decode against the full forward (top-1 agreement and max |logit
+   difference|, recorded, not gated);
+13. the ``kernels`` JSON line (seven kernels), then the result line.
 
-Imports nothing of JAX or of the JAX package.
+float32 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32`` are set False) wherever float32
+results are compared.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -75,10 +104,12 @@ RATIO_KEYS = ("speedup", "traffic", "energy")
 EVENT_KEYS = ("commits", "conflicts_sig", "conflicts_exact", "rollbacks",
               "flush_lines", "dbi_writebacks")
 RATIO_RTOL, RAW_RTOL = 1e-6, 1e-4
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
-# float32 rate outside the tensor cores used as the integer-ALU ceiling.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the float32
+# rate outside the tensor cores used as the integer-ALU ceiling, and the
+# dense bf16 tensor-core rate (the attention products' ceiling).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 ROTATE_BYTES = 2 * 50 * 2**20  # twice the H100's L2
 SPIN_CYCLES_PER_S = 2.0e9      # above the H100's top SM clock, 1.98 GHz
 TPU_KERNEL = {
@@ -88,12 +119,29 @@ TPU_KERNEL = {
     "bloom_intersect": "src/repro/kernels/bloom/bloom.py:316",
     "bloom_detect_conflicts": "src/repro/kernels/bloom/bloom.py:266",
     "lazy_merge": "src/repro/kernels/lazy_merge/lazy_merge.py:30",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:82",
 }
 SOURCE = {name: "src/repro_torch/csrc/bloom.cu" for name in TPU_KERNEL}
 SOURCE["lazy_merge"] = "src/repro_torch/csrc/lazy_merge.cu"
+SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
 FIG7_KERNELS = ("h3_hash", "bloom_insert", "bloom_query", "bloom_intersect")
+CAPTURE_KERNELS = FIG7_KERNELS + ("bloom_detect_conflicts", "lazy_merge")
 MERGE_RTOL = 1e-6
 CAPTURE_APP = "capture/lazy_embed"
+KV_APP = "capture/kv_serve"
+# bf16 flash attention against its plain version, element by element:
+# |kernel - plain| <= FA_RTOL |plain| + FA_ROW_TOL rms(plain row), the RMS
+# taken over each output row's head dim.  FA_RTOL covers the two outputs'
+# bf16 roundings landing one ulp apart; FA_ROW_TOL covers the kernel's one
+# rounding site the plain version lacks (P rounded to bf16 for the PV
+# product: ~2^-9 of a row's scale per element).  A row missing one KV tile
+# of 64 keys in 4,096 moves by ~0.13 of its RMS, ~8x this tolerance.
+FA_RTOL = 2.0 ** -7
+FA_ROW_TOL = 2.0 ** -6
+PREFILL_BATCH, PREFILL_LEN = 4, 4096   # the train_4k sequence length
+SERVE_ARGS = dict(arch="qwen3-4b", smoke=False, requests=8, batch=4, max_new=16,
+                  max_len=64, seed=0, study=None)  # the reference serve loop's defaults
+TEACHER_LEN = 64
 LAZY_STEPS = 24          # qwen3-4b-width sync_steps (commit fires at 16)
 LAZY_PROFILE_STEPS = 8   # steps timed twice for the idle share
 LAZY_TOUCHED = 4096      # touched ids per group per step
@@ -143,10 +191,12 @@ def build():
     from repro_torch.kernels.bloom import bloom as K
 
     LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
+    FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     t0 = time.perf_counter()
     libs = _build.build_all()
     K._lib()
     LM._lib()
+    FA._lib()
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
           f"parallel)", flush=True)
@@ -194,28 +244,36 @@ def event_ms(fn, sets: list[tuple], iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def measure(label: str, err: float, fn, plain, args: tuple, nbytes: float,
-            ops: float, iters: int = 200, plain_iters: int = 10) -> dict:
+            ops: float, iters: int = 200, plain_iters: int = 10,
+            ops_per_s: float = PEAK_OPS_PER_S, library=None,
+            library_args: tuple | None = None) -> dict:
     """Time ``fn(*args)`` and its plain version on the same inputs, rotated
     out of L2 (:func:`rotations`), with CUDA events; the kernel's bound
-    from the bytes and operations the call needs.  A time under the bound
-    is a fault of the timing and fails the phase."""
+    from the bytes and operations the call needs (operations at
+    ``ops_per_s``).  ``library`` (one PyTorch call computing the same
+    function, on ``library_args``) is timed the same way as a yardstick.  A
+    time under the bound is a fault of the timing and fails the phase."""
     sets = rotations(args, iters)
     ms = event_ms(fn, sets, iters)
     plain_ms = event_ms(plain, sets, plain_iters)
-    b, by = bound_ms(nbytes, ops)
+    library_ms = (None if library is None
+                  else event_ms(library, rotations(library_args, iters), iters))
+    b, by = bound_ms(nbytes, ops, ops_per_s)
+    lib = "" if library_ms is None else f", library {library_ms:.5f} ms"
     print(f"{label}: max |err| {err}; per call (CUDA events, {len(sets)} input "
-          f"sets) kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; bound {b:.6f} ms "
-          f"({by}, {b / ms:.3f} of it reached)", flush=True)
+          f"sets) kernel {ms:.5f} ms, plain {plain_ms:.5f} ms{lib}; bound "
+          f"{b:.6f} ms ({by}, {b / ms:.3f} of it reached)", flush=True)
     check(ms >= b, f"{label}: {ms:.6f} ms is under the bound {b:.6f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None, timing="events",
+                bound_by=by, library_ms=library_ms, timing="events",
                 input_sets=len(sets))
 
 
@@ -399,30 +457,34 @@ def main_path(K) -> dict[str, dict[str, int]]:
     return counts, walls
 
 
-def main_path_profile(batch_wall_s: float) -> dict:
-    """Device time of one profiled batch run, by kernel, against the wall
-    time of the unprofiled batch run: the device's busy and idle shares."""
+def device_busy_s(fn) -> tuple[float, int, list]:
+    """Device time of all kernels ``fn()`` runs (``torch.profiler``), their
+    number, and the top eight by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    return sum(t for t, _, _ in by_name), sum(c for _, c, _ in by_name), by_name[:8]
+
+
+def main_path_profile(batch_wall_s: float) -> dict:
+    """Device time of one profiled batch run, by kernel, against the wall
+    time of the unprofiled batch run: the device's busy and idle shares."""
     from repro_torch.api import Study, all_workloads
 
     phase("Fig. 7 path profile, engine=batch")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        Study(all_workloads()).run(engine="batch")
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.key] = (e.self_device_time_total / 1e6, e.count)
-    busy_s = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    busy_s, launches, top = device_busy_s(
+        lambda: Study(all_workloads()).run(engine="batch"))
     summary = dict(device_busy_s=busy_s, batch_wall_s=batch_wall_s,
-                   idle_share=1.0 - busy_s / batch_wall_s,
-                   launches=sum(c for _, c in by_name.values()),
-                   top=[dict(kernel=k[:80], s=t, count=c) for k, (t, c) in top])
-    for k, (t, c) in top:
+                   idle_share=1.0 - busy_s / batch_wall_s, launches=launches,
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top])
+    for t, c, k in top:
         print(f"  {t:9.4f} s {c:7d}x  {k[:100]}")
     print(f"device busy {busy_s:.3f} s of {batch_wall_s:.3f} s batch wall "
           f"(idle share {summary['idle_share']:.3f})", flush=True)
@@ -555,7 +617,7 @@ def capture_path() -> tuple[dict, dict, KernelTap]:
         counts[engine] = KS.launch_counts()
         print(f"{engine}: {CAPTURE_APP} x {len(MECHANISMS)} mechanisms in "
               f"{walls[engine]:.2f} s wall; launches {counts[engine]}", flush=True)
-        for name in TPU_KERNEL:
+        for name in CAPTURE_KERNELS:
             check(counts[engine][name] > 0,
                   f"capture/{engine}: kernel {name} was never launched")
         t0 = time.perf_counter()
@@ -607,8 +669,6 @@ def lazysync_path() -> dict:
     step's kernel calls held against their plain versions; then the idle
     share from 8 more steps run twice from one snapshot."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels as KS
     from repro_torch.configs import get_config
@@ -687,13 +747,8 @@ def lazysync_path() -> dict:
     run_window()
     window_wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run_window()
-    by_name = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(t for t, _, _ in by_name)
-    for t, c, k in by_name[:8]:
+    busy, _, by_name = device_busy_s(run_window)
+    for t, c, k in by_name:
         print(f"  {t:9.4f} s {c:5d}x  {k[:100]}")
     idle = 1.0 - busy / window_wall
     walls = [r["wall_s"] for r in steps]
@@ -704,7 +759,7 @@ def lazysync_path() -> dict:
                    total_wall_s=sum(walls), idle_window_steps=LAZY_PROFILE_STEPS,
                    idle_window_wall_s=window_wall, idle_window_busy_s=busy,
                    idle_share=idle, peak_mem_window_bytes=peak,
-                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in by_name[:8]])
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in by_name])
     print(f"24 steps: {sum(walls):.3f} s; median non-commit step "
           f"{summary['step_wall_s_median'] * 1e3:.3f} ms; commit step(s) "
           f"{[round(w * 1e3, 3) for w in summary['commit_step_wall_s']]} ms; "
@@ -842,12 +897,323 @@ def lazysync_kernel_phases(capture_tap: KernelTap, keep: dict) -> dict[str, dict
     return out
 
 
+def kv_serve_path() -> tuple[dict, dict]:
+    """``Study(["capture/kv_serve"])`` on both engines, each held to one run
+    of the port on the CPU (the engines agree bit for bit, so one CPU run
+    is the reference of both); B1–B4 must launch.  Returns (launch counts,
+    wall s)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import MECHANISMS, Study
+
+    t0 = time.perf_counter()
+    cpu = Study([KV_APP], device="cpu").run(engine="sequential")
+    cpu_wall = time.perf_counter() - t0
+    counts, walls = {}, {}
+    for engine in ("batch", "sequential"):
+        phase(f"capture/kv_serve, engine={engine}")
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        rs = Study([KV_APP]).run(engine=engine)
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        counts[engine] = KS.launch_counts()
+        for name in FIG7_KERNELS:
+            check(counts[engine][name] > 0,
+                  f"kv_serve/{engine}: kernel {name} was never launched")
+        worst = compare_results(rs, cpu, f"kv_serve/{engine}")
+        print(f"{engine}: {KV_APP} x {len(MECHANISMS)} mechanisms in "
+              f"{walls[engine]:.2f} s wall; launches {counts[engine]}; equals the "
+              f"port's CPU run ({cpu_wall:.2f} s) on every field (worst rel gap "
+              f"{worst:.3g})", flush=True)
+    return counts, walls
+
+
+def fa_excess(got, want) -> tuple[float, float]:
+    """(max |got - want|, max of |got - want| / (FA_RTOL |want| + FA_ROW_TOL
+    rms(want row))): the second is <= 1 when the kernel is within tolerance.
+    An exact match counts 0 (a fully masked row is 0 in both)."""
+    import torch
+
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    diff = (got - want).abs()
+    allowed = FA_RTOL * want.abs() + FA_ROW_TOL * want.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = torch.where(diff == 0, 0.0, diff / allowed)
+    return float(diff.max()), float(ratio.max())
+
+
+class FlashTap:
+    """While active, records every ``ops.mha`` call the model zoo makes —
+    inputs and result — by wrapping the name :mod:`repro_torch.models.
+    attention` calls; the wrapped call launches exactly what it would have.
+    :meth:`check` then holds each result against the kernel's plain version
+    on the same inputs (no launch of the kernel, so nothing counted)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self._ops, self._orig = ops, ops.mha
+
+        def tapped(q, k, v, *, causal=True, window=0):
+            out = self._orig(q, k, v, causal=causal, window=window)
+            self.calls.append((q, k, v, causal, window, out))
+            return out
+
+        ops.mha = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.mha = self._orig
+        return False
+
+    def check(self, label: str) -> tuple[float, float]:
+        """Hold every tapped call to its plain version; returns the largest
+        |diff| and the largest ``fa_excess`` over the calls."""
+        FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+        err = excess = 0.0
+        for i, (q, k, v, causal, window, out) in enumerate(self.calls):
+            want = FA.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=causal, window=window)
+            e, x = fa_excess(out, want)
+            err, excess = max(err, e), max(excess, x)
+            check(x <= 1.0, f"{label}: flash_attention call {i} disagrees with its "
+                            f"plain version (max |diff| {e:.4g}, {x:.3g} of the "
+                            f"tolerance)")
+        return err, excess
+
+
+def prefill_path() -> tuple[dict, dict, dict, tuple]:
+    """qwen3-4b at full width and depth on the card: three prefill steps of
+    4 x 4,096 tokens (counted and tapped; unprofiled; profiled).  Returns
+    (summary, launch counts of the counted run, params, layer 0's B7
+    inputs)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+
+    phase("qwen3-4b prefill")
+    dev = torch.device("cuda", 0)
+    cfg = get_config("qwen3_4b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads / {cfg.num_kv_heads} kv heads x {cfg.head_dim}, vocab {cfg.vocab}; "
+          f"{n_params} parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated) initialised in {time.perf_counter() - t0:.2f} s", flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    step(params, {"tokens": tokens[:, :256]})  # warm-up: cuBLAS handles, kernels
+    torch.cuda.synchronize()
+
+    tap = FlashTap()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tap:
+        last = step(params, batch)
+    torch.cuda.synchronize()
+    tapped_wall = time.perf_counter() - t0
+    counts = KS.launch_counts()
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"prefill: {counts['flash_attention']} flash_attention launches, want "
+          f"exactly {cfg.num_layers} (one per layer)")
+    check(len(tap.calls) == cfg.num_layers, f"prefill: {len(tap.calls)} ops.mha calls")
+    check(tuple(last.shape) == (PREFILL_BATCH, cfg.vocab) and
+          bool(last.to(torch.float32).isfinite().all()),
+          f"prefill: last-position logits {tuple(last.shape)} not finite")
+    err, excess = tap.check("prefill")
+    q, k, v, _, _, _ = tap.calls[0]
+    layer0 = (q, k, v)
+    print(f"prefill (counted): {tapped_wall:.3f} s wall; launches {counts}; all "
+          f"{len(tap.calls)} flash_attention calls within tolerance of their plain "
+          f"versions (max |diff| {err:.4g}, at most {excess:.3g} of the tolerance)",
+          flush=True)
+    del tap, last
+    gc.collect()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    busy, _, top = device_busy_s(lambda: step(params, batch))
+    for t, c, name in top:
+        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    tokens_per_s = PREFILL_BATCH * PREFILL_LEN / wall
+    print(f"prefill: {wall:.4f} s wall ({tokens_per_s:.0f} tokens/s); device busy "
+          f"{busy:.4f} s (idle share {1.0 - busy / wall:.3f}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB (the {n_params * 2 / 2**30:.2f} GiB of weights "
+          f"included)", flush=True)
+    summary = dict(batch=PREFILL_BATCH, seq=PREFILL_LEN, layers=cfg.num_layers,
+                   params=n_params, wall_s=wall, counted_wall_s=tapped_wall,
+                   tokens_per_s=tokens_per_s, device_busy_s=busy,
+                   idle_share=1.0 - busy / wall, peak_mem_bytes=peak,
+                   flash_calls=cfg.num_layers, flash_max_abs_err=err,
+                   flash_max_tolerance_share=excess,
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top])
+    return summary, counts, params, layer0
+
+
+def flash_kernel_phase(layer0: tuple) -> dict:
+    """B7 at the prefill path's shape on layer 0's inputs: against its
+    plain version, timed, with its bound in operations at the bf16 tensor-
+    core rate and one ``scaled_dot_product_attention`` call as yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    phase("kernel flash_attention")
+    q, k, v = (t.contiguous() for t in layer0)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    err, excess = fa_excess(got, want)
+    check(excess <= 1.0, f"flash_attention: kernel disagrees with plain version (max "
+                         f"|diff| {err:.4g}, {excess:.3g} of the tolerance)")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).to(torch.float32)
+                     - want.to(torch.float32)).abs().max())
+    print(f"flash_attention q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} causal: "
+          f"max |kernel - plain| {err:.4g} ({excess:.3g} of the tolerance); SDPA "
+          f"against plain {lib_err:.4g}", flush=True)
+    del got, want, lib
+    es = q.element_size()
+    useful = 4 * d * (s * (s + 1) // 2) * b * hq  # QK^T and PV over the causal triangle
+    st = measure(f"flash_attention (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, bf16, causal)",
+                 err, lambda *a: FA.flash_attention(*a, causal=True),
+                 lambda *a: FA.flash_attention_plain(*a, causal=True), (q, k, v),
+                 nbytes=(2 * q.numel() + 2 * k.numel()) * es, ops=useful, iters=50,
+                 plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
+                 library=lambda *a: F.scaled_dot_product_attention(
+                     *a, is_causal=True, enable_gqa=True),
+                 library_args=(qt, kt, vt))
+    return dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=hkv, D=d, dtype=str(q.dtype),
+                               causal=True), useful_flop=useful, tolerance_share=excess,
+                library_call="torch.nn.functional.scaled_dot_product_attention"
+                             "(is_causal=True, enable_gqa=True)",
+                library_max_abs_diff_vs_plain=lib_err)
+
+
+def serve_path(params: dict) -> tuple[dict, dict]:
+    """The port's serve loop at full width with the reference loop's
+    defaults on ``params``; then one teacher-forced 64-token prompt through
+    decode against the full forward.  Returns (summary, launch counts of
+    the serve run)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+
+    phase("qwen3-4b serve")
+    dev = torch.device("cuda", 0)
+    cfg = get_config("qwen3_4b")
+    model = Model(cfg)
+    args = argparse.Namespace(device=str(dev), **SERVE_ARGS)
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = serve(args, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = KS.launch_counts()
+    check(len(served) == SERVE_ARGS["requests"],
+          f"serve: {len(served)} of {SERVE_ARGS['requests']} requests served")
+    check(sorted(r.rid for r in served) == list(range(SERVE_ARGS["requests"])),
+          "serve: request ids")
+    for r in served:
+        check(r.done and len(r.out) > len(r.prompt)
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"serve: request {r.rid} out of range or unfinished")
+    total = sum(len(r.out) for r in served)
+    new = sum(len(r.out) - len(r.prompt) for r in served)
+    print(f"serve: {len(served)} requests, {total} tokens ({new} generated) in "
+          f"{wall:.3f} s wall: {total / wall:.1f} tokens/s ({new / wall:.1f} "
+          f"generated/s); launches {counts}", flush=True)
+
+    # the decode step's idle share: 8 steps at the serve loop's batch, timed
+    # unprofiled and then under the profiler from the same cache
+    tok = torch.zeros((SERVE_ARGS["batch"], 1), dtype=torch.int64, device=dev)
+    cache0 = model.init_cache(SERVE_ARGS["batch"], SERVE_ARGS["max_len"], dev)
+
+    def decode_window():
+        c = cache0
+        for _ in range(8):
+            _, c = model.decode(params, tok, c)
+        torch.cuda.synchronize()
+
+    decode_window()
+    t0 = time.perf_counter()
+    decode_window()
+    step_wall = (time.perf_counter() - t0) / 8
+    busy, n_kernels, top = device_busy_s(decode_window)
+    for t, c, name in top:
+        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    decode_idle = 1.0 - busy / 8 / step_wall
+    print(f"decode step (batch {SERVE_ARGS['batch']}, {cfg.num_layers} layers): "
+          f"{step_wall * 1e3:.3f} ms wall, {busy / 8 * 1e3:.3f} ms device busy in "
+          f"{n_kernels / 8:.0f} kernels (idle share {decode_idle:.3f})", flush=True)
+
+    phase("qwen3-4b decode against prefill (teacher-forced)")
+    prompt = torch.randint(0, cfg.vocab_size, (1, TEACHER_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    full, _ = model.apply(params, prompt)
+    last = make_prefill_step(model)(params, {"tokens": prompt})
+    cache = model.init_cache(1, TEACHER_LEN, dev)
+    steps = []
+    for i in range(TEACHER_LEN):
+        logits, cache = model.decode(params, prompt[:, i:i + 1], cache)
+        steps.append(logits[:, 0])
+    dec = torch.stack(steps, dim=1).to(torch.float32)
+    full = full.to(torch.float32)
+    check(bool(dec.isfinite().all()) and bool(full.isfinite().all()),
+          "teacher-forced decode: non-finite logits")
+    agree = float((dec.argmax(-1) == full.argmax(-1)).to(torch.float32).mean())
+    max_d = float((dec - full).abs().max())
+    last_d = float((dec[:, -1] - last.to(torch.float32)).abs().max())
+    last_agree = bool(dec[0, -1].argmax() == last[0].argmax())
+    print(f"teacher-forced {TEACHER_LEN}-token prompt, bf16, {cfg.num_layers} layers: "
+          f"decode vs full forward top-1 agreement {agree:.4f} over {TEACHER_LEN} positions, max "
+          f"|diff| {max_d:.4g}; last position vs the prefill step: top-1 equal "
+          f"{last_agree}, max |diff| {last_d:.4g} (recorded, not gated)", flush=True)
+    summary = dict(requests=len(served), tokens=total, generated=new, wall_s=wall,
+                   tokens_per_s=total / wall, generated_per_s=new / wall,
+                   decode_step_wall_s=step_wall, decode_step_busy_s=busy / 8,
+                   decode_idle_share=decode_idle, decode_step_kernels=n_kernels / 8,
+                   decode_top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top],
+                   teacher_forced=dict(len=TEACHER_LEN, top1_agreement=agree,
+                                       max_abs_diff=max_d, last_top1_equal=last_agree,
+                                       last_max_abs_diff=last_d))
+    return summary, counts
+
+
 def main() -> int:
     try:
         environment()
         K = build()
         import torch
 
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+              f"{torch.backends.cudnn.allow_tf32}", flush=True)
         stats = kernel_phases(K)
         counts, walls = main_path(K)
         profile = main_path_profile(walls["batch"])
@@ -856,20 +1222,35 @@ def main() -> int:
         keep = lazy.pop("keep")
         stats.update(lazysync_kernel_phases(cap_tap, keep))
         del keep, cap_tap
+        gc.collect()
+        torch.cuda.empty_cache()
+        kv_counts, kv_walls = kv_serve_path()
+        prefill, prefill_counts, params, layer0 = prefill_path()
+        stats["flash_attention"] = flash_kernel_phase(layer0)
+        del layer0
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving, serve_counts = serve_path(params)
+        del params
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
     by_path = {"fig7_batch": counts["batch"], "fig7_sequential": counts["sequential"],
                "capture_batch": cap_counts["batch"],
                "capture_sequential": cap_counts["sequential"],
-               "qwen3_lazysync": lazy["launches"]}
+               "qwen3_lazysync": lazy["launches"],
+               "kv_serve_batch": kv_counts["batch"],
+               "kv_serve_sequential": kv_counts["sequential"],
+               "qwen3_prefill": prefill_counts, "qwen3_serve": serve_counts}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=TPU_KERNEL[name],
                     launches=sum(c[name] for c in by_path.values()),
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **stats[name]) for name in TPU_KERNEL]
     print(json.dumps({"profile": profile, "fig7_wall_s": walls,
-                      "capture_wall_s": cap_walls, "lazysync": lazy}))
+                      "capture_wall_s": cap_walls, "lazysync": lazy,
+                      "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,
+                      "qwen3_serve": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

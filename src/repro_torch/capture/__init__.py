@@ -5,14 +5,16 @@ Each adapter runs live code and records the integer index streams it
 already computes as a :class:`repro_torch.sim.trace.WindowTrace`, through
 the recorder (:mod:`.recorder`), the line-mapper (:mod:`.layout`) and the
 windower.  Ported here: ``capture/lazy_embed``, which records the LazySync
-protocol (:mod:`repro_torch.core.lazy_sync`).  ``capture/kv_serve`` and
-``capture/moe_experts`` drive the model zoo and come with that slice of
-the port (ROADMAP A11 / A12); asking for them raises a ``ValueError``
+protocol (:mod:`repro_torch.core.lazy_sync`), and ``capture/kv_serve``, a
+paged-KV decode loop at the serving stack's page/slot arithmetic.
+``capture/moe_experts`` drives the MoE model zoo and comes with that slice
+of the port (ROADMAP A11 / A12); asking for it raises a ``ValueError``
 naming it.
 """
 
 from __future__ import annotations
 
+from repro_torch.capture.kv_serve import KVServeConfig, capture_kv_serve
 from repro_torch.capture.lazy_embed import LazyEmbedConfig, capture_lazy_embed
 from repro_torch.capture.layout import LineLayout, Region
 from repro_torch.capture.recorder import WindowRecorder
@@ -23,11 +25,13 @@ from repro_torch.sim.trace import (
     WindowTrace,
 )
 
-_ADAPTERS = {"capture/lazy_embed": capture_lazy_embed}
+_ADAPTERS = {"capture/kv_serve": capture_kv_serve,
+             "capture/lazy_embed": capture_lazy_embed}
 assert set(_ADAPTERS) == set(PORTED_CAPTURE_APPS)
 
-# Per-adapter cpu_reuse default (the reference's value for this adapter).
-_CPU_REUSE = {"capture/lazy_embed": 6.0}
+# Per-adapter cpu_reuse defaults (the reference's values: the KV hot tail
+# is re-read hardest, like the streaming family).
+_CPU_REUSE = {"capture/kv_serve": 8.0, "capture/lazy_embed": 6.0}
 
 
 def capture_trace(app: str, threads: int = 16, seed: int = 0,
@@ -51,6 +55,6 @@ def capture_trace(app: str, threads: int = 16, seed: int = 0,
 
 
 __all__ = [
-    "CAPTURE_APPS", "LazyEmbedConfig", "LineLayout", "Region",
-    "WindowRecorder", "capture_lazy_embed", "capture_trace",
+    "CAPTURE_APPS", "KVServeConfig", "LazyEmbedConfig", "LineLayout", "Region",
+    "WindowRecorder", "capture_kv_serve", "capture_lazy_embed", "capture_trace",
 ]

@@ -1,10 +1,12 @@
 """Architecture registry, PyTorch port of :mod:`repro.configs`:
 ``get_config(name)`` / ``get_smoke_config(name)``.
 
-Every architecture of the reference is named in :data:`ARCHS`, but only
-``qwen3_4b`` is ported (the LazySync slice drives its embedding table at
-full width); any other one raises a ``ValueError`` naming the model-zoo
-slice of the port (ROADMAP A11).
+Every architecture of the reference is named in :data:`ARCHS`; the dense,
+attention-only ones are ported (:data:`PORTED`: ``qwen3_4b``, which the
+serving and LazySync paths drive at full width, ``phi3_mini_3_8b``,
+``deepseek_67b``, ``nemotron_4_340b``), with ``config()`` and ``smoke()``
+copied field for field.  Any other one raises a ``ValueError`` naming the
+slice of the port that brings it (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -29,7 +31,16 @@ ARCHS = (
 # Canonical ids (hyphenated, as in the assignment) -> module names.
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
-PORTED = ("qwen3_4b",)
+PORTED = ("qwen3_4b", "phi3_mini_3_8b", "deepseek_67b", "nemotron_4_340b")
+
+_LATER = {
+    "qwen2_moe_a2_7b": "the MoE slice",
+    "moonshot_v1_16b_a3b": "the MoE slice",
+    "falcon_mamba_7b": "the SSM / recurrent / hybrid slice",
+    "recurrentgemma_2b": "the SSM / recurrent / hybrid slice",
+    "seamless_m4t_large_v2": "the enc-dec / VLM slice",
+    "internvl2_26b": "the enc-dec / VLM slice",
+}
 
 
 def _module(name: str):
@@ -38,8 +49,8 @@ def _module(name: str):
     if key not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ALIASES)}")
     if key not in PORTED:
-        raise ValueError(f"arch {name!r} is not ported yet: the model zoo comes "
-                         f"with a later slice of the port (ROADMAP A11); "
+        raise ValueError(f"arch {name!r} is not ported yet: it comes with "
+                         f"{_LATER[key]} of the port's model zoo (ROADMAP A11); "
                          f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 

@@ -52,7 +52,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.core.signatures import (
@@ -96,16 +95,10 @@ def params_from_jax(params: dict, device) -> dict:
     patterns and are viewed as ``torch.bfloat16``; float32 crosses as is."""
     out = {}
     for k, a in params.items():
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.array(a.view(np.uint16)).view(np.int16))
-            t = t.view(torch.bfloat16)
-        elif a.dtype == np.float32:
-            t = torch.from_numpy(np.array(a))
-        else:
-            raise TypeError(f"params_from_jax: {k} has dtype {a.dtype}, "
-                            f"want float32 or bfloat16")
-        out[k] = t.to(device).contiguous()
+        try:
+            out[k] = C.tensor_from_numpy(a, device)
+        except TypeError as e:
+            raise TypeError(f"params_from_jax: {k}: {e}") from None
     return out
 
 

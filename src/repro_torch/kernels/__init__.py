@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port (``repro.kernels`` counterpart).
 
 :mod:`.bloom` holds the five Bloom-signature kernels, :mod:`.lazy_merge`
-the LazySync row merge.  The helpers here read and reset the launch
+the LazySync row merge, :mod:`.flash_attention` the attention of the
+model zoo's prefill.  The helpers here read and reset the launch
 counter of every kernel wrapper at once; :func:`._build.build_all`
 compiles every CUDA source at once.
 """
@@ -12,7 +13,8 @@ import importlib
 
 # The kernel modules (not the package-level wrappers of the same names).
 _KERNEL_MODULES = ("repro_torch.kernels.bloom.bloom",
-                   "repro_torch.kernels.lazy_merge.lazy_merge")
+                   "repro_torch.kernels.lazy_merge.lazy_merge",
+                   "repro_torch.kernels.flash_attention.flash_attention")
 
 
 def _kernel_modules():

@@ -1,2 +1,4 @@
-"""Model configuration records (PyTorch port of the config part of
-``repro.models``; the layers come with the model-zoo slice, ROADMAP A11)."""
+"""The model zoo (PyTorch port of ``repro.models``): shared substrate
+(:mod:`.common`), GQA attention (:mod:`.attention`), the dense stack
+(:mod:`.transformer`) and the :class:`~.model.Model` facade.  The MoE, SSM,
+recurrent and enc-dec / VLM pieces come with later slices (ROADMAP A11)."""

@@ -1,0 +1,238 @@
+"""GQA attention, PyTorch port of :mod:`repro.models.attention`: chunked
+softmax attention (decode) and the flash kernel (train / prefill), plus the
+cached decode step.
+
+:func:`mha_chunked` (a loop over KV chunks with running max / sum /
+accumulator) never materializes an (S, S) score matrix; it is the oracle of
+the flash kernel (``kernels/flash_attention/ref.py``) and the attention of
+the decode step, whose cache offset, valid length and ring positions the
+kernel does not take.  :func:`attn_block` (full-sequence self-attention)
+calls :func:`repro_torch.kernels.flash_attention.ops.mha`, as the
+reference's module docstring says models do (the reference's own
+``attn_block`` calls ``mha_chunked``): on a CUDA tensor that is the
+hand-written CUDA kernel, on a CPU tensor its plain version, the TPU
+kernel's float32 math (ROADMAP §C).  The encoder-decoder pieces
+(``cross_attn_block``, ``encoder_kv``) come with that slice of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash
+from repro_torch.models import common as C
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def _expand_kv(k: torch.Tensor, q_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hq, D) by repeating each kv head q/kv times."""
+    rep = q_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def mha_chunked(
+    q: torch.Tensor,              # (B, Sq, Hq, D)
+    k: torch.Tensor,              # (B, Sk, Hkv, D)
+    v: torch.Tensor,              # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: torch.Tensor | int = 0,
+    kv_chunk: int = 1024,
+    kv_valid_len: torch.Tensor | int | None = None,
+    k_positions: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Flash-style attention; returns (B, Sq, Hq, D).
+
+    ``q_offset``: absolute position of q[0] (decode: cache length so far).
+    ``kv_valid_len``: mask KV positions >= this (decode with preallocated cache).
+    ``k_positions``: (Sk,) absolute position of each cache slot (ring-buffer
+    decode for sliding-window layers); -1 marks empty slots.  The
+    probabilities are rounded to ``v.dtype`` before the PV product, as the
+    reference rounds them.
+    """
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    k = _expand_kv(k, hq)
+    v = _expand_kv(v, hq)
+    scale = d ** -0.5
+
+    kv_chunk = min(kv_chunk, sk)
+    n_chunks = -(-sk // kv_chunk)
+    pad = n_chunks * kv_chunk - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kp = None
+    if k_positions is not None:
+        kp = torch.nn.functional.pad(k_positions, (0, pad), value=-1)
+        kp = kp.reshape(n_chunks, kv_chunk)
+    q_pos = torch.arange(sq, device=dev) + q_offset
+    limit = sk if kv_valid_len is None else kv_valid_len
+    qf = q.to(torch.float32)
+
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    for idx in range(n_chunks):
+        kb = k[:, idx * kv_chunk:(idx + 1) * kv_chunk]
+        vb = v[:, idx * kv_chunk:(idx + 1) * kv_chunk]
+        if kp is None:
+            k_pos = idx * kv_chunk + torch.arange(kv_chunk, device=dev)
+            valid = k_pos < limit
+        else:
+            k_pos = kp[idx]
+            valid = k_pos >= 0
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(torch.float32)) * scale
+        mask = torch.ones((sq, kv_chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > (q_pos[:, None] - window)
+        mask &= valid[None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (exp(NEG_INF - NEG_INF) would be NaN)
+        m_safe = torch.where(m_new == NEG_INF, 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.where(m == NEG_INF, 0.0, torch.exp(m - m_safe))
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vb.dtype).to(torch.float32),
+                          vb.to(torch.float32))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (GQA + RoPE + optional qk-norm), train / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def attn_param_specs(cfg: C.ModelConfig, cross: bool = False) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    specs = {
+        "wq": C.ParamSpec((d, hq, hd), ("embed", "heads", None), cfg.param_dtype),
+        "wk": C.ParamSpec((d, hkv, hd), ("embed", "kv_heads", None), cfg.param_dtype),
+        "wv": C.ParamSpec((d, hkv, hd), ("embed", "kv_heads", None), cfg.param_dtype),
+        "wo": C.ParamSpec((hq, hd, d), ("heads", None, "embed"), cfg.param_dtype),
+        "norm": C.ParamSpec((d,), (None,), torch.float32, "zeros"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = C.ParamSpec((hd,), (None,), torch.float32, "zeros")
+        specs["k_norm"] = C.ParamSpec((hd,), (None,), torch.float32, "zeros")
+    return specs
+
+
+def _project_qkv(p, x, cfg: C.ModelConfig, positions, use_rope: bool = True):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = C.rms_norm(q, p["q_norm"])
+        k = C.rms_norm(k, p["k_norm"])
+    if use_rope:
+        q = C.rope(q, positions, cfg.rope_theta)
+        k = C.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_block(p, x: torch.Tensor, cfg: C.ModelConfig, *, window: int = 0,
+               causal: bool = True, positions=None) -> torch.Tensor:
+    """Self-attention over the full sequence (train / prefill). x: (B,S,d)."""
+    s = x.shape[1]
+    h = C.rms_norm(x, p["norm"])
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, h, cfg, positions)
+    out = flash.mha(q, k, v, causal=causal, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def init_kv_cache(cfg: C.ModelConfig, batch: int, max_len: int, n_layers: int,
+                  device=None) -> dict:
+    """Preallocated decode cache: (L, B, S, Hkv, D) k and v + slot positions.
+
+    When every attention layer is sliding-window, ``max_len`` should be the
+    window size and the cache acts as a ring buffer (``pos`` tracks the
+    absolute position stored in each slot; -1 = empty).
+    """
+    shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _direct_decode_attention(q, k, v, cache_len, *, window: int = 0,
+                             k_positions: torch.Tensor | None = None):
+    """One-token attention over the full cache with no kv-chunk loop: a
+    grouped-head einsum (no GQA repeat of the cache) -> masked softmax ->
+    einsum.  q: (B, 1, Hq, D); k/v: (B, S, Hkv, D)."""
+    b, _, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    q5 = q.reshape(b, 1, hkv, g, d)
+    if k_positions is None:
+        k_pos = torch.arange(sk, device=q.device)
+        valid = k_pos < cache_len + 1
+    else:
+        k_pos = k_positions
+        valid = k_pos >= 0
+    mask = valid & (k_pos <= cache_len)
+    if window > 0:
+        mask &= k_pos > (cache_len - window)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5.to(torch.float32),
+                     k.to(torch.float32)) * (d ** -0.5)
+    s = torch.where(mask[None, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def attn_decode_block(p, x: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, cache_len, cfg: C.ModelConfig, *,
+                      window: int = 0, cache_pos: torch.Tensor | None = None):
+    """One-token decode step against a preallocated cache slice.
+
+    x: (B, 1, d); cache_k/v: (B, Smax, Hkv, D) for THIS layer; ``cache_len``
+    an int or a 0-dim integer tensor on the host.  When the cache is smaller
+    than the sequence (sliding-window ring buffer), ``cache_pos`` (Smax,)
+    carries each slot's absolute position and the new token overwrites slot
+    ``len % Smax``.  The new token's k / v (and position) are written into
+    ``cache_k``, ``cache_v`` (and ``cache_pos``) in place — the reference
+    returns new arrays; the caller owns the copy (``decode_step`` clones the
+    cache once a step).  Returns (out, cache_k, cache_v, cache_pos).
+    """
+    smax = cache_k.shape[1]
+    clen = int(cache_len)
+    positions = torch.full((x.shape[0], 1), clen, dtype=torch.int32, device=x.device)
+    h = C.rms_norm(x, p["norm"])
+    q, k, v = _project_qkv(p, h, cfg, positions)
+    slot = clen % smax
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    if cache_pos is not None:
+        cache_pos[slot] = clen
+        if cfg.decode_direct_attn:
+            out = _direct_decode_attention(q, cache_k, cache_v, clen, window=window,
+                                           k_positions=cache_pos)
+        else:
+            out = mha_chunked(q, cache_k, cache_v, causal=True, window=window,
+                              q_offset=clen, kv_chunk=4096, k_positions=cache_pos)
+    else:
+        if cfg.decode_direct_attn:
+            out = _direct_decode_attention(q, cache_k, cache_v, clen, window=window)
+        else:
+            out = mha_chunked(q, cache_k, cache_v, causal=True, window=window,
+                              q_offset=clen, kv_chunk=4096, kv_valid_len=clen + 1)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, cache_k, cache_v, cache_pos

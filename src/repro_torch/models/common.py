@@ -1,20 +1,31 @@
-"""Model configuration records, PyTorch port of the config part of
-:mod:`repro.models.common`.
+"""Shared model substrate, PyTorch port of :mod:`repro.models.common`:
+spec-driven parameters, the architecture records, norms, RoPE,
+activations, masks and the cross entropy.
 
-Only what :mod:`repro_torch.core.lazy_sync` and the registry in
-:mod:`repro_torch.configs` need is here: :class:`ParamSpec` and the
-architecture records with every field and property of the reference,
-with torch dtypes (``param_dtype`` defaults to ``torch.bfloat16``).  The
-logical-axis sharding machinery, the layers and the init helpers come with
-the model-zoo slice of the port (ROADMAP A11).
+* **Spec-driven parameters.** Every architecture declares its parameters
+  once as a tree (nested dicts and lists) of :class:`ParamSpec`;
+  :func:`init_params` materializes it from a ``torch.Generator`` on the
+  generator's device.  The numbers differ from the reference's
+  ``jax.random`` draw: :func:`tensor_from_numpy` (and
+  ``repro_torch.models.model.params_from_jax``) carry the reference's
+  arrays across bit for bit where a test needs the same weights.
+* **bf16 by default** (``param_dtype``) with float32 norm and RoPE math,
+  cast back to the input's dtype, as the reference computes them.
+* The reference's logical-axis sharding machinery (``constrain``,
+  ``sharding_ctx``, ``param_shardings``, ``abstract_params``) carries mesh
+  shardings that the one-card port has no use for and is not ported
+  (ROADMAP §C).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Callable
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +42,71 @@ class ParamSpec:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"ParamSpec: shape {self.shape} and axes "
                              f"{self.axes} differ in length")
+
+
+def is_spec_leaf(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map(fn: Callable, tree, is_leaf: Callable | None = None):
+    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples
+    (``is_leaf`` may stop the descent early), keeping its structure."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in insertion order."""
+    out: list = []
+    tree_map(out.append, tree, is_leaf)
+    return out
+
+
+def _materialize(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
+    dev = generator.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init == "small_normal":
+        std = spec.scale if spec.scale is not None else 0.02
+    else:  # fan-in normal
+        fan_in = spec.shape[0] if len(spec.shape) == 1 else math.prod(spec.shape[:-1])
+        std = spec.scale if spec.scale is not None else (1.0 / max(1.0, fan_in)) ** 0.5
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=dev)
+    return x.mul_(std).to(spec.dtype)
+
+
+def init_params(spec_tree, generator: torch.Generator):
+    """Materialize a ParamSpec tree into tensors on ``generator.device``,
+    leaf by leaf in tree order from the one generator (the reference splits
+    one key per leaf: the numbers differ, the distributions do not)."""
+    return tree_map(lambda s: _materialize(s, generator), spec_tree, is_spec_leaf)
+
+
+def param_count(spec_tree) -> int:
+    return int(sum(math.prod(s.shape) for s in tree_leaves(spec_tree, is_spec_leaf)))
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One array of a reference tree (numpy, e.g. ``np.asarray`` of a jax
+    array) as a contiguous tensor on ``device``: bfloat16 (``ml_dtypes``)
+    crosses as its 16-bit patterns viewed as ``torch.bfloat16``, float32 as
+    is, bit for bit either way."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.uint16)).view(np.int16))
+        t = t.view(torch.bfloat16)
+    elif a.dtype == np.float32:
+        t = torch.from_numpy(np.array(a))
+    else:
+        raise TypeError(f"dtype {a.dtype}: want float32 or bfloat16")
+    return t.to(device).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +198,62 @@ class ModelConfig:
 
     def q_per_kv(self) -> int:
         return self.num_heads // max(1, self.num_kv_heads)
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers (pure functions over tensors)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x2 * cos + x1 * sin
+    return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
+
+
+def activation(name: str, x: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
+    if name == "swiglu":
+        if gate is None:
+            raise ValueError("swiglu needs a gate")
+        return F.silu(gate) * x
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    raise ValueError(name)
+
+
+def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(q, k) bool mask: causal, optionally limited to a trailing window."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int) -> torch.Tensor:
+    """Mean next-token xent; padded vocab rows masked out. logits (..., V)."""
+    logits = logits.to(torch.float32)
+    if vocab_real < logits.shape[-1]:
+        neg = torch.finfo(torch.float32).min
+        pad_mask = torch.arange(logits.shape[-1], device=logits.device) >= vocab_real
+        logits = torch.where(pad_mask, neg, logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].to(torch.int64), dim=-1)[..., 0]
+    return torch.mean(logz - gold)

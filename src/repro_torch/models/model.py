@@ -1,0 +1,73 @@
+"""Public model facade, PyTorch port of :mod:`repro.models.model` for the
+dense decoder-only family: one entry point per execution mode.
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    logits, aux = model.apply(params, tokens)  # full-sequence forward
+    cache = model.init_cache(batch, max_len, device)
+    logits, cache = model.decode(params, token, cache)
+
+Parameters are a plain dict of tensors with the reference's nesting and
+names (``{"embed", "stack": {"period": [...], "tail": [...],
+"final_norm"}, ["lm_head"]}``); :func:`params_from_jax` carries a
+reference parameter tree across bit for bit.  ``loss`` comes with the
+training slice of the port; ``abstract`` and ``shardings`` (the dry-run
+and mesh helpers) are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import common as C
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: C.ModelConfig
+
+    # ---- parameters -------------------------------------------------------
+
+    def param_specs(self) -> dict:
+        return T.lm_param_specs(self.cfg)
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Seeded init on ``generator.device`` (the reference's
+        distributions; not its ``jax.random`` numbers)."""
+        return C.init_params(self.param_specs(), generator)
+
+    def param_count(self) -> int:
+        return C.param_count(self.param_specs())
+
+    # ---- forward ----------------------------------------------------------
+
+    def apply(self, params, tokens, prefix_embeds=None, frames=None):
+        if frames is not None or self.cfg.encoder_layers > 0:
+            raise ValueError(f"{self.cfg.name}: {T.ENCDEC_SLICE}")
+        return T.forward(params, tokens, self.cfg, prefix_embeds=prefix_embeds)
+
+    def loss(self, params, batch: dict):
+        raise ValueError(f"Model.loss comes with {T.TRAIN_SLICE}")
+
+    # ---- serving ----------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        return T.init_cache(self.cfg, batch, max_len, device)
+
+    def decode(self, params, token, cache):
+        return T.decode_step(params, token, cache, self.cfg)
+
+    def prefill(self, params, tokens):
+        """Prefill forward (logits only, as the reference's)."""
+        return self.apply(params, tokens)
+
+
+def params_from_jax(tree, device) -> dict:
+    """Carry a reference parameter tree (numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, params)``) to tensors on ``device`` with the
+    same nesting and names; bfloat16 crosses bit for bit through its 16-bit
+    patterns (:func:`repro_torch.models.common.tensor_from_numpy`)."""
+    return C.tree_map(lambda a: C.tensor_from_numpy(a, device), tree)

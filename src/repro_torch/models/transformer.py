@@ -1,0 +1,277 @@
+"""Model stack assembly, PyTorch port of the dense part of
+:mod:`repro.models.transformer`: blocks -> layer loop -> logits.
+
+A block = mixer + FFN, each with its own pre-norm and residual:
+
+    kind 'attn'  : GQA attention            + dense MLP
+    kind 'swa'   : sliding-window attention + dense MLP
+
+Layer iteration: the block pattern's smallest repeating unit (the *period*)
+is stacked on a leading axis, as in the reference; where the reference runs
+``jax.lax.scan`` over that axis (+remat), the port loops over it in Python
+(``remat`` has no meaning without a backward pass), and the non-divisible
+tail is unrolled.  Decode unrolls all layers and carries the KV cache.
+
+Block kinds ``moe``, ``mamba`` and ``rglru``, the encoder-decoder stack and
+``chunked_xent`` come with later slices of the port and raise a
+``ValueError`` naming theirs (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import common as C
+
+DENSE_KINDS = ("attn", "swa")
+LATER_KINDS = {
+    "moe": "the MoE slice of the port (models/moe.py; ROADMAP A11)",
+    "mamba": "the SSM / recurrent / hybrid slice of the port (models/ssm.py; ROADMAP A11)",
+    "rglru": "the SSM / recurrent / hybrid slice of the port (models/recurrent.py; "
+             "ROADMAP A11)",
+}
+ENCDEC_SLICE = ("the encoder-decoder stack (encode, encdec_forward, cross "
+                "attention) comes with the enc-dec / VLM slice of the port "
+                "(ROADMAP A11)")
+TRAIN_SLICE = "the training slice of the port (ROADMAP A11)"
+
+
+def _check_kind(kind: str) -> None:
+    if kind in DENSE_KINDS:
+        return
+    if kind in LATER_KINDS:
+        raise ValueError(f"block kind {kind!r} comes with {LATER_KINDS[kind]}")
+    raise ValueError(kind)
+
+
+def check_dense(cfg: C.ModelConfig) -> None:
+    """Raise a ``ValueError`` naming the later slice for anything but a
+    decoder-only stack of 'attn' / 'swa' blocks."""
+    if cfg.encoder_layers > 0:
+        raise ValueError(f"{cfg.name}: {ENCDEC_SLICE}")
+    for kind in dict.fromkeys(cfg.pattern):
+        _check_kind(kind)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_param_specs(cfg: C.ModelConfig) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    specs = {
+        "norm": C.ParamSpec((d,), (None,), torch.float32, "zeros"),
+        "w_in": C.ParamSpec((d, f), ("embed", "mlp"), dt),
+        "w_out": C.ParamSpec((f, d), ("mlp", "embed"), dt),
+    }
+    if cfg.mlp_act == "swiglu":
+        specs["w_gate"] = C.ParamSpec((d, f), ("embed", "mlp"), dt)
+    return specs
+
+
+def mlp_block(p, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    h = C.rms_norm(x, p["norm"])
+    up = torch.einsum("bsd,df->bsf", h, p["w_in"])
+    gate = torch.einsum("bsd,df->bsf", h, p["w_gate"]) if cfg.mlp_act == "swiglu" else None
+    act = C.activation(cfg.mlp_act, up, gate)
+    return torch.einsum("bsf,fd->bsd", act, p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def block_param_specs(kind: str, cfg: C.ModelConfig) -> dict:
+    _check_kind(kind)
+    return {"mixer": A.attn_param_specs(cfg), "mlp": mlp_param_specs(cfg)}
+
+
+def apply_block(kind: str, p, x: torch.Tensor, cfg: C.ModelConfig,
+                positions=None) -> tuple[torch.Tensor, dict]:
+    _check_kind(kind)
+    window = cfg.window_size if kind == "swa" else 0
+    x = x + A.attn_block(p["mixer"], x, cfg, window=window, positions=positions)
+    x = x + mlp_block(p["mlp"], x, cfg)
+    return x, {}
+
+
+# ---------------------------------------------------------------------------
+# Pattern / period machinery
+# ---------------------------------------------------------------------------
+
+
+def _period(cfg: C.ModelConfig) -> tuple[str, ...]:
+    if cfg.block_pattern is not None:
+        return cfg.block_pattern
+    return (cfg.block_kind,)
+
+
+def _split_layers(cfg: C.ModelConfig) -> tuple[int, tuple[str, ...]]:
+    """(number of full stacked periods, unrolled tail kinds)."""
+    per = _period(cfg)
+    n_full = cfg.num_layers // len(per)
+    tail = cfg.pattern[n_full * len(per):]
+    return n_full, tail
+
+
+def _stack_specs(specs: dict, n: int) -> dict:
+    """Add a leading (n,) 'layers' axis to every ParamSpec leaf."""
+    def f(s: C.ParamSpec) -> C.ParamSpec:
+        return C.ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype,
+                           s.init, s.scale)
+    return C.tree_map(f, specs, C.is_spec_leaf)
+
+
+def stack_param_specs(cfg: C.ModelConfig) -> dict:
+    """Parameter tree of the decoder stack (no embeddings)."""
+    per = _period(cfg)
+    n_full, tail = _split_layers(cfg)
+    return {
+        "period": [_stack_specs(block_param_specs(kind, cfg), n_full) for kind in per],
+        "tail": [block_param_specs(kind, cfg) for kind in tail],
+        "final_norm": C.ParamSpec((cfg.d_model,), (None,), torch.float32, "zeros"),
+    }
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a tree stacked on its leading axis (views, no copy)."""
+    return C.tree_map(lambda a: a[i], tree)
+
+
+def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
+                positions=None) -> tuple[torch.Tensor, dict]:
+    """Run the full block stack. Returns (hidden, aux_losses)."""
+    per = _period(cfg)
+    n_full, tail = _split_layers(cfg)
+    for i in range(n_full):
+        for kind, p in zip(per, params["period"]):
+            x, _ = apply_block(kind, _index(p, i), x, cfg, positions=positions)
+    for kind, p in zip(tail, params["tail"]):
+        x, _ = apply_block(kind, p, x, cfg, positions=positions)
+    x = C.rms_norm(x, params["final_norm"])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"load_balance": zero, "router_z": zero}
+
+
+# ---------------------------------------------------------------------------
+# LM: embeddings + stack + logits
+# ---------------------------------------------------------------------------
+
+
+def lm_param_specs(cfg: C.ModelConfig) -> dict:
+    check_dense(cfg)
+    specs: dict[str, Any] = {
+        "embed": C.ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed_table"),
+                             cfg.param_dtype, "small_normal"),
+        "stack": stack_param_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = C.ParamSpec((cfg.d_model, cfg.vocab),
+                                       ("embed", "vocab"), cfg.param_dtype)
+    return specs
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    # sqrt(d_model) rounded to the parameter dtype first, as the reference
+    # does (50.5 in bfloat16 for d_model 2,560, not 50.596)
+    scale = torch.full((), cfg.d_model ** 0.5, dtype=cfg.param_dtype,
+                       device=params["embed"].device)
+    return params["embed"][tokens] * scale
+
+
+def logits_from_hidden(params, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg: C.ModelConfig,
+                   prefix_embeds: torch.Tensor | None = None):
+    """Decoder-only forward up to the final hidden states (pre-logits)."""
+    x = embed_tokens(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x, aux = apply_stack(params["stack"], x, cfg)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:, :]
+    return x, aux
+
+
+def forward(params, tokens: torch.Tensor, cfg: C.ModelConfig,
+            prefix_embeds: torch.Tensor | None = None):
+    """Decoder-only forward. tokens: (B, S) -> (logits, aux).
+
+    ``prefix_embeds`` (B, P, d): modality-frontend outputs prepended to the
+    token embeddings.
+    """
+    x, aux = forward_hidden(params, tokens, cfg, prefix_embeds)
+    return logits_from_hidden(params, x, cfg), aux
+
+
+def chunked_xent(params, hidden, labels, cfg: C.ModelConfig):
+    raise ValueError(f"chunked_xent comes with {TRAIN_SLICE}")
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token, per-layer caches, unrolled layers)
+# ---------------------------------------------------------------------------
+
+
+def _ring_cache(cfg: C.ModelConfig) -> bool:
+    """True when every attention layer is sliding-window: the KV cache is a
+    window-sized ring buffer with per-slot absolute positions."""
+    attn_kinds = [k for k in cfg.pattern if k in ("attn", "swa", "moe")]
+    return bool(attn_kinds) and all(k == "swa" for k in attn_kinds) \
+        and cfg.window_size > 0
+
+
+def init_cache(cfg: C.ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """Decode cache of a dense stack: one KV slot per layer.  ``len`` is a
+    0-dim int32 tensor on the host, so reading it costs no device
+    synchronization."""
+    check_dense(cfg)
+    cache: dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32)}
+    size = min(max_len, cfg.window_size) if _ring_cache(cfg) else max_len
+    cache["kv"] = A.init_kv_cache(cfg, batch, size, cfg.num_layers, device)
+    return cache
+
+
+def _layer_params(params, cfg: C.ModelConfig, i: int):
+    """Extract layer i's params from the period/tail structure."""
+    per = _period(cfg)
+    n_full, _ = _split_layers(cfg)
+    n_scanned = n_full * len(per)
+    if i < n_scanned:
+        block_idx, pos = divmod(i, len(per))
+        return _index(params["period"][pos], block_idx)
+    return params["tail"][i - n_scanned]
+
+
+def decode_step(params, token: torch.Tensor, cache: dict, cfg: C.ModelConfig):
+    """One decode step. token: (B, 1) -> (logits (B,1,V), new_cache).  The
+    input cache is not written: the step clones it once and each layer
+    writes its new k / v slot into its slice of the copy."""
+    check_dense(cfg)
+    x = embed_tokens(params, token, cfg)
+    clen = int(cache["len"])
+    ring = _ring_cache(cfg)
+    kv = {"k": cache["kv"]["k"].clone(), "v": cache["kv"]["v"].clone(),
+          "pos": cache["kv"]["pos"].clone() if ring else cache["kv"]["pos"]}
+    for i, kind in enumerate(cfg.pattern):
+        p = _layer_params(params["stack"], cfg, i)
+        window = cfg.window_size if kind == "swa" else 0
+        out, _, _, _ = A.attn_decode_block(
+            p["mixer"], x, kv["k"][i], kv["v"][i], clen, cfg,
+            window=window, cache_pos=kv["pos"] if ring else None)
+        x = x + out
+        x = x + mlp_block(p["mlp"], x, cfg)
+    x = C.rms_norm(x, params["stack"]["final_norm"])
+    logits = logits_from_hidden(params, x, cfg)
+    new_cache = {**cache, "kv": kv,
+                 "len": torch.tensor(clen + 1, dtype=torch.int32)}
+    return logits, new_cache

@@ -10,12 +10,13 @@ device (:mod:`repro_torch.sim.synth`); :func:`trace_from_numpy` builds one
 from the fields of any other trace, e.g. one made by ``repro``, so both
 packages can simulate the very same input.
 
-Ported here: the Ligra graph apps, the HTAP IMDB, and the captured
-LazySync trace ``capture/lazy_embed`` (recorded from the live protocol by
-:mod:`repro_torch.capture`).  The extended families (frontier, streaming,
-multi-tenant) and the captures that drive the model zoo
-(``capture/kv_serve``, ``capture/moe_experts``) come with later slices of
-the port and raise a ``ValueError`` naming that slice.
+Ported here: the Ligra graph apps, the HTAP IMDB, and the captured traces
+``capture/lazy_embed`` (recorded from the live LazySync protocol) and
+``capture/kv_serve`` (a paged-KV decode loop), both by
+:mod:`repro_torch.capture`.  The extended families (frontier, streaming,
+multi-tenant) and ``capture/moe_experts`` (which drives the MoE model zoo)
+come with later slices of the port and raise a ``ValueError`` naming that
+slice.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ HTAP_APPS = ("htap128", "htap192", "htap256")
 # Recorded from live execution (repro_torch.capture), not synthesized.
 CAPTURE_APPS = ("capture/kv_serve", "capture/moe_experts",
                 "capture/lazy_embed")
-PORTED_CAPTURE_APPS = ("capture/lazy_embed",)
+PORTED_CAPTURE_APPS = ("capture/kv_serve", "capture/lazy_embed")
 
 # app -> needs a graph input?
 ALL_APPS = {**{a: True for a in GRAPH_APPS},
@@ -44,9 +45,10 @@ ALL_APPS = {**{a: True for a in GRAPH_APPS},
 EXTENDED_SLICE = ("the extended workload families (bfs, sssp, htap_stream, "
                   "mtmix) come with a later port slice (ROADMAP queue A, "
                   "'extended families')")
-MODEL_ZOO_SLICE = ("the captures that drive the model zoo (capture/kv_serve, "
-                   "capture/moe_experts) come with the model-zoo slice of the "
-                   "port (ROADMAP queue A11 / A12)")
+MODEL_ZOO_SLICE = ("the capture that drives the MoE model zoo "
+                   "(capture/moe_experts, which needs models/moe.py's routing) "
+                   "comes with the MoE slice of the port (ROADMAP queue A11 / "
+                   "A12)")
 _LATER_APPS = {"bfs": EXTENDED_SLICE, "sssp": EXTENDED_SLICE,
                "htap_stream": EXTENDED_SLICE, "mtmix": EXTENDED_SLICE,
                **{a: MODEL_ZOO_SLICE for a in CAPTURE_APPS
@@ -197,8 +199,8 @@ def all_workloads(extended: bool = False,
                   captured: bool = False) -> list[tuple[str, str | None]]:
     """The paper's 12 evaluated (app, input) pairs (Fig. 7).  The extended
     families and the full captured set are not ported yet and raise a
-    ``ValueError`` (``capture/lazy_embed`` alone is ported: name it in a
-    study's workloads)."""
+    ``ValueError`` (``capture/lazy_embed`` and ``capture/kv_serve`` are
+    ported: name them in a study's workloads)."""
     if extended:
         raise ValueError(f"all_workloads(extended=True): {EXTENDED_SLICE}")
     if captured:

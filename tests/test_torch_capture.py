@@ -1,9 +1,10 @@
 """The port's capture layer (repro_torch.capture) held against repro.capture
 on the CPU: the line-mapper, the windower, the counter-PRNG streams, the
-``capture/lazy_embed`` trace field by field (at the tiny scale of
-``tests/test_capture.py`` and at the default scale), and the captured
-study through ``Study`` on both engines, all exact.  Also the naming
-``ValueError``s of the captures that wait for the model-zoo slice."""
+``capture/lazy_embed`` and ``capture/kv_serve`` traces field by field (at
+the tiny scale of ``tests/test_capture.py`` and at the default scale), the
+hand-computed KV decode transcript of ``tests/test_capture.py``, and the
+captured studies through ``Study`` on both engines, all exact.  Also the
+naming ``ValueError``s of the capture that waits for the MoE slice."""
 
 from __future__ import annotations
 
@@ -219,10 +220,10 @@ def test_study_matches_reference(engine):
 
 
 def test_naming_valueerrors():
-    for app in ("capture/kv_serve", "capture/moe_experts"):
-        with pytest.raises(ValueError, match="A11"):
+    for app in ("capture/moe_experts",):
+        with pytest.raises(ValueError, match="MoE slice.*A11"):
             make_trace(app, device="cpu")
-        with pytest.raises(ValueError, match="A11"):
+        with pytest.raises(ValueError, match="MoE slice.*A11"):
             capture_trace(app, device="cpu")
     with pytest.raises(ValueError, match="unknown capture spec"):
         make_trace("capture/bogus", device="cpu")
@@ -230,12 +231,12 @@ def test_naming_valueerrors():
         make_trace(APP, "enron", device="cpu")
     with pytest.raises(ValueError, match="recorded from live"):
         build_plan(APP)
-    with pytest.raises(ValueError, match="capture/kv_serve.*capture/moe_experts"):
+    with pytest.raises(ValueError, match="capture/moe_experts"):
         all_workloads(captured=True)
     from repro_torch.api import Study
 
     with pytest.raises(ValueError, match="workloads\\[0\\].*A11"):
-        Study(["capture/kv_serve"], device="cpu")
+        Study(["capture/moe_experts"], device="cpu")
 
 
 def test_capture_defaults_to_cuda():
@@ -244,3 +245,129 @@ def test_capture_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_trace(APP, **TINY)
+
+
+# ---------------------------------------------------------------------------
+# capture/kv_serve against repro
+# ---------------------------------------------------------------------------
+
+KV_APP = "capture/kv_serve"
+
+
+@pytest.mark.parametrize("kw", [dict(seed=1, **TINY), dict()], ids=["tiny", "default"])
+def test_capture_kv_serve_matches_reference(kw):
+    t = make_trace(KV_APP, device="cpu", **kw)
+    _assert_same_trace(r_make_trace(KV_APP, **kw), t)
+    assert t.name == KV_APP and t.num_lines == bucket_bound(t.num_lines)
+    assert t.cpu_reuse == 8.0
+    if not kw:
+        # the default scale: 500 pages x 128 lines + 63 page-table lines
+        # in the 65,536-line bucket; 24 kernels x 3 decode steps
+        assert (t.num_lines, t.num_kernels) == (65_536, 24)
+
+
+@pytest.mark.parametrize("scale", [0.05, 0.5, 1.0, 2.0])
+def test_kv_serve_config_and_helpers_match_reference(scale):
+    from repro.capture import kv_serve as R
+    from repro_torch.capture import kv_serve as K
+
+    cfg, rcfg = K.KVServeConfig.scaled(scale), R.KVServeConfig.scaled(scale)
+    assert dataclasses.astuple(cfg) == dataclasses.astuple(rcfg)
+    assert cfg.pages_per_req == rcfg.pages_per_req
+    lay, rlay = cfg.layout(), rcfg.layout()
+    assert lay.num_lines == rlay.num_lines
+    rng = np.random.default_rng(int(scale * 100))
+    for _ in range(20):
+        page = int(rng.integers(0, cfg.num_pages))
+        slot = int(rng.integers(0, K.PAGE_TOKENS))
+        np.testing.assert_array_equal(K.token_lines(lay, page, slot),
+                                      R.token_lines(rlay, page, slot))
+        assert K.pt_line(lay, page) == R.pt_line(rlay, page)
+    pages = [int(p) for p in rng.choice(cfg.num_pages, size=4, replace=False)]
+    for pos in (1, 15, 16, 17, 63):
+        assert K.decode_lines(lay, pages, pos) == R.decode_lines(rlay, pages, pos)
+    assert (K.PAGE_TOKENS, K.LINES_PER_TOKEN, K.LINES_PER_PAGE, K.PT_ENTRIES_PER_LINE) == \
+        (R.PAGE_TOKENS, R.LINES_PER_TOKEN, R.LINES_PER_PAGE, R.PT_ENTRIES_PER_LINE)
+
+
+def test_kv_differential_hand_transcript():
+    """The hand-computed decode transcript of ``tests/test_capture.py``,
+    replayed against the port: 8 pages (page 0 the shared prefix), batch 2,
+    2-token prompts, nobody finishing; ``pages`` at line 0, the one
+    page-table line at 1024, the region padded to 4096 lines."""
+    from repro_torch.capture.kv_serve import (
+        LINES_PER_PAGE,
+        LINES_PER_TOKEN,
+        KVServeConfig,
+        capture_kv_serve,
+        pt_line,
+        token_lines,
+    )
+
+    cfg = KVServeConfig(num_pages=8, shared_pages=1, batch=2,
+                        fixed_prompt_tokens=2, fixed_decode_tokens=100,
+                        attn_reads_per_req=0)
+    tr = capture_kv_serve(threads=16, seed=0, num_kernels=2,
+                          windows_per_kernel=2, cfg=cfg, device="cpu")
+    assert tr.num_lines == 4096
+    assert tr.num_windows == 4 and tr.num_kernels == 2
+
+    def tok(page, slot):
+        return list(range(page * 128 + slot * 8, page * 128 + slot * 8 + 8))
+
+    def row(t, w):
+        r = t[w].numpy()
+        return list(r[r >= 0])
+
+    PT = 1024
+    for s in range(4):
+        assert row(tr.pim_writes, s) == tok(1, 2 + s) + tok(2, 2 + s), f"step {s}"
+        assert row(tr.pim_reads, s) == [PT] + tok(1, 1 + s) + [PT] + tok(2, 1 + s)
+        assert bool((tr.cpu_writes[s] == -1).all())
+        cr = tr.cpu_reads[s].numpy()
+        assert np.all((cr[cr >= 0] >= 0) & (cr[cr >= 0] < 128))
+    pre0 = set(np.flatnonzero(tr.pre_writes[0].numpy()))
+    assert pre0 == (set(range(128)) | set(tok(1, 0)) | set(tok(1, 1))
+                    | set(tok(2, 0)) | set(tok(2, 1)) | {PT})
+    assert set(np.flatnonzero(tr.pre_writes[1].numpy())) == {PT}
+
+    # past the page boundary: step 14 writes slot 0 of fresh pages 3 and 4,
+    # and the scheduler writes their page-table entries (the RAW race)
+    tr2 = capture_kv_serve(threads=16, seed=0, num_kernels=8,
+                           windows_per_kernel=2, cfg=cfg, device="cpu")
+    assert row(tr2.pim_writes, 14) == tok(3, 0) + tok(4, 0)
+    assert row(tr2.pim_reads, 14) == [PT] + tok(1, 15) + [PT] + tok(2, 15)
+    assert row(tr2.cpu_writes, 14) == [PT, PT]
+
+    layout = cfg.layout()
+    assert list(token_lines(layout, 2, 3)) == tok(2, 3)
+    assert pt_line(layout, 7) == PT
+    assert LINES_PER_PAGE == 128 and LINES_PER_TOKEN == 8
+    with pytest.raises(ValueError, match="page pool too small"):
+        capture_kv_serve(cfg=KVServeConfig(num_pages=8, shared_pages=4, batch=8),
+                         device="cpu")
+
+
+def test_kv_serve_capture_trace_entry_point():
+    t = capture_trace(KV_APP, seed=2, cpu_reuse=5.0, device="cpu", **TINY)
+    assert t.cpu_reuse == 5.0
+    _assert_same_trace(r_make_trace(KV_APP, seed=2, cpu_reuse=5.0, **TINY), t)
+
+
+@pytest.mark.parametrize("engine", ["batch", "sequential"])
+def test_kv_serve_study_matches_reference(engine):
+    """At a quarter of the default scale and 8 kernels (the default scale
+    runs on the card in ``chip_smoke.py``, against this CPU path)."""
+    from repro.api import Study as RStudy
+    from repro.api import workload as r_workload
+    from repro_torch.api import Study, workload
+
+    kw = dict(scale=0.25, num_kernels=8)
+    got = Study([workload(KV_APP, **kw)], device="cpu").run(engine=engine)
+    want = RStudy([r_workload(KV_APP, **kw)]).run(engine=engine)
+    assert [p.workload for p in got] == [p.workload for p in want]
+    assert len(got.points) == 1
+    for a, b in zip(got.points, want.points):
+        assert set(a.results) == set(b.results)
+        for m in b.results:
+            assert dataclasses.asdict(a.results[m]) == dataclasses.asdict(b.results[m]), m

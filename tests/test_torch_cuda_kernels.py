@@ -2,10 +2,21 @@
 edge shapes the main paths can produce (ragged line counts, one slot,
 empty lanes, pad bits carrying garbage, sign-bit addresses; for the
 LazySync kernels 1 to 16 groups, ragged rows and widths, both dtypes,
-all/none/some rows valid), and small end-to-end runs (the Fig. 7 study,
-the capture study, nine LazySync steps) held against the CPU path.  The
-Bloom kernels give integers and the merge sums in the plain version's
-order, so the tolerance is exact equality throughout.
+all/none/some rows valid; for flash attention Sq from 1 to 4,096 across
+the 64-row tiles, MHA / GQA / MQA, head dims 64 and 128, both dtypes,
+windows, and non-causal calls with ragged key tails), and small end-to-end
+runs (the Fig. 7 study, the capture study, nine LazySync steps, a smoke
+prefill and the smoke serve loop) held against the CPU path.  The Bloom
+kernels give integers and the merge sums in the plain version's order, so
+their tolerance is exact equality.  Flash attention is held element by
+element to |kernel - plain| <= rtol |plain| + row_tol rms(plain row), the
+RMS taken over each output row's head dim, so that a row deep in a long
+causal sequence (whose values shrink as 1/sqrt(position)) is held to its
+own scale: float32 rtol 1e-5, row_tol 1e-3 (the CUDA-core FMA loops differ
+from the plain version only in the order of sums); bfloat16 rtol 2^-7 (the
+two outputs' bf16 roundings one ulp apart) and row_tol 2^-6 (the tensor-
+core path rounds the probabilities to bfloat16 for the PV product, ~2^-9
+of a row's scale per element).
 
 These tests need a CUDA device and nvcc; without them they skip.  On the
 GPU machine run them with
@@ -254,3 +265,166 @@ def test_capture_study_on_card_equals_cpu(dev):
     for a, b in zip(gpu.points, cpu.points):
         for m in a.results:
             assert dataclasses.asdict(a.results[m]) == dataclasses.asdict(b.results[m])
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (B7)
+# ---------------------------------------------------------------------------
+
+FA_TOL = {torch.float32: (1e-5, 1e-3), torch.bfloat16: (2.0 ** -7, 2.0 ** -6)}  # rtol, row_tol
+
+
+@pytest.fixture
+def no_tf32():
+    """Full float32 matmuls (no TF32) in the plain versions and models that
+    float32 results are held to (PyTorch's default, stated and restored)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _qkv(dev, b, sq, sk, hq, hkv, d, dtype, seed):
+    g = _gen(dev, seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+
+
+def _fa_check(q, k, v, **kw):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    out = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(out.to(torch.float32).isfinite().all())
+    rtol, row_tol = FA_TOL[q.dtype]
+    got, want = out.to(torch.float32), want.to(torch.float32)
+    diff = (got - want).abs()
+    allowed = rtol * want.abs() + row_tol * want.pow(2).mean(-1, keepdim=True).sqrt()
+    bad = diff > allowed
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} elements out of tolerance; max |diff| {float(diff.max()):.4g}, "
+        f"max |diff| / allowed {float(torch.where(diff == 0, 0.0, diff / allowed).max()):.3g}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("sq", [1, 127, 128, 129, 200, 4096])
+def test_flash_attention_causal(dev, no_tf32, dtype, d, hq, hkv, sq):
+    b = 1 if sq == 4096 else 2
+    _fa_check(*_qkv(dev, b, sq, sq, hq, hkv, d, dtype, sq + d), causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 64, 100, 256])
+@pytest.mark.parametrize("sq", [129, 1000])
+def test_flash_attention_window(dev, no_tf32, dtype, window, sq):
+    _fa_check(*_qkv(dev, 2, sq, sq, 8, 2, 64, dtype, window), causal=True, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (128, 256), (129, 200), (64, 4096), (300, 77)])
+def test_flash_attention_noncausal_ragged(dev, no_tf32, dtype, sq, sk):
+    _fa_check(*_qkv(dev, 2, sq, sk, 4, 2, 128, dtype, sq * sk), causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_sq_over_sk_and_odd_dims(dev, no_tf32, dtype):
+    """Sq > Sk under a causal window (fully masked rows give 0) and the
+    registered archs' other head dims (16, 96, 192)."""
+    q, k, v = _qkv(dev, 1, 300, 100, 4, 2, 64, dtype, 1)
+    _fa_check(q, k, v, causal=True, window=16)
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    assert not bool(FA.flash_attention(q, k, v, causal=True, window=16)[:, 120:].any())
+    for d in (16, 96, 192):
+        _fa_check(*_qkv(dev, 2, 200, 200, 4, 2, d, dtype, d), causal=True)
+
+
+def test_flash_attention_launch_counts_and_checks(dev):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    FA.reset_launch_counts()
+    q, k, v = _qkv(dev, 1, 64, 64, 2, 1, 64, torch.bfloat16, 0)
+    FA.flash_attention(q, k, v)
+    assert FA.launch_counts() == {"flash_attention": 1}
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k.cpu(), v)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.flash_attention(*_qkv(dev, 1, 8, 8, 2, 1, 24, torch.bfloat16, 0))
+    assert FA.launch_counts() == {"flash_attention": 1}
+    FA.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype,d,fits", [
+    (torch.bfloat16, 320, True), (torch.bfloat16, 336, False),
+    (torch.float32, 208, True), (torch.float32, 224, False)])
+def test_flash_attention_head_dim_limits(dev, no_tf32, dtype, d, fits):
+    """The largest head dims whose tiles fit a block's shared memory run
+    and match the plain version; the next multiple of 16 is refused by the
+    launcher (the wrapper raises, no launch is counted)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    qkv = _qkv(dev, 1, 130, 130, 2, 1, d, dtype, d)
+    if fits:
+        _fa_check(*qkv, causal=True)
+        return
+    FA.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.flash_attention(*qkv)
+    assert FA.launch_counts() == {"flash_attention": 0}
+
+
+def test_smoke_prefill_on_card_launches_per_layer(dev, no_tf32):
+    """The qwen3-4b smoke prefill step on the card: one B7 launch per layer,
+    last-position logits equal to the CPU run's (float32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_4b"), param_dtype=torch.float32)
+    model = Model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    step = make_prefill_step(model)
+    reset_launch_counts()
+    got = step(gpu, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == cfg.num_layers
+    want = step(cpu, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    reset_launch_counts()
+
+
+def test_smoke_serve_on_card_equals_cpu(dev, no_tf32):
+    """The serve loop on the card gives the CPU run's tokens (float32
+    smoke config, the loop's defaults); decode launches no B7."""
+    import argparse
+
+    import repro_torch.launch.serve as S
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_4b"), param_dtype=torch.float32)
+    S_get = S.get_smoke_config
+    S.get_smoke_config = lambda name: cfg
+    try:
+        args = dict(arch="qwen3-4b", smoke=True, requests=8, batch=4, max_new=16,
+                    max_len=64, seed=0, study=None)
+        from repro_torch.models.common import tree_map
+        from repro_torch.models.model import Model
+
+        cpu_params = Model(cfg).init(torch.Generator().manual_seed(0))
+        reset_launch_counts()
+        gpu_out = S.serve(argparse.Namespace(device=str(dev), **args),
+                          params=tree_map(lambda t: t.to(dev), cpu_params))
+        assert launch_counts()["flash_attention"] == 0
+        cpu_out = S.serve(argparse.Namespace(device="cpu", **args), params=cpu_params)
+    finally:
+        S.get_smoke_config = S_get
+    assert [(r.rid, r.out) for r in gpu_out] == [(r.rid, r.out) for r in cpu_out]

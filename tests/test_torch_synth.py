@@ -102,7 +102,7 @@ def test_all_workloads_is_the_paper_set():
 
 
 @pytest.mark.parametrize("app,graph", [("bfs", "arxiv"), ("htap_stream", None),
-                                       ("mtmix", "enron"), ("capture/kv_serve", None)])
+                                       ("mtmix", "enron"), ("capture/moe_experts", None)])
 def test_later_families_name_their_slice(app, graph):
     with pytest.raises(ValueError, match="slice"):
         make_trace(app, graph, device="cpu")
