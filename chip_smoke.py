@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero before the final line:
 1. environment — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; no CUDA device is a failure;
 2. build — compile every ``src/repro_torch/csrc/*.cu`` (``bloom.cu``,
-   ``lazy_merge.cu``, ``flash_attention.cu``) with ``nvcc`` for sm_90a, one
-   process each, started together, into the gitignored ``build/``;
+   ``bloom_onehot.cu``, ``lazy_merge.cu``, ``flash_attention.cu``) with
+   ``nvcc`` for sm_90a, one process each, started together, into the
+   gitignored ``build/``;
 3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
    ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
    its plain PyTorch version on the card on that path's data (the HTAP
@@ -26,14 +27,30 @@ Phases, in order; any failure exits non-zero before the final line:
    in ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
 5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
    by kernel and the device's idle share of the unprofiled batch wall time;
-6. capture path — ``Study(["capture/lazy_embed"])`` (the live LazySync
+6. seed path — the seed reference engine ``run_all_bool`` over the same 12
+   workloads at full scale (default ``SignatureSpec`` and ``HWParams``),
+   one trace at a time, counted and tapped: every ``bloom_insert_onehot``
+   / ``bloom_query_onehot`` call held to its plain version (exact), every
+   field of the 12 x 6 results equal to the packed sequential engine's of
+   phase 4, the goldens held; the full-commit and no-DBI LazyPIM ablations
+   on ``pagerank-arxiv`` and ``htap128`` against the packed engine; those
+   two workloads once more under ``torch.profiler`` for the idle share
+   (against their wall time in the counted run);
+7. the two B8 kernels timed as in phase 3 at the seed path's shapes, on
+   inputs it gave them (bound: bytes, or the xor-fold's ~3 operations a
+   round over the rounds this data needs, at 67 Top/s);
+8. signatures — ``benchmarks/bench_signatures.py`` on the card: B1
+   against the xor-fold hash at batch 4,096, B8 against B2 / B3 at batch
+   1,024, B5 against the two-pass PyTorch path (G = 4); every pair
+   bit-exact; one ``{"signatures": ...}`` line, no file written;
+9. capture path — ``Study(["capture/lazy_embed"])`` (the live LazySync
    protocol recorded at its default scale: vocab 24,000, 48,000 lines in
    the 65,536-line bucket, 24 kernels x 3 steps) with all six mechanisms on
    both engines, held against the port's own ``device="cpu"`` run of the
    same study (event counts exact, ratios 1e-6, raw 1e-4); all six kernels
    must launch; every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
    protocol made is held against its plain version on its own inputs;
-7. LazySync at qwen3-4b width — ``LazyEmbed(get_config("qwen3_4b"),
+10. LazySync at qwen3-4b width — ``LazyEmbed(get_config("qwen3_4b"),
    LazySyncConfig())`` (G = 4, vocab 151,936, d_model 2,560, bf16, 2,048-bit
    signatures, budget 1,024, commit every 16 steps): 24 ``sync_step``s with
    4,096 zipf-drawn touched ids per group and a sparse gradient on those
@@ -43,7 +60,7 @@ Phases, in order; any failure exits non-zero before the final line:
    rows, pinned rows, bytes against the dense all-reduce, peak memory;
    then 8 more steps twice from one snapshot, unprofiled and under
    ``torch.profiler``, for the device's idle share of a step;
-8. LazySync kernel phases — first, at qwen3-4b width, B5 on a draw of
+11. LazySync kernel phases — first, at qwen3-4b width, B5 on a draw of
    1,024 ids a group, whose hit counts must vary (the path's own draw
    saturates the signatures), and B6 on the path's reconcile rows with
    about half of them valid; then ``bloom_detect_conflicts`` at the
@@ -52,32 +69,32 @@ Phases, in order; any failure exits non-zero before the final line:
    shape (4, 151,936, 2,560) in bf16, on inputs the two paths gave them:
    times and bounds as in phase 3 (merge: exact expected, 1e-6 relative
    allowed);
-9. capture/kv_serve — ``Study(["capture/kv_serve"])`` (the paged-KV decode
+12. capture/kv_serve — ``Study(["capture/kv_serve"])`` (the paged-KV decode
    loop at its default scale: 500 pages, batch 24, 24 kernels x 3 steps)
    with all six mechanisms on both engines, each held to one
    ``device="cpu"`` run of the port (the engines agree bit for bit) at the
    same tolerances; B1–B4 must launch;
-10. qwen3-4b prefill — ``get_config("qwen3_4b")`` at full width and depth
+13. qwen3-4b prefill — ``get_config("qwen3_4b")`` at full width and depth
    (36 layers, ~4.02 B parameters, ~8.0 GB in bf16) initialised on the card
    from a seeded generator; ``make_prefill_step`` on 4 prompts of 4,096
    seeded tokens, three times: counted and tapped (exactly 36
    ``flash_attention`` launches; every call held to the plain version at
    the row-scaled tolerance of ``fa_excess``), unprofiled (wall time, peak memory), under ``torch.profiler``
    (the device's idle share);
-11. kernel flash_attention — B7 at the prefill path's shape, q (4, 4,096,
+14. kernel flash_attention — B7 at the prefill path's shape, q (4, 4,096,
    32, 128) and k / v (4, 4,096, 8, 128) bf16 causal, on layer 0's inputs:
    against its plain version (``fa_excess``), timed as in phase 3 with its bound in
    operations at the bf16 tensor-core rate (989 TFLOP/s), and one
    ``scaled_dot_product_attention`` call on the same inputs as the
    library yardstick (the port never calls it);
-12. qwen3-4b serve — ``launch.serve.serve`` at full width with the
+15. qwen3-4b serve — ``launch.serve.serve`` at full width with the
    reference serve loop's defaults (8 requests, batch 4, max-new 16, max-len
    64) on the same weights: all 8 served, tokens per second; 8 decode
    steps at batch 4 timed and then profiled (kernels a step, device busy
    time, idle share); then one teacher-forced 64-token prompt through
    decode against the full forward (top-1 agreement and max |logit
    difference|, recorded, not gated);
-13. the ``kernels`` JSON line (seven kernels), then the result line.
+16. the ``kernels`` JSON line (nine kernels), then the result line.
 
 float32 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False) wherever float32
@@ -120,10 +137,22 @@ TPU_KERNEL = {
     "bloom_detect_conflicts": "src/repro/kernels/bloom/bloom.py:266",
     "lazy_merge": "src/repro/kernels/lazy_merge/lazy_merge.py:30",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:82",
+    "bloom_insert_onehot": "src/repro/kernels/bloom/bloom.py:367",
+    "bloom_query_onehot": "src/repro/kernels/bloom/bloom.py:420",
 }
 SOURCE = {name: "src/repro_torch/csrc/bloom.cu" for name in TPU_KERNEL}
 SOURCE["lazy_merge"] = "src/repro_torch/csrc/lazy_merge.cu"
 SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SEED_KERNELS = ("bloom_insert_onehot", "bloom_query_onehot")
+for _name in SEED_KERNELS:
+    SOURCE[_name] = "src/repro_torch/csrc/bloom_onehot.cu"
+SEED_ABLATION_WORKLOADS = ("pagerank-arxiv", "htap128")
+# The seed path makes ~860,000 kernel launches; the profiler's bookkeeping
+# of them all would take minutes, so the idle share is read on these two.
+SEED_PROFILE_WORKLOADS = SEED_ABLATION_WORKLOADS
+XORFOLD_OPS = 3  # a shift-and bit test, a select and an XOR per round
+SIG_HASH_BATCH, SIG_KERNEL_BATCH, SIG_LINES = 4096, 1024, 65_536
+SIG_GROUPS, SIG_IDS_PER_GROUP = 4, 256
 FIG7_KERNELS = ("h3_hash", "bloom_insert", "bloom_query", "bloom_intersect")
 CAPTURE_KERNELS = FIG7_KERNELS + ("bloom_detect_conflicts", "lazy_merge")
 MERGE_RTOL = 1e-6
@@ -165,11 +194,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (t+{time.perf_counter() - _START:.1f} s)", flush=True)
 
 
-def environment():
+def environment() -> str:
     import torch
 
     phase("environment")
@@ -178,10 +210,12 @@ def environment():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
+    return card
 
 
 def build():
@@ -189,12 +223,14 @@ def build():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.bloom import bloom as K
+    from repro_torch.kernels.bloom import onehot as K8
 
     LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
     FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     t0 = time.perf_counter()
     libs = _build.build_all()
     K._lib()
+    K8._lib()
     LM._lib()
     FA._lib()
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
@@ -454,7 +490,7 @@ def main_path(K) -> dict[str, dict[str, int]]:
             check(not diff, f"{a.workload}/{m}: batch != sequential {diff}")
     print("batch and sequential agree on every field of 12 x 6 results",
           flush=True)
-    return counts, walls
+    return counts, walls, runs["sequential"]
 
 
 def device_busy_s(fn) -> tuple[float, int, list]:
@@ -489,6 +525,321 @@ def main_path_profile(batch_wall_s: float) -> dict:
     print(f"device busy {busy_s:.3f} s of {batch_wall_s:.3f} s batch wall "
           f"(idle share {summary['idle_share']:.3f})", flush=True)
     return summary
+
+
+class OnehotTap:
+    """While active, records every ``bloom_insert_onehot`` and
+    ``bloom_query_onehot`` call the seed primitives make — inputs and
+    result — by wrapping the two names :mod:`repro_torch.sim.prep` calls;
+    the wrapped calls launch exactly what they would have.  :meth:`check`
+    then holds each result against the kernel's plain version on the same
+    inputs (those calls launch nothing, so nothing is counted)."""
+
+    def __init__(self):
+        self.inserts, self.queries = [], []
+
+    def __enter__(self):
+        import repro_torch.sim.prep as P
+
+        self._mod = P
+        self._orig = (P.bloom_insert_onehot, P.bloom_query_onehot)
+        insert, query = self._orig
+
+        def tapped_insert(spec, sig, addrs, mask=None):
+            out = insert(spec, sig, addrs, mask)
+            self.inserts.append((spec, sig, addrs, mask, out))
+            return out
+
+        def tapped_query(spec, bits, addrs):
+            out = query(spec, bits, addrs)
+            self.queries.append((spec, bits, addrs, out))
+            return out
+
+        P.bloom_insert_onehot, P.bloom_query_onehot = tapped_insert, tapped_query
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.bloom_insert_onehot, self._mod.bloom_query_onehot = self._orig
+        return False
+
+    def check(self, label: str) -> int:
+        """Hold every recorded call to its plain version (exact); returns
+        the largest |diff| seen (0)."""
+        import torch
+
+        from repro_torch.kernels.bloom import onehot as K8
+
+        err = 0
+        for spec, sig, addrs, mask, out in self.inserts:
+            want = K8.bloom_insert_onehot_plain(spec, sig, addrs, mask)
+            err = max(err, int((out.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        for spec, bits, addrs, out in self.queries:
+            want = K8.bloom_query_onehot_plain(spec, bits, addrs)
+            err = max(err, int((out != want).sum()))
+        check(err == 0, f"{label}: a seed one-hot kernel call disagrees with its "
+                        f"plain version (max |diff| {err})")
+        return err
+
+
+def seed_path(sequential) -> tuple[dict, dict, OnehotTap]:
+    """The seed reference engine (``run_all_bool``) over the Fig. 7 fleet on
+    the card, one trace at a time, tapped: every B8 call is held to its
+    plain version, every SimResult field to the packed sequential engine's
+    (exact), the goldens at their tolerances; then the full-commit and
+    no-DBI ablations on two workloads against the packed engine, and a
+    profiled run for the idle share.  Returns (launch counts, summary, the
+    tap)."""
+    import types
+
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import HWParams, LazyPIMConfig, all_workloads, run_all
+    from repro_torch.core._boolref import run_all_bool, simulate_lazypim_bool
+    from repro_torch.sim.prep import prepare
+    from repro_torch.sim.trace import make_trace
+
+    phase("seed path (run_all_bool), Fig. 7 fleet")
+    dev = torch.device("cuda", 0)
+    golden = json.loads((GOLDEN_DIR / "fig7_golden.json").read_text())
+    t0 = time.perf_counter()
+    traces = [prepare(make_trace(a, g, device=dev), device=dev)
+              for a, g in all_workloads()]
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    packed = {p.workload: p for p in sequential}
+    check(sorted(packed) == sorted(tt.name for tt in traces),
+          f"seed fleet {[tt.name for tt in traces]} vs {sorted(packed)}")
+    tap = OnehotTap()
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    walls = {}
+    with tap:
+        results = []
+        for tt in traces:
+            t1 = time.perf_counter()
+            results.append(run_all_bool(tt))
+            torch.cuda.synchronize()
+            walls[tt.name] = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ablations = {(tt.name, label): simulate_lazypim_bool(tt, HWParams(), cfg)
+                     for tt in traces if tt.name in SEED_ABLATION_WORKLOADS
+                     for label, cfg in (("full_commit", LazyPIMConfig(partial_commits=False)),
+                                        ("no_dbi", LazyPIMConfig(use_dbi=False)))}
+        torch.cuda.synchronize()
+        ablation_wall = time.perf_counter() - t1
+    counts = KS.launch_counts()
+    print(f"seed: {len(results)} workloads x 6 mechanisms in {wall:.2f} s wall "
+          f"(traces staged beforehand in {prep_s:.2f} s), {len(ablations)} "
+          f"ablation runs in {ablation_wall:.2f} s; launches {counts}", flush=True)
+    for name in SEED_KERNELS:
+        check(counts[name] > 0, f"seed: kernel {name} was never launched")
+    n_fields = 0
+    for tt, res in zip(traces, results):
+        want = packed[tt.name].results
+        check(set(res) == set(want), f"seed/{tt.name}: mechanisms {sorted(res)}")
+        for m, r in res.items():
+            da, db = dataclasses.asdict(r), dataclasses.asdict(want[m])
+            diff = {k: (da[k], db[k]) for k in da if da[k] != db[k]}
+            check(not diff, f"seed/{tt.name}/{m}: seed != packed {diff}")
+            n_fields += len(da)
+    for (name, label), r in ablations.items():
+        tt = next(t for t in traces if t.name == name)
+        cfg = (LazyPIMConfig(partial_commits=False) if label == "full_commit"
+               else LazyPIMConfig(use_dbi=False))
+        want = run_all(tt, HWParams(), ("lazypim",), cfg)["lazypim"]
+        check(dataclasses.asdict(r) == dataclasses.asdict(want),
+              f"seed/{name}/lazypim {label}: seed != packed")
+    worst = check_golden([types.SimpleNamespace(workload=tt.name, results=res,
+                                                hw=packed[tt.name].hw)
+                          for tt, res in zip(traces, results)], golden, "seed")
+    err = tap.check("seed")
+    print(f"seed: equals the packed sequential engine on all {n_fields} fields of "
+          f"{len(results)} x 6 results and on the {len(ablations)} ablation runs "
+          f"({', '.join(SEED_ABLATION_WORKLOADS)}: partial_commits=False, "
+          f"use_dbi=False); goldens {GOLDEN_WORKLOADS} hold (worst rel gap "
+          f"{worst:.3g}); {len(tap.inserts)} bloom_insert_onehot and "
+          f"{len(tap.queries)} bloom_query_onehot calls equal their plain "
+          f"versions", flush=True)
+
+    phase(f"seed path profile ({', '.join(SEED_PROFILE_WORKLOADS)})")
+    profiled = [tt for tt in traces if tt.name in SEED_PROFILE_WORKLOADS]
+    profiled_wall = sum(walls[tt.name] for tt in profiled)
+    busy_s, launches, top = device_busy_s(lambda: [run_all_bool(tt) for tt in profiled])
+    for t, c, k in top:
+        print(f"  {t:9.4f} s {c:7d}x  {k[:100]}")
+    idle = 1.0 - busy_s / profiled_wall
+    print(f"device busy {busy_s:.3f} s of their {profiled_wall:.3f} s seed wall (idle "
+          f"share {idle:.3f}); {launches} kernels", flush=True)
+    summary = dict(wall_s=wall, wall_s_by_workload=walls, prepare_s=prep_s,
+                   ablation_wall_s=ablation_wall,
+                   ablations=[f"{n}/{lab}" for n, lab in ablations],
+                   profiled=list(SEED_PROFILE_WORKLOADS), profiled_wall_s=profiled_wall,
+                   device_busy_s=busy_s, idle_share=idle, kernels=launches,
+                   golden_worst_rel_gap=worst, tapped_inserts=len(tap.inserts),
+                   tapped_queries=len(tap.queries), max_abs_err=err,
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top])
+    return counts, summary, tap
+
+
+def onehot_kernel_phases(tap: OnehotTap) -> dict[str, dict]:
+    """B8 timed at the seed path's shapes, on inputs it gave the kernels:
+    the insert with the most valid slots and the query over the most lines.
+    Bound: bytes over 3.35 TB/s or the xor-fold's operations (``addr_bits``
+    rounds of ``XORFOLD_OPS`` for each segment hashed: every segment of a
+    valid insert, and a query's segments up to its first clear bit, where
+    the kernel stops) over 67 Top/s, the larger."""
+    import torch
+
+    from repro_torch.core.signatures import hash_positions_xorfold
+    from repro_torch.kernels.bloom import onehot as K8
+
+    out = {}
+    phase("kernel bloom_insert_onehot")
+    spec, sig, addrs, mask, _ = max(tap.inserts, key=lambda r: int(r[3].sum()))
+    got = K8.bloom_insert_onehot(spec, sig, addrs, mask)
+    err = int((got.to(torch.int64) - K8.bloom_insert_onehot_plain(
+        spec, sig, addrs, mask).to(torch.int64)).abs().max())
+    check(err == 0, "bloom_insert_onehot: kernel disagrees with plain version")
+    lanes, n = addrs.shape
+    n_valid = int(mask.sum())
+    m, ab, nw = spec.num_segments, spec.addr_bits, spec.num_words
+    st = measure(f"bloom_insert_onehot (L={lanes}, N={n}, {n_valid} valid, "
+                 f"{spec.sig_bits} bits, M={m})", err,
+                 lambda s, a, k: K8.bloom_insert_onehot(spec, s, a, k),
+                 lambda s, a, k: K8.bloom_insert_onehot_plain(spec, s, a, k),
+                 (sig, addrs, mask), nbytes=n * 5 + 2 * lanes * nw * 4 + m * ab * 4,
+                 ops=n_valid * m * ab * XORFOLD_OPS)
+    out["bloom_insert_onehot"] = dict(st, shape=dict(L=lanes, N=n, valid=n_valid,
+                                                     sig_bits=spec.sig_bits, M=m))
+
+    phase("kernel bloom_query_onehot")
+    spec, bits, addrs, _ = max(tap.queries, key=lambda r: r[2].shape[1])
+    got = K8.bloom_query_onehot(spec, bits, addrs)
+    want = K8.bloom_query_onehot_plain(spec, bits, addrs)
+    err = int((got != want).sum())
+    check(err == 0, "bloom_query_onehot: kernel disagrees with plain version")
+    lanes, n = addrs.shape
+    m, ab = spec.num_segments, spec.addr_bits
+    pos = hash_positions_xorfold(spec, addrs.reshape(-1)).to(torch.int64)
+    looked = bits.gather(1, pos.reshape(lanes, -1)).reshape(lanes, n, m)
+    hashed = int((looked.to(torch.int64).cumprod(-1).sum(-1) + 1).clamp(max=m).sum())
+    st = measure(f"bloom_query_onehot (L={lanes}, N={n}, {spec.sig_bits} bits, M={m}, "
+                 f"{int(want.sum())} members, {hashed} segments hashed)", err,
+                 lambda b, a: K8.bloom_query_onehot(spec, b, a),
+                 lambda b, a: K8.bloom_query_onehot_plain(spec, b, a), (bits, addrs),
+                 nbytes=n * 4 + lanes * spec.sig_bits + n + m * ab * 4,
+                 ops=hashed * ab * XORFOLD_OPS)
+    out["bloom_query_onehot"] = dict(st, shape=dict(L=lanes, N=n, sig_bits=spec.sig_bits,
+                                                    M=m, segments_hashed=hashed))
+    return out
+
+
+def signatures_phase(K, card: str) -> dict:
+    """``benchmarks/bench_signatures.py`` on the card: the byte-sliced hash
+    (B1) against the seed xor-fold at batch 4,096; the seed one-hot insert
+    and query (B8) against the word-level kernels (B2, B3) at batch 1,024;
+    the fused conflict detector (B5) against the two-pass PyTorch path
+    (hash, unpack, gather, sum) at G = 4, 256 ids a group, 1,024 probes.
+    Every pair must agree bit for bit.  Prints one ``{"signatures": ...}``
+    line and writes no file."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import signatures as S
+    from repro_torch.kernels.bloom import onehot as K8
+
+    phase("signatures (bench_signatures on the card)")
+    dev = torch.device("cuda", 0)
+    spec = S.default_spec()
+    tabs = S.tables_tensor(spec, dev)
+    nw, iters = spec.num_words, 200
+
+    def ms(fn, *args, n=iters):
+        return event_ms(fn, rotations(args, n), n)
+
+    def pair(label, a_name, a_ms, b_name, b_ms, **extra):
+        row = {a_name: a_ms, b_name: b_ms, "speedup": a_ms / b_ms, "exact": True, **extra}
+        print(f"{label}: {a_name} {a_ms:.5f} ms, {b_name} {b_ms:.5f} ms "
+              f"({row['speedup']:.2f}x), bit-exact", flush=True)
+        return row
+
+    def u32(rng, n, high=2**32):
+        return torch.from_numpy(rng.integers(0, high, size=(n,), dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+
+    out = {"card": card, "spec": dict(sig_bits=spec.sig_bits, num_segments=spec.num_segments,
+                                      addr_bits=spec.addr_bits)}
+    addrs = u32(np.random.default_rng(0), SIG_HASH_BATCH)
+    got = K.h3_hash(addrs, tabs)
+    check(torch.equal(got, S.hash_positions_xorfold(spec, addrs)),
+          "signatures: byte-sliced H3 != xor-fold")
+    out["hash_positions"] = pair(
+        f"hash_positions (batch {SIG_HASH_BATCH})", "xorfold_ms",
+        ms(lambda a: S.hash_positions_xorfold(spec, a), addrs, n=20),
+        "bytesliced_ms", ms(lambda a: K.h3_hash(a, tabs), addrs), batch=SIG_HASH_BATCH)
+
+    # Line ids, so the word-level query (B3, over a line bitmap) can take
+    # the same probes: half of them inserted, half fresh.
+    rng = np.random.default_rng(1)
+    ids = u32(rng, SIG_KERNEL_BATCH, SIG_LINES)[None]
+    valid = torch.ones_like(ids, dtype=torch.bool)
+    sig0 = torch.zeros((1, nw), dtype=torch.int32, device=dev)
+    onehot_sig = K8.bloom_insert_onehot(spec, sig0, ids, valid)
+    word_sig = K.bloom_insert(tabs, nw, ids=ids, valid=valid)[:, 0]
+    check(torch.equal(onehot_sig, word_sig) and torch.equal(
+        onehot_sig, K8.bloom_insert_onehot_plain(spec, sig0, ids, valid)),
+        "signatures: one-hot insert != word-level insert / plain")
+    out["insert"] = pair(
+        f"insert (batch {SIG_KERNEL_BATCH})", "onehot_ms",
+        ms(lambda s, a, v: K8.bloom_insert_onehot(spec, s, a, v), sig0, ids, valid),
+        "word_ms", ms(lambda a, v: K.bloom_insert(tabs, nw, ids=a, valid=v), ids, valid),
+        batch=SIG_KERNEL_BATCH, ids_below=SIG_LINES)
+
+    probes = torch.cat([ids[0, :SIG_KERNEL_BATCH // 2],
+                        u32(rng, SIG_KERNEL_BATCH // 2, SIG_LINES)])[None]
+    bits = S.unpack_words(onehot_sig, spec.sig_bits)
+    member = K8.bloom_query_onehot(spec, bits, probes)
+    line_bm = torch.zeros((1, SIG_LINES), dtype=torch.bool, device=dev)
+    line_bm[0, probes[0].to(torch.int64)] = True
+    words = S.pack_words(line_bm)
+    word_member = S.unpack_words(K.bloom_query(word_sig, words, tabs, SIG_LINES),
+                                 SIG_LINES)[0, probes[0].to(torch.int64)]
+    check(torch.equal(member[0], word_member) and torch.equal(
+        member, K8.bloom_query_onehot_plain(spec, bits, probes)),
+        "signatures: one-hot query != word-level query / plain")
+    n_member = int(member.sum())
+    check(0 < n_member < SIG_KERNEL_BATCH, f"signatures: {n_member} members")
+    out["query"] = pair(
+        f"query (batch {SIG_KERNEL_BATCH}, {n_member} members)", "onehot_ms",
+        ms(lambda b, a: K8.bloom_query_onehot(spec, b, a), bits, probes),
+        "word_ms", ms(lambda s, w: K.bloom_query(s, w, tabs, SIG_LINES), word_sig, words),
+        batch=SIG_KERNEL_BATCH, members=n_member, word_bitmap_lines=SIG_LINES)
+
+    rng = np.random.default_rng(2)
+    group_ids = [u32(rng, SIG_IDS_PER_GROUP, 50_000) for _ in range(SIG_GROUPS)]
+    sigs = torch.stack([S.insert(spec, S.empty_signature(spec, dev), a)
+                        for a in group_ids]).contiguous()
+    probes = u32(rng, SIG_KERNEL_BATCH, 50_000)
+
+    def two_pass(sg, a):
+        pos = S.hash_positions(spec, a).to(torch.int64)
+        return S.unpack_bits(spec, sg)[:, pos].all(-1).sum(0, dtype=torch.int32)
+
+    fused = K.bloom_detect_conflicts(sigs, probes, tabs)
+    check(torch.equal(fused, two_pass(sigs, probes)),
+          "signatures: fused conflict detector != two-pass path")
+    out["conflict"] = pair(
+        f"conflict (G={SIG_GROUPS}, {SIG_IDS_PER_GROUP} ids a group, "
+        f"{SIG_KERNEL_BATCH} probes)", "two_pass_ms", ms(two_pass, sigs, probes),
+        "fused_ms", ms(lambda sg, a: K.bloom_detect_conflicts(sg, a, tabs), sigs, probes),
+        batch=SIG_KERNEL_BATCH, num_groups=SIG_GROUPS,
+        hit_counts=torch.bincount(fused.to(torch.int64),
+                                  minlength=SIG_GROUPS + 1).tolist())
+    print(json.dumps({"signatures": out}), flush=True)
+    return out
 
 
 class KernelTap:
@@ -1206,7 +1557,7 @@ def serve_path(params: dict) -> tuple[dict, dict]:
 
 def main() -> int:
     try:
-        environment()
+        card = environment()
         K = build()
         import torch
 
@@ -1215,8 +1566,12 @@ def main() -> int:
         print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
               f"{torch.backends.cudnn.allow_tf32}", flush=True)
         stats = kernel_phases(K)
-        counts, walls = main_path(K)
+        counts, walls, sequential = main_path(K)
         profile = main_path_profile(walls["batch"])
+        seed_counts, seed, seed_tap = seed_path(sequential)
+        stats.update(onehot_kernel_phases(seed_tap))
+        del seed_tap, sequential
+        signatures = signatures_phase(K, card)
         cap_counts, cap_walls, cap_tap = capture_path()
         lazy = lazysync_path()
         keep = lazy.pop("keep")
@@ -1236,6 +1591,7 @@ def main() -> int:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
     by_path = {"fig7_batch": counts["batch"], "fig7_sequential": counts["sequential"],
+               "seed_fig7": seed_counts,
                "capture_batch": cap_counts["batch"],
                "capture_sequential": cap_counts["sequential"],
                "qwen3_lazysync": lazy["launches"],
@@ -1247,7 +1603,8 @@ def main() -> int:
                     launches=sum(c[name] for c in by_path.values()),
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **stats[name]) for name in TPU_KERNEL]
-    print(json.dumps({"profile": profile, "fig7_wall_s": walls,
+    print(json.dumps({"profile": profile, "fig7_wall_s": walls, "seed_fig7": seed,
+                      "signatures": signatures,
                       "capture_wall_s": cap_walls, "lazysync": lazy,
                       "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,
                       "qwen3_serve": serving}))

@@ -35,6 +35,7 @@ __all__ = [
     "SignatureSpec",
     "default_spec",
     "tables_tensor",
+    "h3_matrix_tensor",
     "empty_signature",
     "empty_bank",
     "hash_positions",
@@ -162,6 +163,15 @@ def tables_tensor(spec: SignatureSpec, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def h3_matrix_tensor(spec: SignatureSpec, device: torch.device) -> torch.Tensor:
+    """The (num_segments, addr_bits) H3 matrix as an int32 tensor on
+    ``device`` (the seed xor-fold's operand; cached per spec and device,
+    read-only by convention)."""
+    arr = np.ascontiguousarray(_h3_matrix(spec)).view(np.int32)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def default_spec() -> SignatureSpec:
     """The paper-default spec as a shared singleton."""
     return SignatureSpec()
@@ -276,10 +286,11 @@ def hash_positions(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
 
 def hash_positions_xorfold(spec: SignatureSpec,
                            addrs: torch.Tensor) -> torch.Tensor:
-    """Per-bit xor-fold H3 (the reference's seed implementation), kept for
-    bit-exactness tests of the byte-sliced path."""
+    """Per-bit xor-fold H3 (the reference's seed implementation): the plain
+    hash of the seed one-hot kernels (``bloom_insert_onehot`` /
+    ``bloom_query_onehot``) and the oracle of the byte-sliced path."""
     a = as_u32(addrs.reshape(-1))
-    q = torch.from_numpy(spec.h3_matrix.astype(np.int64)).to(addrs.device)
+    q = as_u32(h3_matrix_tensor(spec, addrs.device))
     h = torch.zeros((a.shape[0], spec.num_segments), dtype=torch.int64,
                     device=addrs.device)
     for j in range(spec.addr_bits):

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port (``repro.kernels`` counterpart).
 
-:mod:`.bloom` holds the five Bloom-signature kernels, :mod:`.lazy_merge`
-the LazySync row merge, :mod:`.flash_attention` the attention of the
-model zoo's prefill.  The helpers here read and reset the launch
-counter of every kernel wrapper at once; :func:`._build.build_all`
-compiles every CUDA source at once.
+:mod:`.bloom` holds the five Bloom-signature kernels, ``bloom.onehot``
+the two seed one-hot Bloom kernels of the seed reference simulator,
+:mod:`.lazy_merge` the LazySync row merge, :mod:`.flash_attention` the
+attention of the model zoo's prefill.  The helpers here read and reset
+the launch counter of every kernel wrapper at once;
+:func:`._build.build_all` compiles every CUDA source at once.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import importlib
 
 # The kernel modules (not the package-level wrappers of the same names).
 _KERNEL_MODULES = ("repro_torch.kernels.bloom.bloom",
+                   "repro_torch.kernels.bloom.onehot",
                    "repro_torch.kernels.lazy_merge.lazy_merge",
                    "repro_torch.kernels.flash_attention.flash_attention")
 

@@ -36,11 +36,21 @@ reference's fused gather forms, kept as plain PyTorch for parity tests;
 The bitmap primitives the five baselines use (``scatter_set``,
 ``gather_hits``, ``cpu_cache_step``) stay plain PyTorch on the card, as
 XLA fused them in the reference.
+
+**Seed family.**  The ``*_bool`` primitives are the reference's boolean
+seed twins of the packed ones, for ``repro_torch.core._boolref``; on the
+card their Bloom images and membership masks run the seed one-hot kernels
+of :mod:`repro_torch.kernels.bloom.onehot`:
+
+* ``sig_bits_from_ids_bool`` / ``sig_bits_from_bitmap_bool`` —
+  ``bloom_insert_onehot``, its packed words unpacked at the boundary
+* ``members_bool`` / ``ids_member_bool`` — ``bloom_query_onehot``
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -55,6 +65,7 @@ from repro_torch.core.signatures import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bloom import bloom as K
+from repro_torch.kernels.bloom.onehot import bloom_insert_onehot, bloom_query_onehot
 from repro_torch.sim.costmodel import LINE_BYTES, HWParams
 from repro_torch.sim.trace import WindowTrace
 
@@ -346,8 +357,198 @@ def cpu_cache_step(tt: TraceTensors, hw: HWParams, present: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Boolean seed reference path (*_bool): the same math on (L, num_lines)
+# bool bitmaps and (L, sig_bits) bool Bloom images, for the seed engine of
+# ``repro_torch.core._boolref`` and the differential tests.  The Bloom
+# image and membership primitives run the seed one-hot kernels on the card
+# (``bloom_insert_onehot`` / ``bloom_query_onehot``), hashing line ids with
+# the xor-fold H3 in the kernel (the same positions ``line_pos`` holds);
+# the CPUWriteSet bank, the conflict prefilter and the cache-bitmap steps
+# stay plain PyTorch.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _line_ids(num_lines: int, device: torch.device) -> torch.Tensor:
+    """(1, num_lines) int32 line ids 0..num_lines-1 (cached per device)."""
+    return torch.arange(num_lines, dtype=torch.int32, device=device)[None, :]
+
+
+def _lane_ids(tt: TraceTensors, lanes: int) -> torch.Tensor:
+    """(lanes, num_lines) int32 line ids, one row per lane."""
+    ids = _line_ids(tt.num_lines, tt.device)
+    return ids if lanes == 1 else ids.expand(lanes, -1).contiguous()
+
+
+def _image_from_ids(tt: TraceTensors, ids: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """(L, sig_bits) bool image of the masked ids (L, N): B8 insert returns
+    packed words, as the TPU kernel does, so they are unpacked here."""
+    zero = torch.zeros((ids.shape[0], tt.sig_words), dtype=torch.int32,
+                       device=ids.device)
+    words = bloom_insert_onehot(tt.spec, zero, ids.contiguous(),
+                                mask.contiguous())
+    return unpack_words(words, tt.sig_bits)
+
+
+def _sig_image_bool(tt: TraceTensors, bitmap: torch.Tensor) -> torch.Tensor:
+    """(L, sig_bits) bool image of every line set in ``bitmap`` (L, n)."""
+    return _image_from_ids(tt, _lane_ids(tt, bitmap.shape[0]), bitmap)
+
+
+def _bank_image_bool(tt: TraceTensors, bitmap: torch.Tensor,
+                     num_regs: int) -> torch.Tensor:
+    """(L, num_regs, sig_bits) bool CPUWriteSet bank of the lines set in
+    ``bitmap`` (L, n): line i goes to register ``line_reg[i]``.  Each lane's
+    registers are staged ``sig_bits + 1`` wide; unset lines land in the
+    extra slot, which is cut off."""
+    lanes = bitmap.shape[0]
+    stride = tt.sig_bits + 1
+    pos = torch.where(bitmap[..., None], tt.line_pos.to(torch.int64), tt.sig_bits)
+    reg = tt.line_reg.to(torch.int64)[..., None]
+    base = torch.arange(lanes, dtype=torch.int64, device=bitmap.device) * num_regs
+    flat = (base[:, None, None] + reg) * stride + pos
+    staged = torch.zeros((lanes * num_regs * stride,), dtype=torch.bool,
+                         device=bitmap.device)
+    staged[flat.reshape(-1)] = True
+    return staged.reshape(lanes, num_regs, stride)[..., :tt.sig_bits]
+
+
+def sig_bits_from_ids_bool(tt: TraceTensors, ids: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Bloom images (L, sig_bits) bool of the valid line ids in ``ids``
+    (L, A); B8 insert on the card, unpacked at its boundary."""
+    return _image_from_ids(tt, ids, valid)
+
+
+def sig_bits_from_bitmap_bool(tt: TraceTensors,
+                              bitmap: torch.Tensor) -> torch.Tensor:
+    """Bloom images (L, sig_bits) bool of all lines set in ``bitmap``
+    (L, n) bool; B8 insert on the card, unpacked at its boundary."""
+    return _sig_image_bool(tt, bitmap)
+
+
+def bank_bits_from_bitmap_bool(tt: TraceTensors, bitmap: torch.Tensor,
+                               num_regs: int = CPUWS_REGS) -> torch.Tensor:
+    """CPUWriteSet banks (L, num_regs, sig_bits) bool from dirty-line
+    bitmaps (L, n) bool (plain PyTorch: B8 has no register axis)."""
+    return _bank_image_bool(tt, bitmap, num_regs)
+
+
+def conflict_any_bool(tt: TraceTensors, read_bits: torch.Tensor,
+                      bank_bits: torch.Tensor) -> torch.Tensor:
+    """Boolean-image conflict prefilter per lane: True iff the read image
+    (L, sig_bits) meets any register of the bank (L, R, sig_bits) in every
+    segment."""
+    inter = bank_bits & read_bits[:, None, :]
+    seg = inter.reshape(*bank_bits.shape[:2], tt.num_segments, -1)
+    return seg.any(3).all(2).any(1)
+
+
+def members_bool(tt: TraceTensors, bitmap: torch.Tensor,
+                 bits: torch.Tensor) -> torch.Tensor:
+    """Per-line signature membership (L, n) bool of the lines set in
+    ``bitmap`` (L, n) against the images ``bits`` (L, sig_bits); B8 query
+    hashes every line id on the card."""
+    hit = bloom_query_onehot(tt.spec, bits.contiguous(),
+                             _lane_ids(tt, bitmap.shape[0]))
+    return bitmap & hit
+
+
+def ids_member_bool(tt: TraceTensors, ids: torch.Tensor, valid: torch.Tensor,
+                    bits: torch.Tensor) -> torch.Tensor:
+    """Signature membership (L, A) bool of an id list (L, A) against the
+    images ``bits`` (L, sig_bits); B8 query on the clipped ids."""
+    clipped = ids.clamp(0, tt.num_lines - 1).contiguous()
+    return valid & bloom_query_onehot(tt.spec, bits.contiguous(), clipped)
+
+
+def scatter_set_bool(bitmap: torch.Tensor, ids: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """OR line ids (L, A) into bool bitmaps (L, n).  Invalid slots go to
+    the staged extra index ``n``, which is cut off."""
+    n = bitmap.shape[-1]
+    idx = torch.where(valid, ids.to(torch.int64), n)
+    staged = torch.nn.functional.pad(bitmap, (0, 1))
+    staged.scatter_(-1, idx, True)
+    return staged[..., :n]
+
+
+def gather_hits_bool(bitmap: torch.Tensor, ids: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Per-slot hit flags (L, A): valid & line present."""
+    idx = ids.to(torch.int64).clamp(0, bitmap.shape[-1] - 1)
+    return valid & bitmap.gather(-1, idx)
+
+
+def evict_to_cap_bool(present: torch.Tensor, dirty: torch.Tensor,
+                      window_idx: int, cap):
+    """Boolean-bitmap capacity eviction: :func:`evict_to_cap` on (L, n)
+    bool bitmaps, with the same thinning hash and float32 keep rule."""
+    n = present.shape[-1]
+    count = present.sum(-1)
+    over = count > cap
+    keep_prob = (cap / torch.clamp(count, min=1)).clamp(0.0, 1.0)
+    u = line_window_u01(n, window_idx, KNUTH_MULT, KNUTH_STEP, present.device)
+    drop = present & (u[None, :] > keep_prob[:, None]) & over[:, None]
+    wb_lines = (dirty & drop).sum(-1).to(torch.float32)
+    return present & ~drop, dirty & ~drop, wb_lines
+
+
+def cpu_cache_step_bool(tt: TraceTensors, hw: HWParams, present: torch.Tensor,
+                        dirty: torch.Tensor, w: int, *, cacheable: bool = True,
+                        cap_lines=None) -> CpuStepOut:
+    """:func:`cpu_cache_step` on (L, n) bool bitmaps (seed reference)."""
+    cr, crv = tt.cpu_reads[:, w], tt.cpu_r_valid[:, w]
+    cw, cwv = tt.cpu_writes[:, w], tt.cpu_w_valid[:, w]
+    n_acc = (crv.sum(1) + cwv.sum(1)).to(torch.float32)
+    reuse = tt.cpu_reuse
+    miss_ns = hw.offchip_mem_ns / hw.cpu_mlp
+
+    if not cacheable:
+        n_dyn = n_acc * reuse
+        mem_ns = n_dyn * miss_ns / hw.cpu_cores
+        fill = n_dyn * hw.nc_bytes
+        zero = torch.zeros_like(n_acc)
+        return CpuStepOut(present, dirty, zero, n_dyn, zero, mem_ns, fill)
+
+    r_hit = gather_hits_bool(present, cr, crv)
+    w_hit = gather_hits_bool(present, cw, cwv)
+    misses = ((crv & ~r_hit).sum(1) + (cwv & ~w_hit).sum(1)).to(torch.float32)
+    hits = (r_hit.sum(1) + w_hit.sum(1)).to(torch.float32)
+    present = scatter_set_bool(present, cr, crv)
+    present = scatter_set_bool(present, cw, cwv)
+    dirty = scatter_set_bool(dirty, cw, cwv)
+    cap = cap_lines if cap_lines is not None else hw.thread_cache_cap
+    present, dirty, wb = evict_to_cap_bool(present, dirty, w, cap)
+    repeats_ns = n_acc * (reuse - 1.0) * hw.l1_hit_ns
+    mem_ns = (hits * hw.l2_hit_ns + misses * miss_ns + repeats_ns) / hw.cpu_cores
+    fill = (misses + wb) * LINE_BYTES
+    return CpuStepOut(present, dirty, hits, misses, wb, mem_ns, fill)
+
+
+# ---------------------------------------------------------------------------
 # Trace staging
 # ---------------------------------------------------------------------------
+
+
+def _uniq_count_loop(rows: torch.Tensor) -> torch.Tensor:
+    """Per-row count of distinct non-negative entries, one row at a time
+    (the seed implementation :func:`_uniq_count` replaced), float32."""
+    out = torch.empty((rows.shape[0],), dtype=torch.float32)
+    for i, row in enumerate(rows):
+        out[i] = torch.unique(row[row >= 0]).numel()
+    return out.to(rows.device)
+
+
+def _uniq_union_count_loop(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row count of the distinct non-negative entries of two id lists,
+    one row at a time (seed implementation), float32."""
+    out = torch.empty((a.shape[0],), dtype=torch.float32)
+    for i in range(a.shape[0]):
+        both = torch.cat([a[i][a[i] >= 0], b[i][b[i] >= 0]])
+        out[i] = torch.unique(both).numel()
+    return out.to(a.device)
 
 
 def _uniq_count(rows: torch.Tensor) -> torch.Tensor:

@@ -2,21 +2,23 @@
 edge shapes the main paths can produce (ragged line counts, one slot,
 empty lanes, pad bits carrying garbage, sign-bit addresses; for the
 LazySync kernels 1 to 16 groups, ragged rows and widths, both dtypes,
-all/none/some rows valid; for flash attention Sq from 1 to 4,096 across
-the 64-row tiles, MHA / GQA / MQA, head dims 64 and 128, both dtypes,
-windows, and non-causal calls with ragged key tails), and small end-to-end
-runs (the Fig. 7 study, the capture study, nine LazySync steps, a smoke
-prefill and the smoke serve loop) held against the CPU path.  The Bloom
-kernels give integers and the merge sums in the plain version's order, so
-their tolerance is exact equality.  Flash attention is held element by
-element to |kernel - plain| <= rtol |plain| + row_tol rms(plain row), the
-RMS taken over each output row's head dim, so that a row deep in a long
-causal sequence (whose values shrink as 1/sqrt(position)) is held to its
-own scale: float32 rtol 1e-5, row_tol 1e-3 (the CUDA-core FMA loops differ
-from the plain version only in the order of sums); bfloat16 rtol 2^-7 (the
-two outputs' bf16 roundings one ulp apart) and row_tol 2^-6 (the tensor-
-core path rounds the probabilities to bfloat16 for the PV product, ~2^-9
-of a row's scale per element).
+all/none/some rows valid; for the seed one-hot kernels every reference
+geometry, lanes, ragged N and an all-false mask; for flash attention Sq
+from 1 to 4,096 across the 64-row tiles, MHA / GQA / MQA, head dims 64 and
+128, both dtypes, windows, and non-causal calls with ragged key tails),
+and small end-to-end runs (the Fig. 7 study, the capture study, the seed
+engine, nine LazySync steps, a smoke prefill and the smoke serve loop)
+held against the CPU path.  The Bloom kernels give integers and the merge
+sums in the plain version's order, so their tolerance is exact equality.
+Flash attention is held element by element to |kernel - plain| <= rtol
+|plain| + row_tol rms(plain row), the RMS taken over each output row's
+head dim, so that a row deep in a long causal sequence (whose values
+shrink as 1/sqrt(position)) is held to its own scale: float32 rtol 1e-5,
+row_tol 1e-3 (the CUDA-core FMA loops differ from the plain version only
+in the order of sums); bfloat16 rtol 2^-7 (the two outputs' bf16
+roundings one ulp apart) and row_tol 2^-6 (the tensor-core path rounds
+the probabilities to bfloat16 for the PV product, ~2^-9 of a row's scale
+per element).
 
 These tests need a CUDA device and nvcc; without them they skip.  On the
 GPU machine run them with
@@ -40,6 +42,7 @@ from repro_torch.core.signatures import (
     unpack_words,
 )
 from repro_torch.kernels.bloom import bloom as K
+from repro_torch.kernels.bloom import onehot as K8
 
 SPECS = [default_spec(), SignatureSpec(sig_bits=1024, num_segments=2),
          SignatureSpec(sig_bits=8192, num_segments=4)]
@@ -146,6 +149,95 @@ def test_small_study_on_card_equals_cpu(dev):
     for a, b in zip(gpu.points, cpu.points):
         for m in a.results:
             assert dataclasses.asdict(a.results[m]) == dataclasses.asdict(b.results[m])
+
+
+# ---------------------------------------------------------------------------
+# Seed one-hot kernels (B8): bloom_insert_onehot and bloom_query_onehot
+# ---------------------------------------------------------------------------
+
+ONEHOT_SPECS = [SignatureSpec(sig_bits=s, num_segments=m)
+                for s in (512, 2048, 4096) for m in (2, 4, 8)]
+
+
+def _onehot_mask(kind, shape, dev, seed):
+    if kind == "unmasked":
+        return None
+    if kind == "all_false":
+        return torch.zeros(shape, dtype=torch.bool, device=dev)
+    return torch.rand(shape, generator=_gen(dev, seed), device=dev) < 0.5
+
+
+@pytest.mark.parametrize("spec", ONEHOT_SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("lanes,n", [(1, 1), (1, 1024), (3, 300), (2, 5000)])
+@pytest.mark.parametrize("mask_kind", ["random", "all_false", "unmasked"])
+def test_insert_onehot(dev, spec, lanes, n, mask_kind):
+    """Sign-bit addresses, ragged N over the 1,024-address blocks, an
+    incoming signature that is not empty."""
+    g = _gen(dev, lanes * n + spec.sig_bits)
+    addrs = torch.randint(-2**31, 2**31 - 1, (lanes, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    sig = _words((lanes, spec.num_words), 0.02, dev, n)
+    mask = _onehot_mask(mask_kind, (lanes, n), dev, n + 1)
+    got = K8.bloom_insert_onehot(spec, sig, addrs, mask)
+    assert torch.equal(got, K8.bloom_insert_onehot_plain(spec, sig, addrs, mask))
+    if mask_kind == "all_false":
+        assert torch.equal(got, sig)
+
+
+@pytest.mark.parametrize("spec", ONEHOT_SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("lanes,n", [(1, 1), (3, 257), (2, 70_000)])
+@pytest.mark.parametrize("density", [0.3, 0.9])
+def test_query_onehot(dev, spec, lanes, n, density):
+    g = _gen(dev, lanes * n + spec.num_segments)
+    addrs = torch.randint(-2**31, 2**31 - 1, (lanes, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    bits = torch.rand((lanes, spec.sig_bits), generator=g, device=dev) < density
+    got = K8.bloom_query_onehot(spec, bits, addrs)
+    want = K8.bloom_query_onehot_plain(spec, bits, addrs)
+    assert torch.equal(got, want)
+    if n > 1000:
+        assert 0 < int(want.sum()) < want.numel()  # the answers vary
+
+
+def test_onehot_launch_counts_and_device_checks(dev):
+    spec = default_spec()
+    addrs = torch.arange(10, dtype=torch.int32, device=dev)[None]
+    sig = torch.zeros((1, spec.num_words), dtype=torch.int32, device=dev)
+    K8.reset_launch_counts()
+    img = K8.bloom_insert_onehot(spec, sig, addrs)
+    K8.bloom_insert_onehot(spec, sig, addrs[:, :0])  # no launch
+    K8.bloom_query_onehot(spec, unpack_words(img, spec.sig_bits), addrs)
+    assert K8.launch_counts() == {"bloom_insert_onehot": 1, "bloom_query_onehot": 1}
+    with pytest.raises(ValueError):
+        K8.bloom_insert_onehot(spec, sig.cpu(), addrs)  # mixed devices
+    with pytest.raises(ValueError):
+        K8.bloom_query_onehot(spec, unpack_words(img, spec.sig_bits), addrs.cpu())
+    K8.reset_launch_counts()
+
+
+def test_seed_engine_on_card_equals_cpu_and_packed(dev):
+    """run_all_bool on the card equals its CPU run and the packed engine on
+    every field, and its Bloom primitives went through B8."""
+    from repro_torch.core._boolref import run_all_bool
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sim.engine import run_all
+    from repro_torch.sim.prep import prepare
+    from repro_torch.sim.trace import make_trace
+
+    def prep(device):
+        return prepare(make_trace("pagerank", "arxiv", num_kernels=3, device=device),
+                       device=device)
+
+    reset_launch_counts()
+    gpu = run_all_bool(prep(dev))
+    counts = launch_counts()
+    assert counts["bloom_insert_onehot"] > 0 and counts["bloom_query_onehot"] > 0
+    cpu = run_all_bool(prep("cpu"))
+    packed = run_all(prep(dev), device=dev)
+    for m in gpu:
+        assert dataclasses.asdict(gpu[m]) == dataclasses.asdict(cpu[m]), m
+        assert dataclasses.asdict(gpu[m]) == dataclasses.asdict(packed[m]), m
+    reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

@@ -33,3 +33,28 @@ def test_every_module_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     # the package, its subpackages and modules: at least the ones of this slice
     assert int(out.stdout.strip()) >= 30
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_repro():
+    import ast
+
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Without a CUDA device the script exits non-zero and prints no result
+    line."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, str(SRC.parent / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "no CUDA device" in out.stderr
