@@ -8,9 +8,12 @@ Phases, in order; any failure exits non-zero before the final line:
 1. environment — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; no CUDA device is a failure;
 2. build — compile every ``src/repro_torch/csrc/*.cu`` (``bloom.cu``,
-   ``bloom_onehot.cu``, ``lazy_merge.cu``, ``flash_attention.cu``) with
-   ``nvcc`` for sm_90a, one process each, started together, into the
-   gitignored ``build/``;
+   ``bloom_onehot.cu``, ``lazy_merge.cu``, ``flash_attention.cu``,
+   ``flash_attention_sm90.cu``) with ``nvcc`` for sm_90a, one process each,
+   started together, into the gitignored ``build/``; print what
+   ``cudaFuncGetAttributes`` reads from the loaded sm90 flash attention
+   kernel at each head dim (registers and local memory, i.e. spills and
+   stack, a thread; static and dynamic shared memory a block);
 3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
    ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
    its plain PyTorch version on the card on that path's data (the HTAP
@@ -78,15 +81,18 @@ Phases, in order; any failure exits non-zero before the final line:
    (36 layers, ~4.02 B parameters, ~8.0 GB in bf16) initialised on the card
    from a seeded generator; ``make_prefill_step`` on 4 prompts of 4,096
    seeded tokens, three times: counted and tapped (exactly 36
-   ``flash_attention`` launches; every call held to the plain version at
-   the row-scaled tolerance of ``fa_excess``), unprofiled (wall time, peak memory), under ``torch.profiler``
-   (the device's idle share);
-14. kernel flash_attention — B7 at the prefill path's shape, q (4, 4,096,
-   32, 128) and k / v (4, 4,096, 8, 128) bf16 causal, on layer 0's inputs:
-   against its plain version (``fa_excess``), timed as in phase 3 with its bound in
-   operations at the bf16 tensor-core rate (989 TFLOP/s), and one
-   ``scaled_dot_product_attention`` call on the same inputs as the
-   library yardstick (the port never calls it);
+   ``flash_attention`` launches, all on the sm90 route — bf16, D = 128 —
+   and none on the general one; every call held to the plain version at
+   the row-scaled tolerance of ``fa_excess``), unprofiled (wall time, peak
+   memory), under ``torch.profiler`` (the device's idle share);
+14. kernel flash_attention, both routes — B7 at the prefill path's shape,
+   q (4, 4,096, 32, 128) and k / v (4, 4,096, 8, 128) bf16 causal, on layer
+   0's inputs, on the sm90 route (``flash_attention_sm90.cu``, what the path
+   takes) and on the general route (``flash_attention.cu``, forced): each
+   against its plain version (``fa_excess``), timed as in phase 3 with its
+   bound in operations at the bf16 tensor-core rate (989 TFLOP/s), and one
+   ``scaled_dot_product_attention`` call on the same inputs as the library
+   yardstick (the port never calls it);
 15. qwen3-4b serve — ``launch.serve.serve`` at full width with the
    reference serve loop's defaults (8 requests, batch 4, max-new 16, max-len
    64) on the same weights: all 8 served, tokens per second; 8 decode
@@ -94,7 +100,15 @@ Phases, in order; any failure exits non-zero before the final line:
    time, idle share); then one teacher-forced 64-token prompt through
    decode against the full forward (top-1 agreement and max |logit
    difference|, recorded, not gated);
-16. the ``kernels`` JSON line (nine kernels), then the result line.
+16. smoke prefill, float32 — the qwen3-4b smoke config (2 layers, D = 16)
+   in float32 through ``make_prefill_step`` on 2 x 150 tokens, counted
+   (one general-route B7 launch a layer, none on the sm90 route), tapped
+   (every call held to the plain version at ``FA_TOL``'s float32 pair,
+   rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
+   the general route's own path;
+17. the ``kernels`` JSON line (ten kernels: B7 once a route, as
+   ``flash_attention_general`` and ``flash_attention_sm90``), then the
+   result line.
 
 float32 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False) wherever float32
@@ -136,13 +150,18 @@ TPU_KERNEL = {
     "bloom_intersect": "src/repro/kernels/bloom/bloom.py:316",
     "bloom_detect_conflicts": "src/repro/kernels/bloom/bloom.py:266",
     "lazy_merge": "src/repro/kernels/lazy_merge/lazy_merge.py:30",
-    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:82",
+    "flash_attention_general": "src/repro/kernels/flash_attention/flash_attention.py:82",
     "bloom_insert_onehot": "src/repro/kernels/bloom/bloom.py:367",
     "bloom_query_onehot": "src/repro/kernels/bloom/bloom.py:420",
+    "flash_attention_sm90": "src/repro/kernels/flash_attention/flash_attention.py:82",
 }
 SOURCE = {name: "src/repro_torch/csrc/bloom.cu" for name in TPU_KERNEL}
 SOURCE["lazy_merge"] = "src/repro_torch/csrc/lazy_merge.cu"
-SOURCE["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SOURCE["flash_attention_general"] = "src/repro_torch/csrc/flash_attention.cu"
+SOURCE["flash_attention_sm90"] = "src/repro_torch/csrc/flash_attention_sm90.cu"
+# B7's two routes under their kernel names in the counts and the kernels line
+# (the package's one ``flash_attention`` count is their sum)
+FA_ROUTE_KERNEL = {"general": "flash_attention_general", "sm90": "flash_attention_sm90"}
 SEED_KERNELS = ("bloom_insert_onehot", "bloom_query_onehot")
 for _name in SEED_KERNELS:
     SOURCE[_name] = "src/repro_torch/csrc/bloom_onehot.cu"
@@ -158,16 +177,18 @@ CAPTURE_KERNELS = FIG7_KERNELS + ("bloom_detect_conflicts", "lazy_merge")
 MERGE_RTOL = 1e-6
 CAPTURE_APP = "capture/lazy_embed"
 KV_APP = "capture/kv_serve"
-# bf16 flash attention against its plain version, element by element:
-# |kernel - plain| <= FA_RTOL |plain| + FA_ROW_TOL rms(plain row), the RMS
-# taken over each output row's head dim.  FA_RTOL covers the two outputs'
-# bf16 roundings landing one ulp apart; FA_ROW_TOL covers the kernel's one
-# rounding site the plain version lacks (P rounded to bf16 for the PV
-# product: ~2^-9 of a row's scale per element).  A row missing one KV tile
-# of 64 keys in 4,096 moves by ~0.13 of its RMS, ~8x this tolerance.
-FA_RTOL = 2.0 ** -7
-FA_ROW_TOL = 2.0 ** -6
+# Flash attention against its plain version, element by element:
+# |kernel - plain| <= rtol |plain| + row_tol rms(plain row), the RMS taken
+# over each output row's head dim; (rtol, row_tol) by dtype.  In bf16, rtol
+# covers the two outputs' bf16 roundings landing one ulp apart and row_tol
+# the kernel's one rounding site the plain version lacks (P rounded to bf16
+# for the PV product: ~2^-9 of a row's scale per element); a row missing
+# one KV tile of 64 keys in 4,096 moves by ~0.13 of its RMS, ~8x this
+# tolerance.  In float32 both sides compute in float32 (the on-card tests'
+# pair).
+FA_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -6), "float32": (1e-5, 1e-3)}
 PREFILL_BATCH, PREFILL_LEN = 4, 4096   # the train_4k sequence length
+SMOKE_PREFILL_LEN = 150
 SERVE_ARGS = dict(arch="qwen3-4b", smoke=False, requests=8, batch=4, max_new=16,
                   max_len=64, seed=0, study=None)  # the reference serve loop's defaults
 TEACHER_LEN = 64
@@ -218,6 +239,20 @@ def environment() -> str:
     return card
 
 
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches since the last reset, B7's split by route:
+    ``flash_attention_general`` and ``flash_attention_sm90`` in place of the
+    package's ``flash_attention`` (their sum)."""
+    from repro_torch import kernels as KS
+
+    FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    counts = KS.launch_counts()
+    del counts["flash_attention"]
+    for route, n in FA.route_counts().items():
+        counts[FA_ROUTE_KERNEL[route]] = n
+    return counts
+
+
 def build():
     phase("build")
     sys.path.insert(0, str(ROOT / "src"))
@@ -233,9 +268,16 @@ def build():
     K8._lib()
     LM._lib()
     FA._lib()
+    FA._lib_sm90()
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
           f"parallel)", flush=True)
+    for d in sorted(FA.SM90_HEAD_DIMS):
+        a = FA.sm90_attributes(d)
+        print(f"flash_attention_sm90 D = {d}: {a['registers']} registers and "
+              f"{a['local_bytes']} bytes of local memory (spills, stack) a thread; "
+              f"{a['static_smem_bytes']} static + {a['dynamic_smem_bytes']} dynamic bytes "
+              f"of shared memory a block", flush=True)
     return K
 
 
@@ -463,7 +505,7 @@ def main_path(K) -> dict[str, dict[str, int]]:
         rs = Study(all_workloads()).run(engine=engine)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[engine] = KS.launch_counts()
+        counts[engine] = launch_counts()
         runs[engine], walls[engine] = rs, wall
         print(f"{engine}: {len(rs)} workloads x {len(MECHANISMS)} mechanisms "
               f"in {wall:.2f} s wall; launches {counts[engine]}", flush=True)
@@ -630,7 +672,7 @@ def seed_path(sequential) -> tuple[dict, dict, OnehotTap]:
                                         ("no_dbi", LazyPIMConfig(use_dbi=False)))}
         torch.cuda.synchronize()
         ablation_wall = time.perf_counter() - t1
-    counts = KS.launch_counts()
+    counts = launch_counts()
     print(f"seed: {len(results)} workloads x 6 mechanisms in {wall:.2f} s wall "
           f"(traces staged beforehand in {prep_s:.2f} s), {len(ablations)} "
           f"ablation runs in {ablation_wall:.2f} s; launches {counts}", flush=True)
@@ -965,7 +1007,7 @@ def capture_path() -> tuple[dict, dict, KernelTap]:
             rs = Study([CAPTURE_APP]).run(engine=engine)
         torch.cuda.synchronize()
         walls[engine] = time.perf_counter() - t0
-        counts[engine] = KS.launch_counts()
+        counts[engine] = launch_counts()
         print(f"{engine}: {CAPTURE_APP} x {len(MECHANISMS)} mechanisms in "
               f"{walls[engine]:.2f} s wall; launches {counts[engine]}", flush=True)
         for name in CAPTURE_KERNELS:
@@ -1048,7 +1090,7 @@ def lazysync_path() -> dict:
             params, state, m = emb.sync_step(params, state, touched, grads)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        for name, n in KS.launch_counts().items():
+        for name, n in launch_counts().items():
             counts[name] += n
         del grads
         err5, err6 = tap.check(f"qwen3 step {step + 1}")
@@ -1270,7 +1312,7 @@ def kv_serve_path() -> tuple[dict, dict]:
         rs = Study([KV_APP]).run(engine=engine)
         torch.cuda.synchronize()
         walls[engine] = time.perf_counter() - t0
-        counts[engine] = KS.launch_counts()
+        counts[engine] = launch_counts()
         for name in FIG7_KERNELS:
             check(counts[engine][name] > 0,
                   f"kv_serve/{engine}: kernel {name} was never launched")
@@ -1283,14 +1325,16 @@ def kv_serve_path() -> tuple[dict, dict]:
 
 
 def fa_excess(got, want) -> tuple[float, float]:
-    """(max |got - want|, max of |got - want| / (FA_RTOL |want| + FA_ROW_TOL
-    rms(want row))): the second is <= 1 when the kernel is within tolerance.
-    An exact match counts 0 (a fully masked row is 0 in both)."""
+    """(max |got - want|, max of |got - want| / (rtol |want| + row_tol
+    rms(want row))), the pair ``FA_TOL`` gives ``want``'s dtype: the second
+    is <= 1 when the kernel is within tolerance.  An exact match counts 0
+    (a fully masked row is 0 in both)."""
     import torch
 
+    rtol, row_tol = FA_TOL[str(want.dtype).removeprefix("torch.")]
     got, want = got.to(torch.float32), want.to(torch.float32)
     diff = (got - want).abs()
-    allowed = FA_RTOL * want.abs() + FA_ROW_TOL * want.pow(2).mean(-1, keepdim=True).sqrt()
+    allowed = rtol * want.abs() + row_tol * want.pow(2).mean(-1, keepdim=True).sqrt()
     ratio = torch.where(diff == 0, 0.0, diff / allowed)
     return float(diff.max()), float(ratio.max())
 
@@ -1376,10 +1420,12 @@ def prefill_path() -> tuple[dict, dict, dict, tuple]:
         last = step(params, batch)
     torch.cuda.synchronize()
     tapped_wall = time.perf_counter() - t0
-    counts = KS.launch_counts()
-    check(counts["flash_attention"] == cfg.num_layers,
-          f"prefill: {counts['flash_attention']} flash_attention launches, want "
-          f"exactly {cfg.num_layers} (one per layer)")
+    counts = launch_counts()
+    check(counts["flash_attention_sm90"] == cfg.num_layers
+          and counts["flash_attention_general"] == 0,
+          f"prefill: {counts['flash_attention_sm90']} flash_attention launches on the sm90 "
+          f"route and {counts['flash_attention_general']} on the general one, want exactly "
+          f"{cfg.num_layers} (one per layer), all sm90 (bf16, D = {cfg.head_dim})")
     check(len(tap.calls) == cfg.num_layers, f"prefill: {len(tap.calls)} ops.mha calls")
     check(tuple(last.shape) == (PREFILL_BATCH, cfg.vocab) and
           bool(last.to(torch.float32).isfinite().all()),
@@ -1388,7 +1434,7 @@ def prefill_path() -> tuple[dict, dict, dict, tuple]:
     q, k, v, _, _, _ = tap.calls[0]
     layer0 = (q, k, v)
     print(f"prefill (counted): {tapped_wall:.3f} s wall; launches {counts}; all "
-          f"{len(tap.calls)} flash_attention calls within tolerance of their plain "
+          f"{len(tap.calls)} flash_attention calls (sm90 route) within tolerance of their plain "
           f"versions (max |diff| {err:.4g}, at most {excess:.3g} of the tolerance)",
           flush=True)
     del tap, last
@@ -1418,46 +1464,110 @@ def prefill_path() -> tuple[dict, dict, dict, tuple]:
     return summary, counts, params, layer0
 
 
-def flash_kernel_phase(layer0: tuple) -> dict:
-    """B7 at the prefill path's shape on layer 0's inputs: against its
-    plain version, timed, with its bound in operations at the bf16 tensor-
-    core rate and one ``scaled_dot_product_attention`` call as yardstick."""
+def flash_kernel_phase(layer0: tuple) -> dict[str, dict]:
+    """B7 at the prefill path's shape on layer 0's inputs, on both routes
+    (the sm90 kernel the path takes, and the general kernel held to the
+    same inputs): each against its plain version, timed, with its bound in
+    operations at the bf16 tensor-core rate and one
+    ``scaled_dot_product_attention`` call as yardstick.  Returns the stats
+    by kernel name."""
     import torch
     import torch.nn.functional as F
 
     FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
-    phase("kernel flash_attention")
+    phase("kernel flash_attention (both routes)")
     q, k, v = (t.contiguous() for t in layer0)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    got = FA.flash_attention(q, k, v, causal=True)
+    check(FA._route_for(q.dtype, d) == "sm90", f"layer 0's B7 call ({q.dtype}, D = {d}) "
+                                               f"does not take the sm90 route")
     want = FA.flash_attention_plain(q, k, v, causal=True)
-    err, excess = fa_excess(got, want)
-    check(excess <= 1.0, f"flash_attention: kernel disagrees with plain version (max "
-                         f"|diff| {err:.4g}, {excess:.3g} of the tolerance)")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_err = float((lib.transpose(1, 2).to(torch.float32)
                      - want.to(torch.float32)).abs().max())
-    print(f"flash_attention q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} causal: "
-          f"max |kernel - plain| {err:.4g} ({excess:.3g} of the tolerance); SDPA "
-          f"against plain {lib_err:.4g}", flush=True)
-    del got, want, lib
+    del lib
     es = q.element_size()
     useful = 4 * d * (s * (s + 1) // 2) * b * hq  # QK^T and PV over the causal triangle
-    st = measure(f"flash_attention (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, bf16, causal)",
-                 err, lambda *a: FA.flash_attention(*a, causal=True),
-                 lambda *a: FA.flash_attention_plain(*a, causal=True), (q, k, v),
-                 nbytes=(2 * q.numel() + 2 * k.numel()) * es, ops=useful, iters=50,
-                 plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
-                 library=lambda *a: F.scaled_dot_product_attention(
-                     *a, is_causal=True, enable_gqa=True),
-                 library_args=(qt, kt, vt))
-    return dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=hkv, D=d, dtype=str(q.dtype),
-                               causal=True), useful_flop=useful, tolerance_share=excess,
-                library_call="torch.nn.functional.scaled_dot_product_attention"
-                             "(is_causal=True, enable_gqa=True)",
-                library_max_abs_diff_vs_plain=lib_err)
+    out = {}
+    for route, iters in (("sm90", 200), ("general", 50)):
+        name = FA_ROUTE_KERNEL[route]
+        got = FA._flash_attention(q, k, v, causal=True, route=route)
+        err, excess = fa_excess(got, want)
+        del got
+        check(excess <= 1.0, f"{name}: kernel disagrees with plain version (max |diff| "
+                             f"{err:.4g}, {excess:.3g} of the tolerance)")
+        print(f"{name} ({route} route) q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} "
+              f"causal: max |kernel - plain| {err:.4g} ({excess:.3g} of the tolerance); "
+              f"SDPA against plain {lib_err:.4g}", flush=True)
+        st = measure(f"{name} (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, bf16, causal)",
+                     err, lambda *a, r=route: FA._flash_attention(*a, causal=True, route=r),
+                     lambda *a: FA.flash_attention_plain(*a, causal=True), (q, k, v),
+                     nbytes=(2 * q.numel() + 2 * k.numel()) * es, ops=useful, iters=iters,
+                     plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
+                     library=lambda *a: F.scaled_dot_product_attention(
+                         *a, is_causal=True, enable_gqa=True),
+                     library_args=(qt, kt, vt))
+        out[name] = dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=hkv, D=d, dtype=str(q.dtype),
+                                        causal=True), b7_route=route, useful_flop=useful,
+                         tolerance_share=excess,
+                         library_call="torch.nn.functional.scaled_dot_product_attention"
+                                      "(is_causal=True, enable_gqa=True)",
+                         library_max_abs_diff_vs_plain=lib_err)
+    out["flash_attention_sm90"]["kernel_attributes"] = FA.sm90_attributes(d)
+    sm90, general = out["flash_attention_sm90"], out["flash_attention_general"]
+    print(f"flash_attention: sm90 route {sm90['ms']:.5f} ms, general route "
+          f"{general['ms']:.5f} ms ({general['ms'] / sm90['ms']:.2f}x), SDPA "
+          f"{sm90['library_ms']:.5f} ms, bound {sm90['bound_ms']:.5f} ms", flush=True)
+    return out
+
+
+def smoke_prefill_path() -> dict[str, int]:
+    """The general B7 route on a path of its own: the qwen3-4b smoke config
+    (2 layers, D = 16) in float32 through ``make_prefill_step`` on the card,
+    counted (one general launch a layer, none on the sm90 route) and tapped
+    (each call held to the plain version at ``FA_TOL``'s float32 pair), its
+    last-position logits held to the CPU run's."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+
+    phase("qwen3-4b smoke prefill, float32 (general B7 route)")
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_smoke_config("qwen3_4b"), param_dtype=torch.float32)
+    model = Model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, SMOKE_PREFILL_LEN),
+                         generator=torch.Generator().manual_seed(1))
+    step = make_prefill_step(model)
+    tap = FlashTap()
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    with tap:
+        got = step(gpu, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["flash_attention_general"] == cfg.num_layers
+          and counts["flash_attention_sm90"] == 0,
+          f"smoke prefill: {counts['flash_attention_general']} general and "
+          f"{counts['flash_attention_sm90']} sm90 B7 launches, want {cfg.num_layers} general")
+    check(len(tap.calls) == cfg.num_layers, f"smoke prefill: {len(tap.calls)} ops.mha calls")
+    err, excess = tap.check("smoke prefill")
+    want = step(cpu, {"tokens": toks})
+    diff = float((got.cpu() - want).abs().max())
+    check(bool(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)),
+          f"smoke prefill: card logits differ from the CPU run's by {diff:.3g}")
+    print(f"smoke prefill (float32, {cfg.num_layers} layers, D = {cfg.head_dim}, 2 x "
+          f"{SMOKE_PREFILL_LEN} tokens): launches {counts}; all {len(tap.calls)} "
+          f"flash_attention calls (general route) within tolerance of their plain versions "
+          f"(max |diff| {err:.4g}, at most {excess:.3g} of the tolerance); last-position "
+          f"logits equal the CPU run's within 1e-4 (max |diff| {diff:.3g})", flush=True)
+    return counts
 
 
 def serve_path(params: dict) -> tuple[dict, dict]:
@@ -1484,7 +1594,7 @@ def serve_path(params: dict) -> tuple[dict, dict]:
     served = serve(args, params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = KS.launch_counts()
+    counts = launch_counts()
     check(len(served) == SERVE_ARGS["requests"],
           f"serve: {len(served)} of {SERVE_ARGS['requests']} requests served")
     check(sorted(r.rid for r in served) == list(range(SERVE_ARGS["requests"])),
@@ -1581,12 +1691,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         kv_counts, kv_walls = kv_serve_path()
         prefill, prefill_counts, params, layer0 = prefill_path()
-        stats["flash_attention"] = flash_kernel_phase(layer0)
+        stats.update(flash_kernel_phase(layer0))
         del layer0
         gc.collect()
         torch.cuda.empty_cache()
         serving, serve_counts = serve_path(params)
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        smoke_counts = smoke_prefill_path()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1597,7 +1710,8 @@ def main() -> int:
                "qwen3_lazysync": lazy["launches"],
                "kv_serve_batch": kv_counts["batch"],
                "kv_serve_sequential": kv_counts["sequential"],
-               "qwen3_prefill": prefill_counts, "qwen3_serve": serve_counts}
+               "qwen3_prefill": prefill_counts, "qwen3_serve": serve_counts,
+               "smoke_prefill_f32": smoke_counts}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=TPU_KERNEL[name],
                     launches=sum(c[name] for c in by_path.values()),

@@ -66,7 +66,7 @@ from repro_torch.sim.prep import (
     sig_bits_from_ids,
 )
 
-__all__ = ["LazyPIMConfig", "SimResult"]
+__all__ = ["LazyPIMConfig", "SimResult", "simulate_lazypim"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,3 +248,12 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
     init = (_zwords(tt), _zwords(tt), _zwords(tt), _zwords(tt), _zwords(tt),
             sig_zero, sig_zero, zero_f, zero_f, acc0)
     return _scan(tt, step, init)[-1]
+
+
+def simulate_lazypim(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig | None = None,
+                     device=None) -> SimResult:
+    """One trace through the LazyPIM window loop (``engine.run_mechanism``,
+    the reference's entry point); ``device=None`` means the CUDA card."""
+    from repro_torch.sim.engine import run_mechanism  # the engine imports this module
+
+    return run_mechanism(tt, hw, "lazypim", cfg, device=device)

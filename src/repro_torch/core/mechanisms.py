@@ -38,6 +38,11 @@ __all__ = [
     "SimResult",
     "ResultIntegrityError",
     "finalize_result",
+    "simulate_cpu_only",
+    "simulate_ideal",
+    "simulate_fg",
+    "simulate_cg",
+    "simulate_nc",
     "ACC_FNS",
 ]
 
@@ -415,6 +420,36 @@ def _nc_acc(tt: TraceTensors, hw: HWParams):
     t, off, dram, l1, l2 = _scan(tt, step, init)
     return dict(time_ns=t, offchip_bytes=off, dram_bytes=dram,
                 l1_accesses=l1, l2_accesses=l2)
+
+
+def _simulate(tt: TraceTensors, hw: HWParams, mechanism: str, device) -> SimResult:
+    # the engine imports this module: import it at call time
+    from repro_torch.sim.engine import run_mechanism
+
+    return run_mechanism(tt, hw, mechanism, device=device)
+
+
+def simulate_cpu_only(tt: TraceTensors, hw: HWParams, device=None) -> SimResult:
+    """The reference's per-mechanism entry points, each one trace through one
+    window loop (``engine.run_mechanism``); ``device=None`` means the CUDA
+    card, and the trace must live on ``device``."""
+    return _simulate(tt, hw, "cpu", device)
+
+
+def simulate_ideal(tt: TraceTensors, hw: HWParams, device=None) -> SimResult:
+    return _simulate(tt, hw, "ideal", device)
+
+
+def simulate_fg(tt: TraceTensors, hw: HWParams, device=None) -> SimResult:
+    return _simulate(tt, hw, "fg", device)
+
+
+def simulate_cg(tt: TraceTensors, hw: HWParams, device=None) -> SimResult:
+    return _simulate(tt, hw, "cg", device)
+
+
+def simulate_nc(tt: TraceTensors, hw: HWParams, device=None) -> SimResult:
+    return _simulate(tt, hw, "nc", device)
 
 
 # Window-loop accumulators keyed by mechanism name (LazyPIM's lives in

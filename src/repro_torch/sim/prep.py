@@ -90,6 +90,10 @@ def line_window_u01(num_lines: int, window_idx: int, mult: int, step: int,
     return ((h >> 16) & 0xFFFF).to(torch.float32) / 65536.0
 
 
+# Static metadata vs tensor fields of TraceTensors (the reference's pytree
+# split; engine.stack_traces stacks the data fields along the lane axis).
+TRACE_META_FIELDS = ("name", "threads", "num_lines", "num_windows",
+                     "num_kernels", "spec")
 TRACE_DATA_FIELDS = ("line_pos", "line_reg", "pim_reads", "pim_writes",
                      "cpu_reads", "cpu_writes", "pim_r_valid", "pim_w_valid",
                      "cpu_r_valid", "cpu_w_valid", "kernel_id", "kernel_start",
@@ -461,6 +465,18 @@ def ids_member_bool(tt: TraceTensors, ids: torch.Tensor, valid: torch.Tensor,
     images ``bits`` (L, sig_bits); B8 query on the clipped ids."""
     clipped = ids.clamp(0, tt.num_lines - 1).contiguous()
     return valid & bloom_query_onehot(tt.spec, bits.contiguous(), clipped)
+
+
+def ids_member(tt: TraceTensors, ids: torch.Tensor, valid: torch.Tensor,
+               sig_words: torch.Tensor) -> torch.Tensor:
+    """Signature membership of an id list against a packed image: ``ids`` /
+    ``valid`` (..., A), ``sig_words`` (..., sig_words) with the same leading
+    shape -> (..., A) bool.  The reference's gather over ``line_pos`` on the
+    clipped ids (plain PyTorch, like :func:`line_sig_hits`)."""
+    pos = tt.line_pos[ids.clamp(0, tt.num_lines - 1).to(torch.int64)].to(torch.int64)
+    lead = sig_words.shape[:-1]
+    w = torch.gather(sig_words, -1, (pos >> 5).reshape(*lead, -1)).reshape(pos.shape)
+    return valid & (((w >> (pos & 31)) & 1) != 0).all(-1)
 
 
 def scatter_set_bool(bitmap: torch.Tensor, ids: torch.Tensor,

@@ -39,7 +39,8 @@ from repro_torch.sim import engine as _engine
 from repro_torch.sim import mesh as _mesh
 from repro_torch.sim.costmodel import HWParams
 from repro_torch.sim.prep import TraceTensors, bucket_shapes, pad_trace, prepare
-from repro_torch.sim.trace import ALL_APPS, GRAPH_INPUTS, check_app, make_trace
+from repro_torch.sim.trace import (ALL_APPS, GRAPH_INPUTS, check_app, is_known_app,
+                                   make_trace)
 
 __all__ = [
     "Study", "StudyPlan", "StudyPoint", "ResultSet", "ResultSetSchemaError",
@@ -139,6 +140,11 @@ def _parse_workload(entry, i: int) -> Workload | TraceTensors:
             app, _, graph = entry.rpartition("-")
             if not app:
                 app, graph = entry, None
+            if not is_known_app(app):
+                raise ValueError(
+                    f"workloads[{i}]: unknown workload {entry!r}: unknown app "
+                    f"{app!r} (want '<app>' or '<app>-<graph>' with app in "
+                    f"{sorted(ALL_APPS)} and graph in {GRAPH_INPUTS})")
         entry = Workload(app, graph)
     elif isinstance(entry, (tuple, list)) and len(entry) == 2:
         app, graph = entry

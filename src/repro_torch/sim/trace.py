@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.sim import synth
+from repro_torch.sim.synth import AR, AW, BR, BW, MAX_SIG_ADDRS  # noqa: F401  (re-export)
+from repro_torch.sim.synth import APP_CPU_WRITES  # noqa: F401  (re-export)
 
 GRAPH_APPS = ("pagerank", "radii", "components")
 GRAPH_INPUTS = ("enron", "arxiv", "gnutella")
@@ -53,6 +55,12 @@ _LATER_APPS = {"bfs": EXTENDED_SLICE, "sssp": EXTENDED_SLICE,
                "htap_stream": EXTENDED_SLICE, "mtmix": EXTENDED_SLICE,
                **{a: MODEL_ZOO_SLICE for a in CAPTURE_APPS
                   if a not in PORTED_CAPTURE_APPS}}
+
+
+def is_known_app(app: str) -> bool:
+    """Whether ``app`` names a workload of the reference (ported here or
+    queued for a later slice)."""
+    return app in ALL_APPS or app in _LATER_APPS or app.startswith("capture/")
 
 
 def check_app(app: str) -> None:
@@ -193,6 +201,30 @@ def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
                        num_lines=plan.total_lines,
                        cpu_priv_miss_rate=plan.cpu_priv_miss_rate,
                        cpu_reuse=plan.cpu_reuse, **arrays)
+
+
+def make_graph_trace(app: str, graph_name: str, threads: int = 16, num_kernels: int = 24,
+                     windows_per_kernel: int = 3, seed: int = 0, scale: float = 1.0,
+                     cpu_reuse: float = 6.0, device=None) -> WindowTrace:
+    """Trace for a Ligra graph app: :func:`make_trace` with the reference's
+    defaults for this family (``device=None`` = the CUDA card)."""
+    if app not in GRAPH_APPS:
+        raise ValueError(f"{app!r} is not a graph app (know {GRAPH_APPS})")
+    return make_trace(app, graph_name, threads=threads, seed=seed,
+                      num_kernels=num_kernels, windows_per_kernel=windows_per_kernel,
+                      scale=scale, cpu_reuse=cpu_reuse, device=device)
+
+
+def make_htap_trace(app: str = "htap128", threads: int = 16, num_kernels: int = 24,
+                    windows_per_kernel: int = 3, seed: int = 0, scale: float = 0.01,
+                    cpu_reuse: float = 6.0, device=None) -> WindowTrace:
+    """Trace for the HTAP IMDB (§6.1): :func:`make_trace` with the
+    reference's defaults for this family (``device=None`` = the CUDA card)."""
+    if app not in HTAP_APPS:
+        raise ValueError(f"{app!r} is not an HTAP app (know {HTAP_APPS})")
+    return make_trace(app, None, threads=threads, seed=seed, num_kernels=num_kernels,
+                      windows_per_kernel=windows_per_kernel, scale=scale,
+                      cpu_reuse=cpu_reuse, device=device)
 
 
 def all_workloads(extended: bool = False,

@@ -5,7 +5,11 @@ LazySync kernels 1 to 16 groups, ragged rows and widths, both dtypes,
 all/none/some rows valid; for the seed one-hot kernels every reference
 geometry, lanes, ragged N and an all-false mask; for flash attention Sq
 from 1 to 4,096 across the 64-row tiles, MHA / GQA / MQA, head dims 64 and
-128, both dtypes, windows, and non-causal calls with ragged key tails),
+128, both dtypes, windows, and non-causal calls with ragged key tails, on
+whichever route each call takes, then the same shapes held to the sm90
+route by its route count, odd KV tile counts for its 2-stage ring, the
+general route forced on bfloat16 at the sm90 head dims, and the sm90
+kernel's registers and shared memory as the loaded binary reports them),
 and small end-to-end runs (the Fig. 7 study, the capture study, the seed
 engine, nine LazySync steps, a smoke prefill and the smoke serve loop)
 held against the CPU path.  The Bloom kernels give integers and the merge
@@ -382,10 +386,11 @@ def _qkv(dev, b, sq, sk, hq, hkv, d, dtype, seed):
             for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
 
 
-def _fa_check(q, k, v, **kw):
+def _fa_check(q, k, v, route=None, **kw):
     from repro_torch.kernels.flash_attention import flash_attention as FA
 
-    out = FA.flash_attention(q, k, v, **kw)
+    out = (FA.flash_attention(q, k, v, **kw) if route is None
+           else FA._flash_attention(q, k, v, route=route, **kw))
     want = FA.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -467,6 +472,108 @@ def test_flash_attention_head_dim_limits(dev, no_tf32, dtype, d, fits):
     with pytest.raises(RuntimeError, match="CUDA error"):
         FA.flash_attention(*qkv)
     assert FA.launch_counts() == {"flash_attention": 0}
+
+
+# The sm90 route (flash_attention_sm90.cu): bfloat16, D in {64, 96, 128,
+# 192, 256} (96 runs padded to 128 inside the kernel; 192 and 256 on
+# 64-key tiles); each case checks that it ran there (route_counts) and
+# holds it to FA_TOL.
+SM90_DIMS = (64, 96, 128, 192, 256)
+
+
+def _sm90_check(q, k, v, **kw):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    assert FA._route_for(q.dtype, q.shape[-1]) == "sm90"
+    FA.reset_launch_counts()
+    _fa_check(q, k, v, **kw)
+    assert FA.route_counts() == {"general": 0, "sm90": 1}
+    FA.reset_launch_counts()
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("sq", [1, 127, 128, 129, 200, 300, 4096])
+def test_flash_attention_sm90_causal(dev, d, hq, hkv, sq):
+    """Causal, Sq = Sk from one row to 4,096, across the 128-row query and
+    the key tiles (300: three 128-key tiles, an odd count for the 2-stage
+    ring; five 64-key tiles)."""
+    b = 1 if sq == 4096 else 2
+    _sm90_check(*_qkv(dev, b, sq, sq, hq, hkv, d, torch.bfloat16, sq + d), causal=True)
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+@pytest.mark.parametrize("window", [1, 64, 100, 256])
+@pytest.mark.parametrize("sq", [129, 1000])
+def test_flash_attention_sm90_window(dev, d, window, sq):
+    _sm90_check(*_qkv(dev, 2, sq, sq, 8, 2, d, torch.bfloat16, window), causal=True,
+                window=window)
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+@pytest.mark.parametrize("sq,sk", [(1, 1), (128, 256), (129, 200), (64, 4096), (300, 77),
+                                   (200, 300), (77, 640)])
+def test_flash_attention_sm90_noncausal_ragged(dev, d, sq, sk):
+    """Non-causal with Sq and Sk off the tile grid: ragged key tails masked,
+    1 to 64 KV tiles (odd counts for the ring among them)."""
+    _sm90_check(*_qkv(dev, 2, sq, sk, 4, 2, d, torch.bfloat16, sq * sk), causal=False)
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+def test_flash_attention_sm90_sq_over_sk(dev, d):
+    """Sq > Sk, causal with and without a window: rows with no key give 0."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    q, k, v = _qkv(dev, 1, 300, 100, 4, 2, d, torch.bfloat16, 1)
+    _sm90_check(q, k, v, causal=True, window=16)
+    _sm90_check(q, k, v, causal=True)
+    _sm90_check(q, k, v, causal=False)
+    assert not bool(FA.flash_attention(q, k, v, causal=True, window=16)[:, 120:].any())
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=100),
+                                dict(causal=False)], ids=["causal", "window", "noncausal"])
+def test_flash_attention_general_route_bf16(dev, d, kw):
+    """The general kernel still takes bfloat16 at the sm90 head dims when
+    asked to (as chip_smoke.py times it), and agrees at the same tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    FA.reset_launch_counts()
+    _fa_check(*_qkv(dev, 2, 300, 300, 8, 2, d, torch.bfloat16, d), route="general", **kw)
+    assert FA.route_counts() == {"general": 1, "sm90": 0}
+    FA.reset_launch_counts()
+
+
+def test_flash_attention_sm90_empty_keys_and_counts(dev):
+    """Sk = 0 gives zeros; route counts add up to the launch count."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    FA.reset_launch_counts()
+    q = torch.randn((2, 70, 4, 128), device=dev).to(torch.bfloat16)
+    kv = torch.zeros((2, 0, 2, 128), device=dev, dtype=torch.bfloat16)
+    assert not bool(FA.flash_attention(q, kv, kv.clone(), causal=False).any())
+    f = torch.randn((1, 64, 2, 128), device=dev)
+    FA.flash_attention(f, f.clone(), f.clone())
+    assert FA.route_counts() == {"general": 1, "sm90": 1}
+    assert FA.launch_counts() == {"flash_attention": 2}
+    FA.reset_launch_counts()
+
+
+@pytest.mark.parametrize("d", SM90_DIMS)
+def test_flash_attention_sm90_attributes(dev, d):
+    """The loaded kernel's registers, local memory and shared memory at
+    each head dim, as ``cudaFuncGetAttributes`` reads them: a block of 256
+    threads fits the register file, its shared memory fits the SM's 227 KB;
+    a head dim the kernel does not take is refused."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    a = FA.sm90_attributes(d)
+    assert 0 < a["registers"] <= 255 and a["registers"] * 256 <= 65536
+    assert a["local_bytes"] >= 0
+    assert 0 < a["static_smem_bytes"] + a["dynamic_smem_bytes"] <= 232448
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.sm90_attributes(d + 16)
 
 
 def test_smoke_prefill_on_card_launches_per_layer(dev, no_tf32):

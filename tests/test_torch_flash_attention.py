@@ -4,8 +4,11 @@ against the chunked-softmax oracle of both packages, over the reference's
 sweep (``tests/test_kernel_flash_attention.py``: MHA, GQA, MQA, the ragged
 200, float32 and bfloat16, windows 64 / 128 / 256, non-causal), plus a
 non-causal ragged key tail that the Pallas kernel refuses and the port
-masks.  The wrapper's CUDA branch is driven through a fake library: it
-launches or raises and never runs the plain version.
+masks.  The wrapper's CUDA branch is driven through fake libraries: it
+routes bfloat16 calls with D in {64, 96, 128, 192, 256} to the sm90 kernel
+and every other
+call to the general one, launches or raises and never runs the plain
+version or the other route.
 
 Tolerances: against the Pallas kernel, whose float32 math the plain
 version repeats, 1e-5 in float32 and one bfloat16 ulp (2**-7 relative) in
@@ -182,6 +185,7 @@ def test_cuda_path_launches_kernel_or_raises_never_plain(monkeypatch, rc, dtype,
     fake = _FakeLib(rc)
     monkeypatch.setattr(FA, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(FA, "_lib", lambda: fake)
+    monkeypatch.setattr(FA, "_lib_sm90", lambda: fake)
     monkeypatch.setattr(FA, "_stream", lambda t: 0)
     monkeypatch.setattr(FA, "flash_attention_plain", None)  # any use would fail
     FA.reset_launch_counts()
@@ -195,7 +199,8 @@ def test_cuda_path_launches_kernel_or_raises_never_plain(monkeypatch, rc, dtype,
         assert out.shape == q.shape and out.dtype == dtype
     assert len(fake.calls) == 1
     name, launched = fake.calls[0]
-    assert name == "flash_attention_launch"
+    assert name == ("flash_attention_sm90_launch" if dtype == torch.bfloat16
+                    else "flash_attention_launch")  # bf16 at D = 64 takes the sm90 route
     assert launched[4:10] == (2, 130, 200, 8, 2, 64)
     assert launched[10].value == pytest.approx(64 ** -0.5)
     assert launched[11:14] == (int(causal), window, code)
@@ -225,6 +230,105 @@ def test_cuda_path_refuses_head_dims_the_kernel_cannot_tile(monkeypatch, d, dtyp
     assert FA.launch_counts() == {"flash_attention": 0}
     # the plain version takes any head dim
     assert plain(q, q.clone(), q.clone()).shape == q.shape
+
+
+ROUTE_DIMS = (16, 64, 96, 128, 192, 256, 320)
+SM90_DIMS = (64, 96, 128, 192, 256)  # the zoo's published head dims
+
+
+def _fake_routes(monkeypatch, rc=0):
+    """A fake library per route; the plain version made unusable."""
+    fakes = {"general": _FakeLib(rc), "sm90": _FakeLib(rc)}
+    monkeypatch.setattr(FA, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(FA, "_lib", lambda: fakes["general"])
+    monkeypatch.setattr(FA, "_lib_sm90", lambda: fakes["sm90"])
+    monkeypatch.setattr(FA, "_stream", lambda t: 0)
+    monkeypatch.setattr(FA, "flash_attention_plain", None)  # any use would fail
+    FA.reset_launch_counts()
+    return fakes
+
+
+@pytest.mark.parametrize("d", ROUTE_DIMS)
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+def test_route_by_dtype_and_head_dim(monkeypatch, d, dtype, code):
+    """bf16 with D in SM90_HEAD_DIMS launches the sm90 entry point, every
+    other call (float32, bf16 at D = 16 or 320) the general one, with
+    today's arguments; each launch counts once in ``launch_counts`` and once
+    under its route."""
+    fakes = _fake_routes(monkeypatch)
+    assert FA.SM90_HEAD_DIMS == frozenset(SM90_DIMS)
+    want = "sm90" if dtype == torch.bfloat16 and d in SM90_DIMS else "general"
+    assert FA._route_for(dtype, d) == want
+    q = torch.zeros((2, 130, 8, d), dtype=dtype)
+    k = torch.zeros((2, 200, 2, d), dtype=dtype)
+    out = FA.flash_attention(q, k, k.clone(), causal=True, window=48)
+    assert out.shape == q.shape and out.dtype == dtype
+    other = "general" if want == "sm90" else "sm90"
+    assert fakes[other].calls == []
+    [(name, args)] = fakes[want].calls
+    assert name == {"general": "flash_attention_launch",
+                    "sm90": "flash_attention_sm90_launch"}[want]
+    assert args[3] == out.data_ptr()
+    assert args[4:10] == (2, 130, 200, 8, 2, d)
+    assert args[10].value == pytest.approx(d ** -0.5)
+    assert args[11:14] == (1, 48, code)
+    assert FA.route_counts() == {"general": int(want == "general"), "sm90": int(want == "sm90")}
+    assert sum(FA.route_counts().values()) == FA.launch_counts()["flash_attention"] == 1
+    FA.reset_launch_counts()
+
+
+@pytest.mark.parametrize("route,dtype,d", [("general", torch.float32, 128),
+                                           ("general", torch.bfloat16, 16),
+                                           ("sm90", torch.bfloat16, 128),
+                                           ("sm90", torch.bfloat16, 96)])
+def test_refused_launch_raises_and_counts_nothing(monkeypatch, route, dtype, d):
+    """A launch error on either route raises; nothing is counted and the
+    other route (and the plain version) is never tried instead."""
+    fakes = _fake_routes(monkeypatch, rc=700)
+    q = torch.zeros((1, 64, 4, d), dtype=dtype)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        FA.flash_attention(q, q.clone(), q.clone())
+    assert len(fakes[route].calls) == 1
+    assert fakes["sm90" if route == "general" else "general"].calls == []
+    assert FA.launch_counts() == {"flash_attention": 0}
+    assert FA.route_counts() == {"general": 0, "sm90": 0}
+
+
+def test_route_counts_add_up_over_mixed_calls(monkeypatch):
+    fakes = _fake_routes(monkeypatch)
+    for dtype, d in [(torch.bfloat16, 128), (torch.float32, 128), (torch.bfloat16, 64),
+                     (torch.bfloat16, 16), (torch.bfloat16, 128)]:
+        q = torch.zeros((1, 8, 2, d), dtype=dtype)
+        FA.flash_attention(q, q.clone(), q.clone())
+    assert FA.route_counts() == {"general": 2, "sm90": 3}
+    assert FA.launch_counts() == {"flash_attention": 5}
+    assert (len(fakes["general"].calls), len(fakes["sm90"].calls)) == (2, 3)
+    # an empty batch launches nothing on either route
+    FA.flash_attention(*[torch.zeros((0, 8, 2, 128), dtype=torch.bfloat16)] * 3)
+    assert FA.route_counts() == {"general": 2, "sm90": 3}
+    FA.reset_launch_counts()
+    assert FA.route_counts() == {"general": 0, "sm90": 0}
+
+
+def test_forced_route(monkeypatch):
+    """The private ``_flash_attention(route=...)`` forces the general kernel
+    on a call the sm90 one covers; the sm90 route refuses what it does not
+    cover, before any launch.  The public wrapper takes no route."""
+    fakes = _fake_routes(monkeypatch)
+    q = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
+    FA._flash_attention(q, q.clone(), q.clone(), route="general")
+    assert [n for n, _ in fakes["general"].calls] == ["flash_attention_launch"]
+    for dtype, d in [(torch.float32, 128), (torch.bfloat16, 16), (torch.bfloat16, 320)]:
+        x = torch.zeros((1, 8, 2, d), dtype=dtype)
+        with pytest.raises(ValueError, match="sm90 route"):
+            FA._flash_attention(x, x.clone(), x.clone(), route="sm90")
+    with pytest.raises(ValueError, match="route"):
+        FA._flash_attention(q, q.clone(), q.clone(), route="fast")
+    with pytest.raises(TypeError, match="route"):
+        FA.flash_attention(q, q.clone(), q.clone(), route="general")
+    assert fakes["sm90"].calls == []
+    assert FA.route_counts() == {"general": 1, "sm90": 0}
+    FA.reset_launch_counts()
 
 
 def test_cpu_path_counts_no_launch():
