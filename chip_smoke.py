@@ -11,9 +11,13 @@ Phases, in order; any failure exits non-zero before the final line:
    ``bloom_onehot.cu``, ``lazy_merge.cu``, ``flash_attention.cu``,
    ``flash_attention_sm90.cu``) with ``nvcc`` for sm_90a, one process each,
    started together, into the gitignored ``build/``; print what
-   ``cudaFuncGetAttributes`` reads from the loaded sm90 flash attention
+   ``cudaFuncGetAttributes`` reads from the loaded ``bloom_query`` and
+   ``bloom_query_onehot`` kernels (both builds of each: the paper's geometry
+   fixed, and any; local memory must be 0) and from the sm90 flash attention
    kernel at each head dim (registers and local memory, i.e. spills and
-   stack, a thread; static and dynamic shared memory a block);
+   stack, a thread; static and dynamic shared memory a block); then the
+   card's launch floor: a one-element elementwise op timed as the kernels
+   are;
 3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
    ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
    its plain PyTorch version on the card on that path's data (the HTAP
@@ -22,10 +26,17 @@ Phases, in order; any failure exits non-zero before the final line:
    time per call of the kernel and of the plain version from CUDA events
    over back-to-back calls on input copies rotated through 100 MB (twice
    the L2), and the kernel's bound (bytes over 3.35 TB/s vs operations
-   over 67 Top/s, whichever is larger); a time under its bound fails;
+   over 67 Top/s, whichever is larger); a time under its bound fails.
+   ``bloom_query`` is held on every window with one bitmap and with two
+   (``present`` and ``dirty``), and timed both ways; its bound counts the
+   bitmaps read and written and the signature against the parity hash's
+   operations for the set lines (the old bound printed beside it);
 4. Fig. 7 path — ``Study(all_workloads())`` with all six mechanisms on
    ``engine="batch"`` and ``engine="sequential"``, launch counts set to 0
-   just before and read just after each run; the engines must agree on
+   just before and read just after each run; ``bloom_query`` must launch
+   exactly twice a window of each LazyPIM dispatch (``QUERIES_PER_WINDOW``;
+   the windows of each geometry bucket in the batch engine, of each point
+   in the sequential one); the engines must agree on
    every field and ``pagerank-arxiv`` / ``htap128`` must match the goldens
    in ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
 5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
@@ -40,8 +51,10 @@ Phases, in order; any failure exits non-zero before the final line:
    two workloads once more under ``torch.profiler`` for the idle share
    (against their wall time in the counted run);
 7. the two B8 kernels timed as in phase 3 at the seed path's shapes, on
-   inputs it gave them (bound: bytes, or the xor-fold's ~3 operations a
-   round over the rounds this data needs, at 67 Top/s);
+   inputs it gave them (bound: bytes, or the hash's operations this data
+   needs at 67 Top/s — the insert's xor-fold rounds, the query's parity
+   columns up to each address's first clear bit, with the xor-fold bound
+   printed beside it);
 8. signatures — ``benchmarks/bench_signatures.py`` on the card: B1
    against the xor-fold hash at batch 4,096, B8 against B2 / B3 at batch
    1,024, B5 against the two-pass PyTorch path (G = 4); every pair
@@ -51,7 +64,7 @@ Phases, in order; any failure exits non-zero before the final line:
    the 65,536-line bucket, 24 kernels x 3 steps) with all six mechanisms on
    both engines, held against the port's own ``device="cpu"`` run of the
    same study (event counts exact, ratios 1e-6, raw 1e-4); all six kernels
-   must launch; every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
+   must launch, ``bloom_query`` twice a LazyPIM window; every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
    protocol made is held against its plain version on its own inputs;
 10. LazySync at qwen3-4b width — ``LazyEmbed(get_config("qwen3_4b"),
    LazySyncConfig())`` (G = 4, vocab 151,936, d_model 2,560, bf16, 2,048-bit
@@ -76,7 +89,8 @@ Phases, in order; any failure exits non-zero before the final line:
    loop at its default scale: 500 pages, batch 24, 24 kernels x 3 steps)
    with all six mechanisms on both engines, each held to one
    ``device="cpu"`` run of the port (the engines agree bit for bit) at the
-   same tolerances; B1–B4 must launch;
+   same tolerances; B1–B4 must launch, ``bloom_query`` twice a LazyPIM
+   window;
 13. qwen3-4b prefill — ``get_config("qwen3_4b")`` at full width and depth
    (36 layers, ~4.02 B parameters, ~8.0 GB in bf16) initialised on the card
    from a seeded generator; ``make_prefill_step`` on 4 prompts of 4,096
@@ -107,7 +121,9 @@ Phases, in order; any failure exits non-zero before the final line:
    rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
    the general route's own path;
 17. the ``kernels`` JSON line (ten kernels: B7 once a route, as
-   ``flash_attention_general`` and ``flash_attention_sm90``), then the
+   ``flash_attention_general`` and ``flash_attention_sm90``; ``bloom_query``
+   and ``bloom_query_onehot`` also carry the launch floor and their old
+   bound, ``bloom_query`` its two-bitmap timing as ``pair``), then the
    result line.
 
 float32 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32``
@@ -170,6 +186,10 @@ SEED_ABLATION_WORKLOADS = ("pagerank-arxiv", "htap128")
 # of them all would take minutes, so the idle share is read on these two.
 SEED_PROFILE_WORKLOADS = SEED_ABLATION_WORKLOADS
 XORFOLD_OPS = 3  # a shift-and bit test, a select and an XOR per round
+PARITY_OPS = 3   # an AND, a POPC and a bit insert per column mask
+# The LazyPIM window asks each signature image once for two bitmaps: two
+# bloom_query launches a window of each LazyPIM dispatch.
+QUERIES_PER_WINDOW = 2
 SIG_HASH_BATCH, SIG_KERNEL_BATCH, SIG_LINES = 4096, 1024, 65_536
 SIG_GROUPS, SIG_IDS_PER_GROUP = 4, 256
 FIG7_KERNELS = ("h3_hash", "bloom_insert", "bloom_query", "bloom_intersect")
@@ -272,6 +292,15 @@ def build():
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
           f"parallel)", flush=True)
+    for name, mod in (("bloom_query", K), ("bloom_query_onehot", K8)):
+        for build_of, a in mod.query_attributes().items():
+            print(f"{name} ({build_of} geometry): {a['registers']} registers and "
+                  f"{a['local_bytes']} bytes of local memory a thread, "
+                  f"{a['static_smem_bytes']} bytes of static shared memory a block",
+                  flush=True)
+            check(a["local_bytes"] == 0,
+                  f"{name} ({build_of}): {a['local_bytes']} bytes of local memory "
+                  f"(the column masks must stay in the constant bank)")
     for d in sorted(FA.SM90_HEAD_DIMS):
         a = FA.sm90_attributes(d)
         print(f"flash_attention_sm90 D = {d}: {a['registers']} registers and "
@@ -329,6 +358,38 @@ def bound_ms(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def launch_floor_ms() -> float:
+    """The card's launch floor: a one-element PyTorch elementwise op timed
+    as the kernels are (CUDA events over back-to-back calls, a spin kernel
+    ahead).  No launch takes less, so a kernel whose bound is far below it
+    is read against this floor."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    ms = event_ms(lambda t: t.add_(1), [(x,)], 200)
+    print(f"launch floor: {ms:.5f} ms a call (one-element add_, CUDA events over "
+          f"200 back-to-back calls)", flush=True)
+    return ms
+
+
+def check_query_launches(label: str, study, rs, engine: str, counts: dict) -> int:
+    """``bloom_query`` must launch exactly ``QUERIES_PER_WINDOW`` times a
+    window of each LazyPIM dispatch: one dispatch a geometry bucket (its
+    padded windows) in the batch engine, one a point in the sequential one.
+    Returns the expected count."""
+    check("lazypim" in study.mechanisms, f"{label}: no LazyPIM dispatch")
+    if engine == "batch":
+        windows = sum(b["num_windows"] for b in study.plan().buckets)
+    else:
+        per_trace = {tt.name: tt.num_windows for tt in study.traces()}
+        windows = sum(per_trace[p.workload] for p in rs)
+    want = QUERIES_PER_WINDOW * windows
+    check(counts["bloom_query"] == want,
+          f"{label}: {counts['bloom_query']} bloom_query launches, want {want} "
+          f"({QUERIES_PER_WINDOW} a window over {windows} LazyPIM windows)")
+    return want
+
+
 def measure(label: str, err: float, fn, plain, args: tuple, nbytes: float,
             ops: float, iters: int = 200, plain_iters: int = 10,
             ops_per_s: float = PEAK_OPS_PER_S, library=None,
@@ -362,7 +423,7 @@ def kernel_phases(K) -> dict[str, dict]:
     every lane; times are taken at the per-window call shape (3 lanes)."""
     import torch
 
-    from repro_torch.core.signatures import default_spec, tables_tensor
+    from repro_torch.core.signatures import default_spec, tables_tensor, unpack_words
     from repro_torch.sim.engine import stack_traces
     from repro_torch.sim.prep import pad_trace, popcount_words, prepare, scatter_set
     from repro_torch.sim.trace import make_trace
@@ -438,13 +499,47 @@ def kernel_phases(K) -> dict[str, dict]:
     phase("kernel bloom_query")
     sigs = sigs[:, 0].contiguous()                          # (L * W, NW)
     words_all = present.repeat_interleave(W, dim=0)         # lane-major, as sigs
-    err = exact("bloom_query", K.bloom_query(sigs, words_all, tabs, LINES),
-                K.bloom_query_plain(sigs, words_all, tabs, LINES))
+    dirty_all = dirty.repeat_interleave(W, dim=0)
+    err = exact("bloom_query", K.bloom_query(spec, sigs, words_all, LINES),
+                K.bloom_query_plain(spec, sigs, words_all, LINES))
+    got = K.bloom_query(spec, sigs, words_all, LINES, words_b=dirty_all)
+    want = K.bloom_query_plain(spec, sigs, words_all, LINES, words_b=dirty_all)
+    exact("bloom_query (pair, first bitmap)", got[0], want[0])
+    exact("bloom_query (pair, second bitmap)", got[1], want[1])
     read_sig = sigs.reshape(L, W, NW)[:, 0].contiguous()
-    record("bloom_query", err, lambda sg, w: K.bloom_query(sg, w, tabs, LINES),
-           lambda sg, w: K.bloom_query_plain(sg, w, tabs, LINES), (read_sig, present),
-           nbytes=2 * present.numel() * 4 + read_sig.numel() * 4 + tabs.numel() * 4,
-           ops=present.numel() * 2 + n_present * M * (2 * S + 2))
+    log_seg = spec.seg_bits.bit_length() - 1
+
+    def query_ops(words):
+        """Parity operations the lines set in ``words`` need: every column
+        of each segment hashed, up to the first clear bit."""
+        lane, line = torch.nonzero(unpack_words(words, LINES), as_tuple=True)
+        pos = K.h3_hash(line.to(torch.int32), tabs).to(torch.int64)
+        looked = ((read_sig[lane[:, None], pos >> 5] >> (pos & 31)) & 1)
+        hashed = int((looked.cumprod(-1).sum(-1) + 1).clamp(max=M).sum())
+        return hashed * log_seg * PARITY_OPS, hashed
+
+    sig_bytes = read_sig.numel() * 4
+    ops, hashed = query_ops(present)
+    old_bound, old_by = bound_ms(2 * present.numel() * 4 + sig_bytes + tabs.numel() * 4,
+                                 present.numel() * 2 + n_present * M * (2 * S + 2))
+    st = measure(f"bloom_query ({L} x {LINES} lines, {n_present} set, {hashed} "
+                 f"segments hashed)", err,
+                 lambda sg, w: K.bloom_query(spec, sg, w, LINES),
+                 lambda sg, w: K.bloom_query_plain(spec, sg, w, LINES), (read_sig, present),
+                 nbytes=2 * present.numel() * 4 + sig_bytes, ops=ops)
+    print(f"bloom_query: old bound {old_bound:.7f} ms ({old_by}; tables staged and "
+          f"every word's bytes counted as work)", flush=True)
+    ops_pair, hashed_pair = query_ops(present | dirty)
+    pair = measure(f"bloom_query pair ({L} x {LINES} lines, {n_present} and {n_dirty} "
+                   f"set, {hashed_pair} segments hashed)", err,
+                   lambda sg, w, d: K.bloom_query(spec, sg, w, LINES, words_b=d),
+                   lambda sg, w, d: K.bloom_query_plain(spec, sg, w, LINES, words_b=d),
+                   (read_sig, present, dirty),
+                   nbytes=4 * present.numel() * 4 + sig_bytes, ops=ops_pair)
+    out["bloom_query"] = dict(st, old_bound_ms=old_bound, segments_hashed=hashed,
+                              pair=dict(pair, segments_hashed=hashed_pair),
+                              shape=dict(L=L, num_lines=LINES, set_lines=n_present,
+                                         pair_set_lines=n_dirty))
 
     phase("kernel bloom_intersect")
     bank_all = bank.repeat_interleave(W, dim=0).reshape(L * W * 16, NW)
@@ -501,8 +596,9 @@ def main_path(K) -> dict[str, dict[str, int]]:
         phase(f"Fig. 7 path, engine={engine}")
         torch.cuda.synchronize()
         KS.reset_launch_counts()
+        study = Study(all_workloads())
         t0 = time.perf_counter()
-        rs = Study(all_workloads()).run(engine=engine)
+        rs = study.run(engine=engine)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[engine] = launch_counts()
@@ -512,6 +608,7 @@ def main_path(K) -> dict[str, dict[str, int]]:
         for name in FIG7_KERNELS:
             check(counts[engine][name] > 0,
                   f"{engine}: kernel {name} was never launched")
+        check_query_launches(f"Fig. 7/{engine}", study, rs, engine, counts[engine])
         check(len(rs) == 12, f"{engine}: {len(rs)} points, want 12")
         for p in rs:
             for m, r in p.results.items():
@@ -729,10 +826,12 @@ def seed_path(sequential) -> tuple[dict, dict, OnehotTap]:
 def onehot_kernel_phases(tap: OnehotTap) -> dict[str, dict]:
     """B8 timed at the seed path's shapes, on inputs it gave the kernels:
     the insert with the most valid slots and the query over the most lines.
-    Bound: bytes over 3.35 TB/s or the xor-fold's operations (``addr_bits``
-    rounds of ``XORFOLD_OPS`` for each segment hashed: every segment of a
-    valid insert, and a query's segments up to its first clear bit, where
-    the kernel stops) over 67 Top/s, the larger."""
+    Bound: bytes over 3.35 TB/s or the hash's operations over 67 Top/s,
+    the larger: for the insert the xor-fold's (``addr_bits`` rounds of
+    ``XORFOLD_OPS`` for every segment of a valid address), for the query the
+    parity form's (``log2 seg_bits`` columns of ``PARITY_OPS`` for each
+    segment up to an address's first clear bit, where the kernel stops),
+    with the xor-fold bound of earlier runs printed beside it."""
     import torch
 
     from repro_torch.core.signatures import hash_positions_xorfold
@@ -768,14 +867,20 @@ def onehot_kernel_phases(tap: OnehotTap) -> dict[str, dict]:
     pos = hash_positions_xorfold(spec, addrs.reshape(-1)).to(torch.int64)
     looked = bits.gather(1, pos.reshape(lanes, -1)).reshape(lanes, n, m)
     hashed = int((looked.to(torch.int64).cumprod(-1).sum(-1) + 1).clamp(max=m).sum())
+    log_seg = spec.seg_bits.bit_length() - 1
+    old_bound, old_by = bound_ms(n * 4 + lanes * spec.sig_bits + n + m * ab * 4,
+                                 hashed * ab * XORFOLD_OPS)
     st = measure(f"bloom_query_onehot (L={lanes}, N={n}, {spec.sig_bits} bits, M={m}, "
                  f"{int(want.sum())} members, {hashed} segments hashed)", err,
                  lambda b, a: K8.bloom_query_onehot(spec, b, a),
                  lambda b, a: K8.bloom_query_onehot_plain(spec, b, a), (bits, addrs),
-                 nbytes=n * 4 + lanes * spec.sig_bits + n + m * ab * 4,
-                 ops=hashed * ab * XORFOLD_OPS)
-    out["bloom_query_onehot"] = dict(st, shape=dict(L=lanes, N=n, sig_bits=spec.sig_bits,
-                                                    M=m, segments_hashed=hashed))
+                 nbytes=lanes * n * 5 + lanes * spec.sig_bits,
+                 ops=hashed * log_seg * PARITY_OPS)
+    print(f"bloom_query_onehot: old bound {old_bound:.7f} ms ({old_by}, the "
+          f"xor-fold's rounds)", flush=True)
+    out["bloom_query_onehot"] = dict(st, old_bound_ms=old_bound,
+                                     shape=dict(L=lanes, N=n, sig_bits=spec.sig_bits,
+                                                M=m, segments_hashed=hashed))
     return out
 
 
@@ -847,7 +952,7 @@ def signatures_phase(K, card: str) -> dict:
     line_bm = torch.zeros((1, SIG_LINES), dtype=torch.bool, device=dev)
     line_bm[0, probes[0].to(torch.int64)] = True
     words = S.pack_words(line_bm)
-    word_member = S.unpack_words(K.bloom_query(word_sig, words, tabs, SIG_LINES),
+    word_member = S.unpack_words(K.bloom_query(spec, word_sig, words, SIG_LINES),
                                  SIG_LINES)[0, probes[0].to(torch.int64)]
     check(torch.equal(member[0], word_member) and torch.equal(
         member, K8.bloom_query_onehot_plain(spec, bits, probes)),
@@ -857,7 +962,7 @@ def signatures_phase(K, card: str) -> dict:
     out["query"] = pair(
         f"query (batch {SIG_KERNEL_BATCH}, {n_member} members)", "onehot_ms",
         ms(lambda b, a: K8.bloom_query_onehot(spec, b, a), bits, probes),
-        "word_ms", ms(lambda s, w: K.bloom_query(s, w, tabs, SIG_LINES), word_sig, words),
+        "word_ms", ms(lambda s, w: K.bloom_query(spec, s, w, SIG_LINES), word_sig, words),
         batch=SIG_KERNEL_BATCH, members=n_member, word_bitmap_lines=SIG_LINES)
 
     rng = np.random.default_rng(2)
@@ -1003,8 +1108,9 @@ def capture_path() -> tuple[dict, dict, KernelTap]:
         torch.cuda.synchronize()
         KS.reset_launch_counts()
         t0 = time.perf_counter()
+        study = Study([CAPTURE_APP])
         with tap:
-            rs = Study([CAPTURE_APP]).run(engine=engine)
+            rs = study.run(engine=engine)
         torch.cuda.synchronize()
         walls[engine] = time.perf_counter() - t0
         counts[engine] = launch_counts()
@@ -1013,6 +1119,7 @@ def capture_path() -> tuple[dict, dict, KernelTap]:
         for name in CAPTURE_KERNELS:
             check(counts[engine][name] > 0,
                   f"capture/{engine}: kernel {name} was never launched")
+        check_query_launches(f"capture/{engine}", study, rs, engine, counts[engine])
         t0 = time.perf_counter()
         cpu = Study([CAPTURE_APP], device="cpu").run(engine=engine)
         cpu_wall = time.perf_counter() - t0
@@ -1308,14 +1415,16 @@ def kv_serve_path() -> tuple[dict, dict]:
         phase(f"capture/kv_serve, engine={engine}")
         torch.cuda.synchronize()
         KS.reset_launch_counts()
+        study = Study([KV_APP])
         t0 = time.perf_counter()
-        rs = Study([KV_APP]).run(engine=engine)
+        rs = study.run(engine=engine)
         torch.cuda.synchronize()
         walls[engine] = time.perf_counter() - t0
         counts[engine] = launch_counts()
         for name in FIG7_KERNELS:
             check(counts[engine][name] > 0,
                   f"kv_serve/{engine}: kernel {name} was never launched")
+        check_query_launches(f"kv_serve/{engine}", study, rs, engine, counts[engine])
         worst = compare_results(rs, cpu, f"kv_serve/{engine}")
         print(f"{engine}: {KV_APP} x {len(MECHANISMS)} mechanisms in "
               f"{walls[engine]:.2f} s wall; launches {counts[engine]}; equals the "
@@ -1675,6 +1784,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
               f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        floor_ms = launch_floor_ms()
         stats = kernel_phases(K)
         counts, walls, sequential = main_path(K)
         profile = main_path_profile(walls["batch"])
@@ -1700,6 +1810,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         smoke_counts = smoke_prefill_path()
+        for name in ("bloom_query", "bloom_query_onehot"):
+            stats[name]["launch_floor_ms"] = floor_ms
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1

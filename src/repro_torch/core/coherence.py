@@ -18,7 +18,10 @@ on a hand-written CUDA kernel (:mod:`repro_torch.kernels.bloom.bloom`):
   ``conc`` bitmaps (``bloom_insert`` in bank mode) intersected with the
   read image (``bloom_intersect``), any register — the unfused form of the
   reference's ``conflict_from_hits``, bit-exact with it;
-* the flush / merge / invalidate membership masks: ``bloom_query``.
+* the flush / merge / invalidate membership masks: ``bloom_query``, two
+  launches a window — ``(dirty, conc)`` against the read image before the
+  flush, ``(dirty, present)`` against the write image after it — as the
+  reference gathers each image once (``line_sig_hits``).
 
 ``partial_commits=False`` models the full-kernel-commit ablation of
 Fig. 12 (one conflict check at kernel end, saturated filters).
@@ -59,7 +62,7 @@ from repro_torch.sim.prep import (
     conflict_any,
     cpu_cache_step,
     line_window_u01,
-    members,
+    members_pair,
     pack_bitmap,
     popcount_words,
     scatter_set,
@@ -159,9 +162,10 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
         rollbacks = torch.where(c1, 1.0 + torch.where(c2, 1.0, 0.0), 0.0)
 
         c1_mask = torch.where(c1, ALL_ONES, 0).to(torch.int32)[:, None]
-        flush_mask = members(tt, dirty, read_bits) & c1_mask
+        dirty_read, conc_read = members_pair(tt, dirty, conc, read_bits)
+        flush_mask = dirty_read & c1_mask
         n_flush1 = popcount_words(flush_mask).to(torch.float32)
-        n_flush_conc = popcount_words(members(tt, conc, read_bits)).to(torch.float32)
+        n_flush_conc = popcount_words(conc_read).to(torch.float32)
         n_flush = n_flush1 + torch.clamp(rollbacks - 1.0, min=0.0) * n_flush_conc
         dirty = dirty & ~flush_mask
 
@@ -174,9 +178,10 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
 
         # Successful commit: WAW merge + clean-line invalidation + drain.
         commit_mask = torch.where(commit, ALL_ONES, 0).to(torch.int32)[:, None]
-        merge_mask = members(tt, dirty, write_bits) & commit_mask
+        dirty_written, present_written = members_pair(tt, dirty, present, write_bits)
+        merge_mask = dirty_written & commit_mask
         n_merge = popcount_words(merge_mask).to(torch.float32)
-        inv_mask = members(tt, present, write_bits) & commit_mask
+        inv_mask = present_written & commit_mask
         present = present & ~inv_mask
         dirty = dirty & ~merge_mask
 

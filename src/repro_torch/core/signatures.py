@@ -20,6 +20,11 @@ is four table gathers and three XORs.  On the CUDA card
 :func:`hash_positions` runs the ``h3_hash`` kernel
 (:mod:`repro_torch.kernels.bloom.bloom`); :func:`hash_with_tables` is its
 plain PyTorch version and the CPU path.
+
+**Parity form.**  H3 is linear over GF(2), so bit ``k`` of segment ``m``'s
+hash is the parity of ``a & C[m][k]`` with the column masks of
+:func:`h3_columns`; the ``bloom_query`` and ``bloom_query_onehot`` kernels
+hash this way, and :func:`hash_positions_parity` is its plain version.
 """
 
 from __future__ import annotations
@@ -36,10 +41,12 @@ __all__ = [
     "default_spec",
     "tables_tensor",
     "h3_matrix_tensor",
+    "h3_columns",
     "empty_signature",
     "empty_bank",
     "hash_positions",
     "hash_positions_xorfold",
+    "hash_positions_parity",
     "hash_with_tables",
     "insert",
     "insert_bank_round_robin",
@@ -172,6 +179,22 @@ def h3_matrix_tensor(spec: SignatureSpec, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def h3_columns(spec: SignatureSpec) -> np.ndarray:
+    """(num_segments, log2 seg_bits) uint32 column masks of the H3 matrix:
+    bit ``j`` of ``C[m][k]`` is bit ``k`` of ``q[m][j]``, so bit ``k`` of
+    segment ``m``'s hash of ``a`` is the parity of ``a & C[m][k]``
+    (read-only, cached per spec)."""
+    q = _h3_matrix(spec).astype(np.uint64)
+    log_seg = spec.seg_bits.bit_length() - 1
+    k = np.arange(log_seg, dtype=np.uint64)
+    j = np.arange(spec.addr_bits, dtype=np.uint64)
+    bits = (q[:, None, :] >> k[None, :, None]) & np.uint64(1)   # (M, log, AB)
+    cols = (bits << j[None, None, :]).sum(-1).astype(np.uint32)
+    cols.setflags(write=False)
+    return cols
+
+
+@functools.lru_cache(maxsize=None)
 def default_spec() -> SignatureSpec:
     """The paper-default spec as a shared singleton."""
     return SignatureSpec()
@@ -296,6 +319,24 @@ def hash_positions_xorfold(spec: SignatureSpec,
     for j in range(spec.addr_bits):
         bit = ((a >> j) & 1).bool()
         h = h ^ torch.where(bit[:, None], q[None, :, j], 0)
+    offs = torch.arange(spec.num_segments, device=addrs.device) * spec.seg_bits
+    return (h + offs[None, :]).to(torch.int32)
+
+
+def hash_positions_parity(spec: SignatureSpec,
+                          addrs: torch.Tensor) -> torch.Tensor:
+    """H3 in parity form (the arithmetic of the ``bloom_query`` and
+    ``bloom_query_onehot`` kernels): bit ``k`` of segment ``m``'s hash is
+    the parity of ``a & C[m][k]`` (:func:`h3_columns`) -> (N, num_segments)
+    int32 global positions, equal to :func:`hash_with_tables` and
+    :func:`hash_positions_xorfold`."""
+    a = as_u32(addrs.reshape(-1))
+    cols = torch.from_numpy(h3_columns(spec).astype(np.int64)).to(addrs.device)
+    x = a[:, None, None] & cols[None]                        # (N, M, log)
+    for shift in (16, 8, 4, 2, 1):
+        x = x ^ (x >> shift)
+    weights = 2 ** torch.arange(cols.shape[1], device=addrs.device)
+    h = ((x & 1) * weights).sum(-1)
     offs = torch.arange(spec.num_segments, device=addrs.device) * spec.seg_bits
     return (h + offs[None, :]).to(torch.int32)
 

@@ -23,11 +23,25 @@
 //   set bits (__ffs) and skip empty chunks before loading the tables.
 //
 // bloom_query (ports bloom_query_pallas, bloom.py:205): per-line
-//   membership of the lines set in a packed bitmap, ANDed with that
-//   bitmap and packed 32 lines a word.  Bound by the bitmap bytes.
-//   Design: one warp per 32-line word; only lines whose bit is set hash,
-//   the warp ballot packs the word, lines past num_lines stay zero.
-//
+//   membership of the lines set in a packed bitmap, ANDed with that bitmap
+//   and packed 32 lines a word; given a second bitmap, the same membership
+//   ANDed with it too, from the same launch (the LazyPIM window asks each
+//   signature once for two bitmaps, as the reference's line_sig_hits does).
+//   Bound by the bytes of the bitmaps and the signature at the window's
+//   shapes, with the launch itself far above both.  Design (redesigned for
+//   Hopper): no table staging -- the hash is the parity form of
+//   h3_parity.cuh, its column masks a __grid_constant__ parameter read
+//   from the constant bank (compiled with the paper's geometry fixed, so
+//   the masks are instruction operands); a warp owns 4 consecutive words
+//   (its first 4 lanes load them, and the union of the two bitmaps' words)
+//   and 8 warps a block, so the per-window shape (3 lanes x 8,192 words) is
+//   768 blocks, one wave on the card; the warp walks only its nonzero words
+//   (one ballot finds them, a shuffle hands each word to every lane), each
+//   lane whose line is set hashes it, stopping at the first clear bit,
+//   against the lane's signature staged in shared memory (NW words, 256 B
+//   for the paper's geometry); one ballot packs the word for its owner,
+//   which writes both masked results.  Lines past num_lines stay zero.
+
 // bloom_intersect (ports bloom_intersect_pallas, bloom.py:316): the
 //   AND-prefilter, true iff every segment of a & b has a set bit.  Bound
 //   by bytes.  Design: one warp per row, a per-thread segment mask and
@@ -51,6 +65,8 @@
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "h3_parity.cuh"
 
 namespace {
 
@@ -162,43 +178,49 @@ __global__ void insert_bitmap_kernel(const uint32_t* __restrict__ bitmap,
   }
 }
 
-// grid (chunks, L): sig (L, NW), words (L, NWL) -> out (L, NWL).
-__global__ void query_kernel(const uint32_t* __restrict__ sig,
-                             const uint32_t* __restrict__ words,
-                             const uint32_t* __restrict__ tabs,
-                             uint32_t* __restrict__ out, int NWL,
-                             int num_lines, int chunk, int S, int M, int NW) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* stab = smem;
-  uint32_t* ssig = smem + S * kByteVals * M;
+// grid (ceil(NWL / kQueryBlockWords), L): sig (L, NW), words_a / words_b
+// (L, NWL) -> out_a / out_b (L, NWL); words_b and out_b null for one bitmap.
+constexpr int kQueryWarpWords = 4;                                  // words a warp
+constexpr int kQueryBlockWords = kQueryWarpWords * (kThreads / 32);  // words a block
+
+template <int MC, int LOGC>
+__global__ void __launch_bounds__(kThreads)
+query_kernel(const uint32_t* __restrict__ sig, const uint32_t* __restrict__ words_a,
+             const uint32_t* __restrict__ words_b,
+             const __grid_constant__ h3p::Columns cols,
+             uint32_t* __restrict__ out_a, uint32_t* __restrict__ out_b, int NWL,
+             int num_lines, int M, int log_seg, int NW) {
+  extern __shared__ uint32_t ssig[];
   const int lane = blockIdx.y;
-  const int w0 = blockIdx.x * chunk;
-  const int w1 = min(w0 + chunk, NWL);
-  const uint32_t* row = words + static_cast<size_t>(lane) * NWL;
-  uint32_t* orow = out + static_cast<size_t>(lane) * NWL;
-  int any = 0;
-  for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) any |= row[w] != 0u;
-  if (!__syncthreads_or(any)) {
-    for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) orow[w] = 0u;
-    return;
+  const int t = threadIdx.x & 31;
+  const int w0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kQueryWarpWords;
+  const int w = w0 + t;  // lanes t < kQueryWarpWords own word w
+  const bool owner = t < kQueryWarpWords && w < NWL;
+  const size_t k = static_cast<size_t>(lane) * NWL + w;
+  uint32_t a = 0u, b = 0u;
+  if (owner) {
+    a = words_a[k];
+    if (words_b != nullptr) b = words_b[k];
   }
-  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
-  copy_to_shared(stab, tabs, S * kByteVals * M);
   copy_to_shared(ssig, sig + static_cast<size_t>(lane) * NW, NW);
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int w = w0 + warp; w < w1; w += nwarps) {
-    const uint32_t word = row[w];
-    const uint32_t line = static_cast<uint32_t>(w) * 32u + static_cast<uint32_t>(t);
-    bool member = ((word >> t) & 1u) && line < static_cast<uint32_t>(num_lines);
-    for (int m = 0; m < M && member; ++m) {
-      const uint32_t p = h3(stab, line, m, S, M);
-      member = p < nbits && ((ssig[p >> 5] >> (p & 31u)) & 1u);
-    }
+  uint32_t u = a | b;
+  const int rest = num_lines - w * 32;  // lines of word w below num_lines
+  if (rest < 32) u &= rest <= 0 ? 0u : (1u << rest) - 1u;
+  uint32_t hit = 0u;  // the owner's membership word
+  for (uint32_t pending = __ballot_sync(0xFFFFFFFFu, u != 0u); pending;
+       pending &= pending - 1u) {
+    const int i = __ffs(pending) - 1;
+    const uint32_t ui = __shfl_sync(0xFFFFFFFFu, u, i);
+    const uint32_t line = static_cast<uint32_t>(w0 + i) * 32u + static_cast<uint32_t>(t);
+    const bool member = ((ui >> t) & 1u) &&
+                        h3p::all_set<MC, LOGC>(cols, ssig, line, M, log_seg);
     const uint32_t packed = __ballot_sync(0xFFFFFFFFu, member);
-    if (t == 0) orow[w] = packed;
+    if (t == i) hit = packed;
+  }
+  if (owner) {
+    out_a[k] = a & hit;
+    if (out_b != nullptr) out_b[k] = b & hit;
   }
 }
 
@@ -260,6 +282,31 @@ int set_smem(Kernel kernel, size_t smem) {
 
 int chunks_of(int nwl) { return (nwl + kThreads - 1) / kThreads; }
 
+template <int MC, int LOGC>
+int query_launch(const void* sig, const void* words_a, const void* words_b,
+                 const void* columns, void* out_a, void* out_b, int L, int NWL,
+                 int num_lines, int M, int log_seg, int NW, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(NW) * sizeof(uint32_t);
+  if (int rc = set_smem(query_kernel<MC, LOGC>, smem)) return rc;
+  const dim3 grid((NWL + kQueryBlockWords - 1) / kQueryBlockWords, L);
+  query_kernel<MC, LOGC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(sig), static_cast<const uint32_t*>(words_a),
+      static_cast<const uint32_t*>(words_b), h3p::load_columns(columns, M, log_seg),
+      static_cast<uint32_t*>(out_a), static_cast<uint32_t*>(out_b), NWL, num_lines,
+      M, log_seg, NW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int attributes(Kernel kernel, int* out) {
+  cudaFuncAttributes attr;
+  if (cudaError_t rc = cudaFuncGetAttributes(&attr, kernel)) return static_cast<int>(rc);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -303,19 +350,24 @@ int bloom_insert_bitmap_launch(const void* bitmap, const void* tabs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-int bloom_query_launch(const void* sig, const void* words, const void* tabs,
-                       void* out, int L, int NWL, int num_lines, int S, int M,
-                       int NW, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(NW)) *
-      sizeof(uint32_t);
-  if (int rc = set_smem(query_kernel, smem)) return rc;
-  const dim3 grid(chunks_of(NWL), L);
-  query_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(sig), static_cast<const uint32_t*>(words),
-      static_cast<const uint32_t*>(tabs), static_cast<uint32_t*>(out), NWL,
-      num_lines, kThreads, S, M, NW);
-  return static_cast<int>(cudaGetLastError());
+int bloom_query_launch(const void* sig, const void* words_a, const void* words_b,
+                       const void* columns, void* out_a, void* out_b, int L,
+                       int NWL, int num_lines, int M, int log_seg, int NW,
+                       void* stream) {
+  auto launch = h3p::paper_geometry(M, log_seg)
+                    ? query_launch<h3p::kPaperM, h3p::kPaperLog>
+                    : query_launch<0, 0>;
+  return launch(sig, words_a, words_b, columns, out_a, out_b, L, NWL, num_lines, M,
+                log_seg, NW, static_cast<cudaStream_t>(stream));
+}
+
+// Registers, local memory (bytes a thread) and static shared memory of the
+// loaded query kernel, as cudaFuncGetAttributes reads them, into out[0..2]
+// for the paper's geometry and out[3..5] for any other.
+int bloom_query_attributes(void* out) {
+  int* o = static_cast<int*>(out);
+  if (int rc = attributes(query_kernel<h3p::kPaperM, h3p::kPaperLog>, o)) return rc;
+  return attributes(query_kernel<0, 0>, o + 3);
 }
 
 int bloom_intersect_launch(const void* a, const void* b, void* out, int B,

@@ -2,8 +2,9 @@
 // (sm_90a): the CUDA counterparts of the two "seed" Pallas TPU kernels in
 // src/repro/kernels/bloom/bloom.py that hash with the per-bit xor-fold H3
 // (_h3_hash_block_xorfold, bloom.py:70) and keep the signature as an
-// unpacked sig_bits-wide 0/1 image.  Addresses arrive as int32 bits and are
-// read as uint32; packed words are uint32 here and int32 on the PyTorch
+// unpacked sig_bits-wide 0/1 image (the insert hashes with that xor-fold,
+// the query with its parity form, which gives the same positions bit for
+// bit).  Addresses arrive as int32 bits and are read as uint32; packed words are uint32 here and int32 on the PyTorch
 // side.  Both kernels are lane-batched (lanes on gridDim.y), launch on the
 // caller's stream, allocate nothing and return cudaGetLastError().
 //
@@ -27,15 +28,28 @@
 // bloom_query_onehot (ports bloom_query_pallas_onehot, bloom.py:420, body
 //   _query_kernel_onehot :405): member = all M positions set in the
 //   unpacked 0/1 image (the TPU wrapper unpacks the packed signature before
-//   the call, bloom.py:436-437; the port keeps that image as bytes).
-//   Bound by the xor-fold's operations as above; the TPU kernel's one-hot
-//   compare-and-sum is how a TPU gathers and is not counted as work.
-//   Design: the H3 matrix and the lane's image are staged in shared memory;
-//   each thread hashes one address and gathers its M bytes from the staged
-//   image, stopping at the first clear one.
+//   the call, bloom.py:436-437; the port keeps that image as bytes).  The
+//   TPU kernel's one-hot compare-and-sum is how a TPU gathers and is not
+//   counted as work.  Bound by the bytes (4 in and 1 out an address, plus
+//   the images) against the hash's operations up to the first clear bit;
+//   at the seed path's shapes both sit far below one launch.  Design
+//   (redesigned for Hopper): the hash is the parity form of h3_parity.cuh
+//   (at most M * log2(seg_bits) popc an address, 36 for the paper's
+//   geometry, against the xor-fold's M * addr_bits = 128 select-XOR
+//   rounds), its column masks a __grid_constant__ parameter read from the
+//   constant bank (compiled with the paper's geometry fixed, so the masks
+//   are instruction operands); a block packs its lane's image once into
+//   sig_bits / 32 words of shared memory (two 16-byte loads and a multiply
+//   a word) and each thread tests one address against it, stopping at its
+//   first clear bit.  The launch is short and latency-bound, so one address
+//   a thread over ceil(N / 256) blocks a lane beat four a thread over a
+//   grid of two blocks an SM when both were timed at the seed path's
+//   (1, 168,335) shape.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "h3_parity.cuh"
 
 namespace {
 
@@ -103,32 +117,52 @@ __global__ void insert_onehot_kernel(const uint32_t* __restrict__ addrs,
   }
 }
 
-// grid (ceil(N / kThreads), L): bits (L, sig_bits) 0/1 bytes, addrs (L, N),
-// q (M, AB) -> out (L, N) 0/1 bytes.
-__global__ void query_onehot_kernel(const uint8_t* __restrict__ bits,
-                                    const uint32_t* __restrict__ addrs,
-                                    const uint32_t* __restrict__ q,
-                                    uint8_t* __restrict__ out, int N, int M,
-                                    int addr_bits, int sig_bits) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* sq = smem;
-  uint8_t* image = reinterpret_cast<uint8_t*>(smem + M * addr_bits);
+// Nonzero flags of the four bytes of x, as bits 0-3.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  x |= x >> 4;
+  x |= x >> 2;
+  x |= x >> 1;
+  // bits 0, 8, 16, 24 -> 24, 25, 26, 27; every other product bit lands
+  // below 24 at its own place, so nothing carries into them
+  return ((x & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// Word w of the packed image: bytes 32w .. 32w + 31 of src, nonzero -> 1.
+__device__ __forceinline__ uint32_t pack_word(const uint8_t* __restrict__ src, int w,
+                                              bool aligned) {
+  uint32_t word = 0u;
+  if (aligned) {
+    const uint4* v = reinterpret_cast<const uint4*>(src) + 2 * w;
+    const uint4 lo = v[0], hi = v[1];
+    const uint32_t q[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) word |= nonzero_bytes(q[i]) << (4 * i);
+  } else {
+    for (int i = 0; i < 32; ++i) word |= static_cast<uint32_t>(src[32 * w + i] != 0) << i;
+  }
+  return word;
+}
+
+// grid (ceil(N / kThreads), L): bits (L, sig_bits) 0/1 bytes, addrs (L, N)
+// -> out (L, N) 0/1 bytes.
+template <int MC, int LOGC>
+__global__ void __launch_bounds__(kThreads)
+query_onehot_kernel(const uint8_t* __restrict__ bits, const uint32_t* __restrict__ addrs,
+                    const __grid_constant__ h3p::Columns cols,
+                    uint8_t* __restrict__ out, int N, int M, int log_seg,
+                    int sig_bits) {
+  extern __shared__ uint32_t image[];
   const int lane = blockIdx.y;
   const uint8_t* src = bits + static_cast<size_t>(lane) * sig_bits;
-  stage_matrix(sq, q, M * addr_bits);
-  for (int i = threadIdx.x; i < sig_bits; i += blockDim.x) image[i] = src[i];
+  const bool src_aligned = (reinterpret_cast<uintptr_t>(src) & 15u) == 0;
+  for (int w = threadIdx.x; w < sig_bits / 32; w += blockDim.x) {
+    image[w] = pack_word(src, w, src_aligned);
+  }
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const size_t k = static_cast<size_t>(lane) * N + i;
-  const uint32_t a = addrs[k];
-  const uint32_t seg_bits = static_cast<uint32_t>(sig_bits / M);
-  bool member = true;
-  for (int m = 0; m < M && member; ++m) {
-    const uint32_t p = xorfold(sq, a, m, addr_bits, seg_bits);
-    member = p < static_cast<uint32_t>(sig_bits) && image[p] != 0;
-  }
-  out[k] = member ? 1 : 0;
+  out[k] = h3p::all_set<MC, LOGC>(cols, image, addrs[k], M, log_seg) ? 1 : 0;
 }
 
 template <typename Kernel>
@@ -140,6 +174,30 @@ int set_smem(Kernel kernel, size_t smem) {
 size_t smem_bytes(int M, int addr_bits, int sig_bits) {
   return static_cast<size_t>(M) * addr_bits * sizeof(uint32_t) +
          static_cast<size_t>(sig_bits);
+}
+
+template <int MC, int LOGC>
+int query_onehot_launch(const void* bits, const void* addrs, const void* columns,
+                        void* out, int L, int N, int M, int log_seg, int sig_bits,
+                        cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(sig_bits / 32) * sizeof(uint32_t);
+  if (int rc = set_smem(query_onehot_kernel<MC, LOGC>, smem)) return rc;
+  const dim3 grid((N + kThreads - 1) / kThreads, L);
+  query_onehot_kernel<MC, LOGC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(bits), static_cast<const uint32_t*>(addrs),
+      h3p::load_columns(columns, M, log_seg), static_cast<uint8_t*>(out), N, M,
+      log_seg, sig_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int attributes(Kernel kernel, int* out) {
+  cudaFuncAttributes attr;
+  if (cudaError_t rc = cudaFuncGetAttributes(&attr, kernel)) return static_cast<int>(rc);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }
 
 }  // namespace
@@ -159,17 +217,25 @@ int bloom_insert_onehot_launch(const void* addrs, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-int bloom_query_onehot_launch(const void* bits, const void* addrs, const void* q,
-                              void* out, int L, int N, int M, int addr_bits,
-                              int sig_bits, void* stream) {
-  const size_t smem = smem_bytes(M, addr_bits, sig_bits);
-  if (int rc = set_smem(query_onehot_kernel, smem)) return rc;
-  const dim3 grid((N + kThreads - 1) / kThreads, L);
-  query_onehot_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bits), static_cast<const uint32_t*>(addrs),
-      static_cast<const uint32_t*>(q), static_cast<uint8_t*>(out), N, M,
-      addr_bits, sig_bits);
-  return static_cast<int>(cudaGetLastError());
+int bloom_query_onehot_launch(const void* bits, const void* addrs,
+                              const void* columns, void* out, int L, int N, int M,
+                              int log_seg, int sig_bits, void* stream) {
+  auto launch = h3p::paper_geometry(M, log_seg)
+                    ? query_onehot_launch<h3p::kPaperM, h3p::kPaperLog>
+                    : query_onehot_launch<0, 0>;
+  return launch(bits, addrs, columns, out, L, N, M, log_seg, sig_bits,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Registers, local memory (bytes a thread) and static shared memory of the
+// loaded query kernel, as cudaFuncGetAttributes reads them, into out[0..2]
+// for the paper's geometry and out[3..5] for any other.
+int bloom_query_onehot_attributes(void* out) {
+  int* o = static_cast<int*>(out);
+  if (int rc = attributes(query_onehot_kernel<h3p::kPaperM, h3p::kPaperLog>, o)) {
+    return rc;
+  }
+  return attributes(query_onehot_kernel<0, 0>, o + 3);
 }
 
 }  // extern "C"

@@ -1,0 +1,84 @@
+// H3 in parity form, shared by bloom.cu (bloom_query) and bloom_onehot.cu
+// (bloom_query_onehot).
+//
+// H3 is linear over GF(2): segment m hashes a 32-bit address a to
+// XOR_j a_j * q[m][j], a value below seg_bits = 2^log_seg.  So bit k of that
+// value is the parity of a & C[m][k], where column mask C[m][k] has bit j set
+// iff bit k of q[m][j] is set.  The paper's geometry needs M * log_seg =
+// 4 * 9 = 36 masks (144 bytes); they give, bit for bit, the positions of the
+// byte-sliced tables (h3 in bloom.cu) and of the per-bit xor-fold.
+//
+// The masks reach a kernel by value: the launcher copies them from a host
+// pointer into Columns and passes it as a __grid_constant__ kernel
+// parameter, so they sit in the constant bank (no staging, no local copy
+// under dynamic indexing), and every lane of a warp reads the same mask at
+// the same time, which the constant cache broadcasts.  Each query kernel is
+// built twice: with the paper's geometry fixed (kPaperM, kPaperLog) and for
+// any M <= 32, log_seg <= 16; its launcher picks one by the spec.
+
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+
+namespace h3p {
+
+constexpr int kMaxLog = 16;                  // log2(seg_bits) <= 16
+constexpr int kMaxColumns = 32 * kMaxLog;    // M <= 32 segments
+
+struct Columns {
+  uint32_t c[kMaxColumns];  // c[m * log_seg + k]
+};
+
+// Columns from the host's (M, log_seg) uint32 masks; callers check the cap.
+inline Columns load_columns(const void* host, int M, int log_seg) {
+  Columns cols{};
+  std::memcpy(cols.c, host, static_cast<size_t>(M) * log_seg * sizeof(uint32_t));
+  return cols;
+}
+
+// True iff all M positions of address a are set in the packed bit words
+// `words`, stopping at the first clear one.  MC, LOGC > 0 fix the geometry
+// at compile time: every mask index is then a constant, so each AND takes
+// its mask straight from the constant bank as an operand instead of issuing
+// a load for it; MC = LOGC = 0 takes M and log_seg at run time.
+template <int MC, int LOGC>
+__device__ __forceinline__ bool all_set(const Columns& cols,
+                                        const uint32_t* __restrict__ words,
+                                        uint32_t a, int M, int log_seg) {
+  if constexpr (MC > 0) {
+#pragma unroll
+    for (int m = 0; m < MC; ++m) {
+      uint32_t h = 0u;
+#pragma unroll
+      for (int k = 0; k < LOGC; ++k) {
+        h |= (static_cast<uint32_t>(__popc(a & cols.c[m * LOGC + k])) & 1u) << k;
+      }
+      const uint32_t p = (static_cast<uint32_t>(m) << LOGC) | h;
+      if (!((words[p >> 5] >> (p & 31u)) & 1u)) return false;
+    }
+  } else {
+    for (int m = 0; m < M; ++m) {
+      const uint32_t* col = cols.c + m * log_seg;
+      uint32_t h = 0u;
+#pragma unroll
+      for (int k = 0; k < kMaxLog; ++k) {
+        if (k < log_seg) h |= (static_cast<uint32_t>(__popc(a & col[k])) & 1u) << k;
+      }
+      const uint32_t p = (static_cast<uint32_t>(m) << log_seg) | h;
+      if (!((words[p >> 5] >> (p & 31u)) & 1u)) return false;
+    }
+  }
+  return true;
+}
+
+// The paper's geometry (2,048-bit registers, M = 4 segments of 512 bits),
+// which every main path uses, is compiled with its sizes fixed.
+constexpr int kPaperM = 4;
+constexpr int kPaperLog = 9;
+
+inline bool paper_geometry(int M, int log_seg) {
+  return M == kPaperM && log_seg == kPaperLog;
+}
+
+}  // namespace h3p

@@ -2,10 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, ``build/lib<stem>-<hash>.so`` in the
-checkout (content-addressed by the source and the flags), and is bound
-with ``ctypes``.  Nothing is built or loaded at import: the first call of
-a kernel builds its library, and :func:`build_all` builds every source at
-once, one ``nvcc`` process each, all started together.
+checkout (content-addressed by the source, the ``csrc/*.cuh`` headers
+and the flags), and is bound with ``ctypes``.  Nothing is built or loaded
+at import: the first call of a kernel builds its library, and
+:func:`build_all` builds every source at once, one ``nvcc`` process each,
+all started together.
 """
 
 from __future__ import annotations
@@ -37,10 +38,14 @@ def nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Where the build of ``source`` lives: keyed by its bytes and the flags."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """Where the build of ``source`` lives: keyed by its bytes, the bytes of
+    every ``*.cuh`` header beside it (so a changed header rebuilds every
+    source there) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources: list[pathlib.Path] | None = None) -> dict[str, pathlib.Path]:

@@ -17,7 +17,7 @@ does about that).  Each wrapper here:
 * ``bloom_insert`` ports ``bloom_insert_pallas`` (``bloom.py:135``): the
   per-window read/write images and the CPUWriteSet bank;
 * ``bloom_query`` ports ``bloom_query_pallas`` (``bloom.py:205``): the
-  flush / merge / invalidate membership masks;
+  flush / merge / invalidate membership masks, two bitmaps a launch;
 * ``bloom_intersect`` ports ``bloom_intersect_pallas`` (``bloom.py:316``):
   the two conflict checks of each LazyPIM window;
 * ``bloom_detect_conflicts`` ports ``bloom_detect_conflicts_pallas``
@@ -34,9 +34,17 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from repro_torch.core.signatures import hash_with_tables, pack_words, unpack_words
+from repro_torch.core.signatures import (
+    SignatureSpec,
+    h3_columns,
+    hash_with_tables,
+    pack_words,
+    tables_tensor,
+    unpack_words,
+)
 from repro_torch.kernels import _build
 
 __all__ = [
@@ -44,7 +52,7 @@ __all__ = [
     "bloom_detect_conflicts", "h3_hash_plain", "bloom_insert_plain",
     "bloom_query_plain", "bloom_intersect_plain",
     "bloom_detect_conflicts_plain", "KERNELS", "reset_launch_counts",
-    "launch_counts",
+    "launch_counts", "query_attributes",
 ]
 
 SOURCE = _build.CSRC / "bloom.cu"
@@ -60,7 +68,8 @@ _SIGNATURES = {
     "h3_hash_launch": [_P, _P, _P, _I, _I, _I, _P],
     "bloom_insert_ids_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bloom_insert_bitmap_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "bloom_query_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_query_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_query_attributes": [_P],
     "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bloom_detect_conflicts_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -105,6 +114,27 @@ def _check_lanes(lanes: int) -> None:
     """Bitmap kernels put lanes on gridDim.y, which CUDA caps at 65,535."""
     if lanes > 65_535:
         raise ValueError(f"{lanes} lanes exceed the kernels' 65,535-lane grid")
+
+
+# The parity-form kernels take the H3 column masks by value in a fixed
+# struct of this many words (csrc/h3_parity.cuh): M <= 32 segments of at
+# most 16 hash bits.
+MAX_COLUMNS, MAX_LOG_SEG = 512, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _columns(spec: SignatureSpec) -> tuple[np.ndarray, int]:
+    """The spec's (M, log2 seg_bits) column masks as a C-contiguous uint32
+    array whose address the launchers copy from, and log2 seg_bits; a spec
+    beyond the kernels' mask struct is refused (the plain versions take
+    any spec)."""
+    cols = np.ascontiguousarray(h3_columns(spec))
+    m, log_seg = cols.shape
+    if m > 32 or log_seg > MAX_LOG_SEG:
+        raise ValueError(f"{spec}: the parity-form kernels take num_segments <= 32 "
+                         f"and seg_bits <= 2**{MAX_LOG_SEG} ({MAX_COLUMNS} column "
+                         f"masks), got {m} x {log_seg}")
+    return cols, log_seg
 
 
 def _check_tables(tabs: torch.Tensor) -> tuple[int, int]:
@@ -248,47 +278,67 @@ bloom_insert.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def bloom_query_plain(sig: torch.Tensor, words: torch.Tensor,
-                      tabs: torch.Tensor, num_lines: int) -> torch.Tensor:
-    """Plain version of :func:`bloom_query` (same arguments and result)."""
-    bits = unpack_words(words, num_lines)
+def bloom_query_plain(spec: SignatureSpec, sig: torch.Tensor, words: torch.Tensor,
+                      num_lines: int, words_b: torch.Tensor | None = None):
+    """Plain version of :func:`bloom_query` (same arguments and result),
+    hashing with the byte-sliced tables."""
+    union = words if words_b is None else words | words_b
+    bits = unpack_words(union, num_lines)
     lane, line = torch.nonzero(bits, as_tuple=True)
-    pos = hash_with_tables(line, tabs).to(torch.int64)
+    pos = hash_with_tables(line, tables_tensor(spec, sig.device)).to(torch.int64)
     w = sig[lane[:, None], pos >> 5]
     member = (((w >> (pos & 31)) & 1) != 0).all(1)
-    out = torch.zeros_like(bits)
-    out[lane[member], line[member]] = True
-    return pack_words(out)
+    hit = torch.zeros_like(bits)
+    hit[lane[member], line[member]] = True
+    packed = pack_words(hit)
+    return packed & words if words_b is None else (packed & words, packed & words_b)
 
 
-def bloom_query(sig: torch.Tensor, words: torch.Tensor, tabs: torch.Tensor,
-                num_lines: int) -> torch.Tensor:
+def bloom_query(spec: SignatureSpec, sig: torch.Tensor, words: torch.Tensor,
+                num_lines: int, words_b: torch.Tensor | None = None):
     """Packed membership of the lines set in ``words``: bit ``i`` of lane
     ``l`` is set iff line ``i < num_lines`` is set in ``words[l]`` and all M
     of its H3 positions are set in ``sig[l]`` (real false positives).
     ``sig`` (L, NW) int32, ``words`` (L, ceil(num_lines/32)) int32 ->
-    (L, ceil(num_lines/32)) int32 with zero pad bits.
+    (L, ceil(num_lines/32)) int32 with zero pad bits.  Given ``words_b`` of
+    the same shape, returns ``(words & member, words_b & member)`` from the
+    same launch (one count).
 
     Ports ``bloom_query_pallas`` (``src/repro/kernels/bloom/bloom.py:205``);
     its bound and design are noted in ``csrc/bloom.cu``."""
-    s, m = _check_tables(tabs)
+    if not isinstance(spec, SignatureSpec):
+        raise TypeError(f"spec: expected a SignatureSpec, got {type(spec).__name__}")
     _check("sig", sig, torch.int32, 2)
     _check("words", words, torch.int32, 2)
+    if sig.shape[1] != spec.num_words:
+        raise ValueError(f"sig {tuple(sig.shape)}: want (L, {spec.num_words})")
     if sig.shape[0] != words.shape[0]:
         raise ValueError(f"sig lanes {sig.shape[0]} != words lanes {words.shape[0]}")
     if words.shape[1] != (num_lines + 31) // 32:
         raise ValueError(f"words width {words.shape[1]} != ceil(num_lines/32) "
                          f"for num_lines={num_lines}")
-    if _on_cpu(sig, words, tabs):
-        return bloom_query_plain(sig, words, tabs, num_lines)
+    inputs = (sig, words)
+    if words_b is not None:
+        _check("words_b", words_b, torch.int32, 2)
+        if words_b.shape != words.shape:
+            raise ValueError(f"words_b {tuple(words_b.shape)} != words "
+                             f"{tuple(words.shape)}")
+        inputs += (words_b,)
+    if _on_cpu(*inputs):
+        return bloom_query_plain(spec, sig, words, num_lines, words_b)
     _check_lanes(words.shape[0])
+    cols, log_seg = _columns(spec)
     out = torch.empty_like(words)
+    out_b = None if words_b is None else torch.empty_like(words_b)
     if words.numel():
         _launch("bloom_query_launch", sig.data_ptr(), words.data_ptr(),
-                tabs.data_ptr(), out.data_ptr(), words.shape[0], words.shape[1],
-                num_lines, s, m, sig.shape[1], _stream(sig))
+                None if words_b is None else words_b.data_ptr(),
+                cols.ctypes.data, out.data_ptr(),
+                None if out_b is None else out_b.data_ptr(), words.shape[0],
+                words.shape[1], num_lines, spec.num_segments, log_seg,
+                spec.num_words, _stream(sig))
         bloom_query.launches += 1
-    return out
+    return out if words_b is None else (out, out_b)
 
 
 bloom_query.launches = 0
@@ -390,6 +440,18 @@ bloom_detect_conflicts.launches = 0
 KERNELS = {"h3_hash": h3_hash, "bloom_insert": bloom_insert,
            "bloom_query": bloom_query, "bloom_intersect": bloom_intersect,
            "bloom_detect_conflicts": bloom_detect_conflicts}
+
+
+def query_attributes() -> dict[str, dict[str, int]]:
+    """Registers and local memory a thread and static shared memory a block
+    of the loaded ``bloom_query`` kernel (``cudaFuncGetAttributes``), as
+    ``{"paper": ..., "any": ...}``: built with the paper's geometry (M = 4,
+    512-bit segments) fixed, and for any other spec.  The column masks are
+    a ``__grid_constant__`` parameter, so neither uses local memory."""
+    out = (ctypes.c_int * 6)()
+    _build.launch(_lib(), "bloom_query_attributes", ctypes.addressof(out))
+    keys = ("registers", "local_bytes", "static_smem_bytes")
+    return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
 
 
 def reset_launch_counts() -> None:

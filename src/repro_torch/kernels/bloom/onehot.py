@@ -14,8 +14,10 @@ about that):
   (``bloom.py:420``): the seed path's membership masks
   (``prep.members_bool`` / ``ids_member_bool``).
 
-Both hash with the per-bit xor-fold H3 over ``spec.h3_matrix`` (the TPU
-kernels' ``_h3_hash_block_xorfold``, ``bloom.py:70``) and are lane-batched.
+The insert hashes with the per-bit xor-fold H3 over ``spec.h3_matrix``
+(the TPU kernels' ``_h3_hash_block_xorfold``, ``bloom.py:70``), the query
+with its parity form over the column masks ``h3_columns(spec)`` (the same
+positions bit for bit); both are lane-batched.
 The wrappers follow the rule of :mod:`.bloom`: the plain version for CPU
 tensors, the kernel for CUDA tensors (with a raise on a launch error and
 one count a launch), a raise on anything mixed, no fallback.  The shared
@@ -36,11 +38,17 @@ from repro_torch.core.signatures import (
     pack_words,
 )
 from repro_torch.kernels import _build
-from repro_torch.kernels.bloom.bloom import _check, _check_lanes, _on_cpu, _stream
+from repro_torch.kernels.bloom.bloom import (
+    _check,
+    _check_lanes,
+    _columns,
+    _on_cpu,
+    _stream,
+)
 
 __all__ = ["bloom_insert_onehot", "bloom_query_onehot",
            "bloom_insert_onehot_plain", "bloom_query_onehot_plain", "KERNELS",
-           "reset_launch_counts", "launch_counts"]
+           "reset_launch_counts", "launch_counts", "query_attributes"]
 
 SOURCE = _build.CSRC / "bloom_onehot.cu"
 
@@ -48,9 +56,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "bloom_insert_onehot_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bloom_query_onehot_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bloom_query_onehot_attributes": [_P],
 }
 
-# A block stages the H3 matrix and a sig_bits-byte image in shared memory.
+# A block stages the H3 matrix and a sig_bits-byte image (the insert) or the
+# packed image (the query) in shared memory.
 MAX_SIG_BITS = 1 << 17
 
 
@@ -179,12 +189,12 @@ def bloom_query_onehot(spec: SignatureSpec, bits: torch.Tensor,
         raise ValueError(f"bits {tuple(bits.shape)}: want ({lanes}, {spec.sig_bits})")
     if _on_cpu(bits, addrs):
         return bloom_query_onehot_plain(spec, bits, addrs)
+    cols, log_seg = _columns(spec)
     out = torch.empty((lanes, n), dtype=torch.bool, device=addrs.device)
     if lanes and n:
-        q = h3_matrix_tensor(spec, addrs.device)
         _launch("bloom_query_onehot_launch", bits.data_ptr(), addrs.data_ptr(),
-                q.data_ptr(), out.data_ptr(), lanes, n, spec.num_segments,
-                spec.addr_bits, spec.sig_bits, _stream(addrs))
+                cols.ctypes.data, out.data_ptr(), lanes, n, spec.num_segments,
+                log_seg, spec.sig_bits, _stream(addrs))
         bloom_query_onehot.launches += 1
     return out
 
@@ -194,6 +204,18 @@ bloom_query_onehot.launches = 0
 
 KERNELS = {"bloom_insert_onehot": bloom_insert_onehot,
            "bloom_query_onehot": bloom_query_onehot}
+
+
+def query_attributes() -> dict[str, dict[str, int]]:
+    """Registers and local memory a thread and static shared memory a block
+    of the loaded ``bloom_query_onehot`` kernel (``cudaFuncGetAttributes``), as
+    ``{"paper": ..., "any": ...}``: built with the paper's geometry (M = 4,
+    512-bit segments) fixed, and for any other spec.  The column masks are
+    a ``__grid_constant__`` parameter, so neither uses local memory."""
+    out = (ctypes.c_int * 6)()
+    _build.launch(_lib(), "bloom_query_onehot_attributes", ctypes.addressof(out))
+    keys = ("registers", "local_bytes", "static_smem_bytes")
+    return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
 
 
 def reset_launch_counts() -> None:

@@ -25,6 +25,8 @@ PyTorch versions on the CPU):
 * ``conflict_any``          — ``bloom_intersect`` of the bank with the
                               read image, any register
 * ``members``               — ``bloom_query``: packed per-line membership
+* ``members_pair``          — ``bloom_query`` on two bitmaps at once (one
+                              lookup of each line against the image)
 * ``prepare`` / ``pad_trace`` / ``dummy_trace`` hash the line table with
   ``h3_hash``.
 
@@ -265,8 +267,18 @@ def members(tt: TraceTensors, words: torch.Tensor,
     """Packed per-line membership masks (L, num_line_words) of the lines set
     in ``words`` against the images ``sig_words`` (L, sig_words), with the
     signature's real false positives."""
-    return K.bloom_query(sig_words.contiguous(), words.contiguous(), tt.tables,
+    return K.bloom_query(tt.spec, sig_words.contiguous(), words.contiguous(),
                          tt.num_lines)
+
+
+def members_pair(tt: TraceTensors, words_a: torch.Tensor, words_b: torch.Tensor,
+                 sig_words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(members(tt, words_a, sig_words), members(tt, words_b, sig_words))``
+    from one ``bloom_query`` launch: a line's membership depends only on the
+    image, so each line set in either bitmap is looked up once (the
+    reference's ``line_sig_hits`` + two ``members_from_hits``)."""
+    return K.bloom_query(tt.spec, sig_words.contiguous(), words_a.contiguous(),
+                         tt.num_lines, words_b=words_b.contiguous())
 
 
 def line_sig_hits(tt: TraceTensors, sig_words: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from repro.core.signatures import default_spec, hash_with_tables
 from repro.core.signatures import _h3_tables_global as r_tables
 from repro.sim import prep as RP
 from repro.sim.trace import make_trace as r_make_trace
+from repro_torch.core.signatures import default_spec as port_spec
 from repro_torch.core.signatures import tables_tensor
 from repro_torch.kernels.bloom import bloom as K
 from repro_torch.sim import prep as TP
@@ -214,7 +215,7 @@ def _kernel_calls(tabs):
     return {
         "h3_hash": lambda: K.h3_hash(ids[0].contiguous(), tabs),
         "bloom_insert": lambda: K.bloom_insert(tabs, 64, ids=ids, valid=valid),
-        "bloom_query": lambda: K.bloom_query(sig, words, tabs, 40),
+        "bloom_query": lambda: K.bloom_query(port_spec(), sig, words, 40),
         "bloom_intersect": lambda: K.bloom_intersect(sig, sig, 4),
         "bloom_detect_conflicts": lambda: K.bloom_detect_conflicts(
             sig, ids[0].contiguous(), tabs),
@@ -263,8 +264,8 @@ def test_wrappers_check_arguments():
     with pytest.raises(ValueError):
         K.bloom_insert(tabs, 64)
     with pytest.raises(ValueError):
-        K.bloom_query(torch.zeros((1, 64), dtype=torch.int32),
-                      torch.zeros((1, 3), dtype=torch.int32), tabs, 40)
+        K.bloom_query(port_spec(), torch.zeros((1, 64), dtype=torch.int32),
+                      torch.zeros((1, 3), dtype=torch.int32), 40)
     with pytest.raises(ValueError):
         K.bloom_intersect(torch.zeros((3, 64), dtype=torch.int32),
                           torch.zeros((2, 64), dtype=torch.int32), 4)

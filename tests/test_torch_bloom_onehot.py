@@ -126,7 +126,7 @@ def test_onehot_plain_equals_word_level_plain(sig_bits, m):
     member = K8.bloom_query_onehot(spec, S.unpack_words(onehot, spec.sig_bits), probes)
     bitmap = torch.zeros((lanes, lines), dtype=torch.bool)
     bitmap.scatter_(1, probes.to(torch.int64), True)
-    b3 = K.bloom_query_plain(onehot, S.pack_words(bitmap), tabs, lines)
+    b3 = K.bloom_query_plain(spec, onehot, S.pack_words(bitmap), lines)
     assert torch.equal(member, S.unpack_words(b3, lines).gather(1, probes.to(torch.int64)))
     for lane in range(lanes):
         assert torch.equal(member[lane], S.query(spec, onehot[lane], probes[lane]))

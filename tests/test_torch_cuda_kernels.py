@@ -107,17 +107,96 @@ def test_insert_bitmap(dev, num_lines, density, regs):
                        K.bloom_insert_plain(tabs, spec.num_words, **kw))
 
 
+def _dense_words(shape, density, dev, seed):
+    """Packed words at ``density``; 1.0 sets every bit."""
+    if density >= 1.0:
+        return torch.full(shape, -1, dtype=torch.int32, device=dev)
+    return _words(shape, density, dev, seed)
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
 @pytest.mark.parametrize("num_lines", [1, 31, 33, 6409, 262_144])
-@pytest.mark.parametrize("density", [0.0, 0.003, 0.3])
-def test_query(dev, num_lines, density):
-    spec = default_spec()
-    tabs = tables_tensor(spec, dev)
+@pytest.mark.parametrize("density", [0.0, 0.003, 0.5, 1.0],
+                         ids=["zero", "sparse", "half", "full"])
+@pytest.mark.parametrize("form", ["single", "pair"])
+def test_query(dev, spec, num_lines, density, form):
+    """B3 against its plain version: one bitmap or two from one launch, at
+    every density, ragged line counts (pad bits of full words carry ones),
+    and a signature dense enough that members vary."""
     nw = (num_lines + 31) // 32
-    words = _words((3, nw), density, dev, num_lines)
-    sig = _words((3, spec.num_words), 0.4, dev, 7)
-    got = K.bloom_query(sig, words, tabs, num_lines)
-    assert torch.equal(got, K.bloom_query_plain(sig, words, tabs, num_lines))
-    assert not unpack_words(got, nw * 32)[:, num_lines:].any()
+    words = _dense_words((3, nw), density, dev, num_lines)
+    sig = _words((3, spec.num_words), 0.6, dev, 7)
+    if form == "single":
+        got = K.bloom_query(spec, sig, words, num_lines)
+        assert torch.equal(got, K.bloom_query_plain(spec, sig, words, num_lines))
+        outs = (got,)
+    else:
+        words_b = _dense_words((3, nw), 1.0 - density, dev, num_lines + 1)
+        got = K.bloom_query(spec, sig, words, num_lines, words_b=words_b)
+        want = K.bloom_query_plain(spec, sig, words, num_lines, words_b=words_b)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0], K.bloom_query(spec, sig, words, num_lines))
+        assert torch.equal(got[1], K.bloom_query(spec, sig, words_b, num_lines))
+        outs = got
+    for out in outs:
+        assert not unpack_words(out, nw * 32)[:, num_lines:].any()
+
+
+def test_query_lanes_are_independent(dev):
+    spec = default_spec()
+    lanes, num_lines = 5, 6409
+    nw = (num_lines + 31) // 32
+    words = _words((lanes, nw), 0.3, dev, 1)
+    words_b = _words((lanes, nw), 0.05, dev, 2)
+    sig = _words((lanes, spec.num_words), 0.5, dev, 3)
+    both = K.bloom_query(spec, sig, words, num_lines, words_b=words_b)
+    for lane in range(lanes):
+        one = K.bloom_query(spec, sig[lane:lane + 1], words[lane:lane + 1], num_lines,
+                            words_b=words_b[lane:lane + 1])
+        assert torch.equal(both[0][lane:lane + 1], one[0])
+        assert torch.equal(both[1][lane:lane + 1], one[1])
+
+
+def test_query_pair_counts_one_launch(dev):
+    spec = default_spec()
+    words = _words((2, 10), 0.5, dev, 4)
+    sig = _words((2, spec.num_words), 0.5, dev, 5)
+    K.reset_launch_counts()
+    K.bloom_query(spec, sig, words, 320, words_b=words)
+    assert K.launch_counts()["bloom_query"] == 1
+    with pytest.raises(ValueError):
+        K.bloom_query(spec, sig, words, 320, words_b=words[:1].contiguous())
+    with pytest.raises(ValueError):
+        K.bloom_query(spec, sig, words, 320, words_b=words.cpu())  # mixed devices
+    K.reset_launch_counts()
+
+
+@pytest.mark.parametrize("sig_bits,num_segments", [(2048, 64), (2**17, 1)])
+def test_query_spec_beyond_the_mask_cap_is_refused(dev, sig_bits, num_segments):
+    """A spec whose column masks overflow the kernels' 512-word struct is
+    refused on the card before a launch; no launch is counted."""
+    spec = SignatureSpec(sig_bits=sig_bits, num_segments=num_segments)
+    sig = torch.full((1, spec.num_words), -1, dtype=torch.int32, device=dev)
+    words = torch.full((1, 2), -1, dtype=torch.int32, device=dev)
+    bits = torch.ones((1, spec.sig_bits), dtype=torch.bool, device=dev)
+    addrs = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+    with pytest.raises(ValueError, match="num_segments <= 32"):
+        K.bloom_query(spec, sig, words, 40)
+    with pytest.raises(ValueError, match="num_segments <= 32"):
+        K8.bloom_query_onehot(spec, bits, addrs)
+    assert K.launch_counts()["bloom_query"] == 0
+    assert K8.launch_counts()["bloom_query_onehot"] == 0
+
+
+@pytest.mark.parametrize("module", ["bloom", "onehot"])
+def test_query_kernels_use_no_local_memory(dev, module):
+    """The column masks are a __grid_constant__ parameter: dynamic indexing
+    reads them in place, with no copy to local memory."""
+    for build_of, attrs in (K if module == "bloom" else K8).query_attributes().items():
+        assert attrs["local_bytes"] == 0, (build_of, attrs)
+        assert 0 < attrs["registers"] <= 255, (build_of, attrs)
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
@@ -188,19 +267,59 @@ def test_insert_onehot(dev, spec, lanes, n, mask_kind):
         assert torch.equal(got, sig)
 
 
+def _image(kind, lanes, sig_bits, dev, g):
+    if kind == "zeros":
+        return torch.zeros((lanes, sig_bits), dtype=torch.bool, device=dev)
+    if kind == "ones":
+        return torch.ones((lanes, sig_bits), dtype=torch.bool, device=dev)
+    return torch.rand((lanes, sig_bits), generator=g, device=dev) < float(kind)
+
+
 @pytest.mark.parametrize("spec", ONEHOT_SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
-@pytest.mark.parametrize("lanes,n", [(1, 1), (3, 257), (2, 70_000)])
-@pytest.mark.parametrize("density", [0.3, 0.9])
-def test_query_onehot(dev, spec, lanes, n, density):
+@pytest.mark.parametrize("lanes,n", [(1, 1), (1, 3), (1, 255), (1, 168_335), (3, 257),
+                                     (2, 70_000)])
+@pytest.mark.parametrize("image", ["0.3", "0.9", "zeros", "ones"])
+def test_query_onehot(dev, spec, lanes, n, image):
+    """B8b against its plain version: one address, fewer addresses than a
+    block's threads, more than one block a lane, the seed path's 168,335
+    lines, L > 1 with lanes one after another in ``addrs``, random images
+    whose answers must vary, and all-zero / all-one images (every address
+    fails at its first segment, or hashes all M)."""
     g = _gen(dev, lanes * n + spec.num_segments)
     addrs = torch.randint(-2**31, 2**31 - 1, (lanes, n), generator=g, device=dev,
                           dtype=torch.int32)
-    bits = torch.rand((lanes, spec.sig_bits), generator=g, device=dev) < density
+    bits = _image(image, lanes, spec.sig_bits, dev, g)
     got = K8.bloom_query_onehot(spec, bits, addrs)
     want = K8.bloom_query_onehot_plain(spec, bits, addrs)
     assert torch.equal(got, want)
-    if n > 1000:
+    if image == "zeros":
+        assert not got.any()
+    elif image == "ones":
+        assert got.all()
+    elif n > 1000:
         assert 0 < int(want.sum()) < want.numel()  # the answers vary
+
+
+def test_query_onehot_offset_rows_and_lanes(dev):
+    """Addresses and images that start off a 16-byte boundary take the
+    scalar paths; lanes stay independent."""
+    spec = default_spec()
+    g = _gen(dev, 11)
+    big = torch.randint(-2**31, 2**31 - 1, (1, 5001), generator=g, device=dev,
+                        dtype=torch.int32)
+    addrs = big[:, 1:]                         # contiguous, 4 bytes in
+    img = torch.rand((1, spec.sig_bits + 1), generator=g, device=dev) < 0.8
+    bits = img[:, 1:]                          # contiguous, 1 byte in
+    assert addrs.is_contiguous() and bits.is_contiguous()
+    assert torch.equal(K8.bloom_query_onehot(spec, bits, addrs),
+                       K8.bloom_query_onehot_plain(spec, bits, addrs))
+    lanes = torch.randint(-2**31, 2**31 - 1, (4, 999), generator=g, device=dev,
+                          dtype=torch.int32)
+    images = torch.rand((4, spec.sig_bits), generator=g, device=dev) < 0.85
+    both = K8.bloom_query_onehot(spec, images, lanes)
+    for lane in range(4):
+        assert torch.equal(both[lane:lane + 1], K8.bloom_query_onehot(
+            spec, images[lane:lane + 1], lanes[lane:lane + 1]))
 
 
 def test_onehot_launch_counts_and_device_checks(dev):
