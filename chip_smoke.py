@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero before the final line:
    ``bloom_onehot.cu``, ``lazy_merge.cu``, ``flash_attention.cu``,
    ``flash_attention_sm90.cu``) with ``nvcc`` for sm_90a, one process each,
    started together, into the gitignored ``build/``; print what
-   ``cudaFuncGetAttributes`` reads from the loaded ``bloom_query`` and
-   ``bloom_query_onehot`` kernels (both builds of each: the paper's geometry
+   ``cudaFuncGetAttributes`` reads from the loaded ``bloom_query``,
+   ``bloom_query_onehot``, ``bloom_insert`` (id and bitmap forms) and
+   ``bloom_insert_onehot`` kernels (both builds of each: the paper's geometry
    fixed, and any; local memory must be 0) and from the sm90 flash attention
    kernel at each head dim (registers and local memory, i.e. spills and
    stack, a thread; static and dynamic shared memory a block); then the
@@ -30,13 +31,22 @@ Phases, in order; any failure exits non-zero before the final line:
    ``bloom_query`` is held on every window with one bitmap and with two
    (``present`` and ``dirty``), and timed both ways; its bound counts the
    bitmaps read and written and the signature against the parity hash's
-   operations for the set lines (the old bound printed beside it);
+   operations for the set lines (the old bound printed beside it).
+   ``bloom_insert`` is held on every window's read list alone and paired
+   with its write list, and in bank mode on ``dirty`` alone and paired with
+   a window's ``conc``; it is timed at the window's shapes as the id list,
+   the id pair, the bank and the bank pair (no fill in either); each
+   timing prints its bound (the parity hash's operations against the
+   bytes), the launch floor and, on its text line only, the previous
+   design's reading kept in ``PERF.md``;
 4. Fig. 7 path — ``Study(all_workloads())`` with all six mechanisms on
    ``engine="batch"`` and ``engine="sequential"``, launch counts set to 0
    just before and read just after each run; ``bloom_query`` must launch
    exactly twice a window of each LazyPIM dispatch (``QUERIES_PER_WINDOW``;
    the windows of each geometry bucket in the batch engine, of each point
-   in the sequential one); the engines must agree on
+   in the sequential one), and ``bloom_insert`` exactly twice a window
+   (``INSERTS_PER_WINDOW``: the two images, the two banks); the engines must
+   agree on
    every field and ``pagerank-arxiv`` / ``htap128`` must match the goldens
    in ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
 5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
@@ -44,27 +54,34 @@ Phases, in order; any failure exits non-zero before the final line:
 6. seed path — the seed reference engine ``run_all_bool`` over the same 12
    workloads at full scale (default ``SignatureSpec`` and ``HWParams``),
    one trace at a time, counted and tapped: every ``bloom_insert_onehot``
-   / ``bloom_query_onehot`` call held to its plain version (exact), every
+   / ``bloom_query_onehot`` call held to its plain version (exact; an
+   insert call answers both of a window's images), ``bloom_insert_onehot``
+   launched exactly once a LazyPIM window, every
    field of the 12 x 6 results equal to the packed sequential engine's of
    phase 4, the goldens held; the full-commit and no-DBI LazyPIM ablations
    on ``pagerank-arxiv`` and ``htap128`` against the packed engine; those
    two workloads once more under ``torch.profiler`` for the idle share
    (against their wall time in the counted run);
 7. the two B8 kernels timed as in phase 3 at the seed path's shapes, on
-   inputs it gave them (bound: bytes, or the hash's operations this data
-   needs at 67 Top/s — the insert's xor-fold rounds, the query's parity
-   columns up to each address's first clear bit, with the xor-fold bound
-   printed beside it);
+   inputs it gave them, the insert alone and as the window's pair (bound:
+   bytes, or the parity hash's operations this data needs at 67 Top/s —
+   every column for the insert, the columns up to each address's first
+   clear bit for the query, with the query's xor-fold bound printed beside
+   it; the insert also prints the launch floor and, on its text line
+   only, the previous design's reading);
 8. signatures — ``benchmarks/bench_signatures.py`` on the card: B1
    against the xor-fold hash at batch 4,096, B8 against B2 / B3 at batch
-   1,024, B5 against the two-pass PyTorch path (G = 4); every pair
+   1,024 (both inserts now hash with the parity form and share one kernel,
+   so that pair compares B8a's incoming-signature OR with B2's plain
+   image), B5 against the two-pass PyTorch path (G = 4); every pair
    bit-exact; one ``{"signatures": ...}`` line, no file written;
 9. capture path — ``Study(["capture/lazy_embed"])`` (the live LazySync
    protocol recorded at its default scale: vocab 24,000, 48,000 lines in
    the 65,536-line bucket, 24 kernels x 3 steps) with all six mechanisms on
    both engines, held against the port's own ``device="cpu"`` run of the
    same study (event counts exact, ratios 1e-6, raw 1e-4); all six kernels
-   must launch, ``bloom_query`` twice a LazyPIM window; every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
+   must launch, ``bloom_query`` and ``bloom_insert`` twice a LazyPIM window;
+   every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
    protocol made is held against its plain version on its own inputs;
 10. LazySync at qwen3-4b width — ``LazyEmbed(get_config("qwen3_4b"),
    LazySyncConfig())`` (G = 4, vocab 151,936, d_model 2,560, bf16, 2,048-bit
@@ -89,8 +106,8 @@ Phases, in order; any failure exits non-zero before the final line:
    loop at its default scale: 500 pages, batch 24, 24 kernels x 3 steps)
    with all six mechanisms on both engines, each held to one
    ``device="cpu"`` run of the port (the engines agree bit for bit) at the
-   same tolerances; B1–B4 must launch, ``bloom_query`` twice a LazyPIM
-   window;
+   same tolerances; B1–B4 must launch, ``bloom_query`` and ``bloom_insert``
+   twice a LazyPIM window;
 13. qwen3-4b prefill — ``get_config("qwen3_4b")`` at full width and depth
    (36 layers, ~4.02 B parameters, ~8.0 GB in bf16) initialised on the card
    from a seeded generator; ``make_prefill_step`` on 4 prompts of 4,096
@@ -121,10 +138,12 @@ Phases, in order; any failure exits non-zero before the final line:
    rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
    the general route's own path;
 17. the ``kernels`` JSON line (ten kernels: B7 once a route, as
-   ``flash_attention_general`` and ``flash_attention_sm90``; ``bloom_query``
-   and ``bloom_query_onehot`` also carry the launch floor and their old
-   bound, ``bloom_query`` its two-bitmap timing as ``pair``), then the
-   result line.
+   ``flash_attention_general`` and ``flash_attention_sm90``; the four
+   redesigned Bloom kernels also carry the launch floor, the queries their
+   old bound, ``bloom_query`` its two-bitmap timing as ``pair``,
+   ``bloom_insert`` its pair, bank and bank pair timings and
+   ``bloom_insert_onehot`` its pair; every number in the line but the
+   bounds measured in this run), then the result line.
 
 float32 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False) wherever float32
@@ -188,8 +207,18 @@ SEED_PROFILE_WORKLOADS = SEED_ABLATION_WORKLOADS
 XORFOLD_OPS = 3  # a shift-and bit test, a select and an XOR per round
 PARITY_OPS = 3   # an AND, a POPC and a bit insert per column mask
 # The LazyPIM window asks each signature image once for two bitmaps: two
-# bloom_query launches a window of each LazyPIM dispatch.
+# bloom_query launches a window of each LazyPIM dispatch; it builds its two
+# images from one bloom_insert launch and its two CPUWriteSet banks from
+# another; the seed window builds its two images from one B8a launch.
 QUERIES_PER_WINDOW = 2
+INSERTS_PER_WINDOW = 2
+# The previous insert designs' per-call readings at the shapes timed here
+# (PERF.md §6): the id list (3 x 256), the bank of one bitmap with the zero
+# fill it needed, B8a at (1, 256).  Printed beside this run's timings for
+# comparison, never reported as this run's.
+PREVIOUS_MS = {"bloom_insert": 0.00574, "bloom_insert bank": 0.00911,
+               "bloom_insert_onehot": 0.00642}
+PREVIOUS_CARD = "PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W"
 SIG_HASH_BATCH, SIG_KERNEL_BATCH, SIG_LINES = 4096, 1024, 65_536
 SIG_GROUPS, SIG_IDS_PER_GROUP = 4, 256
 FIG7_KERNELS = ("h3_hash", "bloom_insert", "bloom_query", "bloom_intersect")
@@ -292,8 +321,13 @@ def build():
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
           f"parallel)", flush=True)
-    for name, mod in (("bloom_query", K), ("bloom_query_onehot", K8)):
-        for build_of, a in mod.query_attributes().items():
+    attributes = [("bloom_query", K.query_attributes()),
+                  ("bloom_query_onehot", K8.query_attributes()),
+                  ("bloom_insert_onehot", K8.insert_attributes())]
+    attributes += [(f"bloom_insert {form} form", builds)
+                   for form, builds in K.insert_attributes().items()]
+    for name, builds in attributes:
+        for build_of, a in builds.items():
             print(f"{name} ({build_of} geometry): {a['registers']} registers and "
                   f"{a['local_bytes']} bytes of local memory a thread, "
                   f"{a['static_smem_bytes']} bytes of static shared memory a block",
@@ -372,21 +406,38 @@ def launch_floor_ms() -> float:
     return ms
 
 
+def lazypim_windows(study, rs, engine: str) -> int:
+    """The windows the LazyPIM dispatches of a run walk: one dispatch a
+    geometry bucket (its padded windows) in the batch engine, one a point
+    in the sequential one."""
+    check("lazypim" in study.mechanisms, "no LazyPIM dispatch")
+    if engine == "batch":
+        return sum(b["num_windows"] for b in study.plan().buckets)
+    per_trace = {tt.name: tt.num_windows for tt in study.traces()}
+    return sum(per_trace[p.workload] for p in rs)
+
+
 def check_query_launches(label: str, study, rs, engine: str, counts: dict) -> int:
     """``bloom_query`` must launch exactly ``QUERIES_PER_WINDOW`` times a
-    window of each LazyPIM dispatch: one dispatch a geometry bucket (its
-    padded windows) in the batch engine, one a point in the sequential one.
-    Returns the expected count."""
-    check("lazypim" in study.mechanisms, f"{label}: no LazyPIM dispatch")
-    if engine == "batch":
-        windows = sum(b["num_windows"] for b in study.plan().buckets)
-    else:
-        per_trace = {tt.name: tt.num_windows for tt in study.traces()}
-        windows = sum(per_trace[p.workload] for p in rs)
+    window of each LazyPIM dispatch.  Returns the expected count."""
+    windows = lazypim_windows(study, rs, engine)
     want = QUERIES_PER_WINDOW * windows
     check(counts["bloom_query"] == want,
           f"{label}: {counts['bloom_query']} bloom_query launches, want {want} "
           f"({QUERIES_PER_WINDOW} a window over {windows} LazyPIM windows)")
+    return want
+
+
+def check_insert_launches(label: str, study, rs, engine: str, counts: dict) -> int:
+    """``bloom_insert`` must launch exactly ``INSERTS_PER_WINDOW`` times a
+    window of each LazyPIM dispatch: the read and write images from one
+    launch, the ``cpuws`` and ``conc`` banks from another.  Returns the
+    expected count."""
+    windows = lazypim_windows(study, rs, engine)
+    want = INSERTS_PER_WINDOW * windows
+    check(counts["bloom_insert"] == want,
+          f"{label}: {counts['bloom_insert']} bloom_insert launches, want {want} "
+          f"({INSERTS_PER_WINDOW} a window over {windows} LazyPIM windows)")
     return want
 
 
@@ -416,7 +467,7 @@ def measure(label: str, err: float, fn, plain, args: tuple, nbytes: float,
                 input_sets=len(sets))
 
 
-def kernel_phases(K) -> dict[str, dict]:
+def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
     """Each kernel against its plain version on the main path's data: the
     HTAP geometry bucket (htap128/192/256 padded to 262,144 lines, 72
     windows of 256 PIM slots).  Exactness is checked on every window of
@@ -476,25 +527,85 @@ def kernel_phases(K) -> dict[str, dict]:
            ops=LINES * M * (2 * S - 1))
 
     phase("kernel bloom_insert")
+    log_seg = spec.seg_bits.bit_length() - 1
+    hash_ops = M * log_seg * PARITY_OPS  # the parity form's operations a line
     all_ids = st.pim_reads.reshape(L * W, SLOTS)  # every window of every lane
     all_valid = st.pim_r_valid.reshape(L * W, SLOTS)
-    sigs = K.bloom_insert(tabs, NW, ids=all_ids, valid=all_valid)
-    err = exact("bloom_insert", sigs,
-                K.bloom_insert_plain(tabs, NW, ids=all_ids, valid=all_valid))
-    bank = K.bloom_insert(tabs, NW, bitmap=dirty, num_lines=LINES, num_regs=16)
-    exact("bloom_insert (bank mode)", bank, K.bloom_insert_plain(
-        tabs, NW, bitmap=dirty, num_lines=LINES, num_regs=16))
+    all_wids = st.pim_writes.reshape(L * W, SLOTS)
+    all_wvalid = st.pim_w_valid.reshape(L * W, SLOTS)
+    sigs = K.bloom_insert(spec, ids=all_ids, valid=all_valid)
+    err = exact("bloom_insert", sigs, K.bloom_insert_plain(spec, ids=all_ids, valid=all_valid))
+    got = K.bloom_insert(spec, ids=all_ids, valid=all_valid, ids_b=all_wids,
+                         valid_b=all_wvalid)
+    want = K.bloom_insert_plain(spec, ids=all_ids, valid=all_valid, ids_b=all_wids,
+                                valid_b=all_wvalid)
+    err_pair = max(exact("bloom_insert (id pair, reads)", got[0], want[0]),
+                   exact("bloom_insert (id pair, writes)", got[1], want[1]))
+    # a window's conc bitmap: the lines the processor writes in window 0
+    conc = scatter_set(zeros, st.cpu_writes[:, 0], st.cpu_w_valid[:, 0], LINES)
+    n_conc = int(popcount_words(conc).sum())
+    bank = K.bloom_insert(spec, bitmap=dirty, num_lines=LINES, num_regs=16)
+    err_bank = exact("bloom_insert (bank mode)", bank, K.bloom_insert_plain(
+        spec, bitmap=dirty, num_lines=LINES, num_regs=16))
+    got = K.bloom_insert(spec, bitmap=dirty, bitmap_b=conc, num_lines=LINES, num_regs=16)
+    want = K.bloom_insert_plain(spec, bitmap=dirty, bitmap_b=conc, num_lines=LINES,
+                                num_regs=16)
+    err_bank_pair = max(exact("bloom_insert (bank pair, dirty)", got[0], want[0]),
+                        exact("bloom_insert (bank pair, conc)", got[1], want[1]))
     ids, valid = st.pim_reads[:, 0].contiguous(), st.pim_r_valid[:, 0].contiguous()
-    n_valid = int(valid.sum())
-    record("bloom_insert", err, lambda i, v: K.bloom_insert(tabs, NW, ids=i, valid=v),
-           lambda i, v: K.bloom_insert_plain(tabs, NW, ids=i, valid=v), (ids, valid),
-           nbytes=ids.numel() * 5 + L * NW * 4 + tabs.numel() * 4,
-           ops=n_valid * M * (2 * S + 2))
-    bank_ms = event_ms(lambda d: K.bloom_insert(tabs, NW, bitmap=d, num_lines=LINES,
-                                                num_regs=16),
-                       rotations((dirty,), 200), 200)
-    print(f"bloom_insert bank mode ({n_dirty} dirty lines in {L} lanes): exact; "
-          f"per call (CUDA events) {bank_ms:.5f} ms incl. its zero fill", flush=True)
+    wids, wvalid = st.pim_writes[:, 0].contiguous(), st.pim_w_valid[:, 0].contiguous()
+    n_valid, n_wvalid = int(valid.sum()), int(wvalid.sum())
+    img_bytes, bank_bytes = L * NW * 4, L * 16 * NW * 4
+
+    def timed(label, err, fn, plain, args, nbytes, ops, previous=None):
+        st_ = measure(label, err, fn, plain, args, nbytes, ops)
+        prev = "" if previous is None else (f"; {previous} ({PREVIOUS_CARD})")
+        print(f"{label}: launch floor {floor_ms:.5f} ms ({st_['ms'] / floor_ms:.2f}x "
+              f"it){prev}", flush=True)
+        return st_
+
+    prev = PREVIOUS_MS["bloom_insert"]
+    single = timed(f"bloom_insert ({L} x {SLOTS} ids, {n_valid} valid)", err,
+                   lambda i, v: K.bloom_insert(spec, ids=i, valid=v),
+                   lambda i, v: K.bloom_insert_plain(spec, ids=i, valid=v), (ids, valid),
+                   nbytes=ids.numel() * 5 + img_bytes, ops=n_valid * hash_ops,
+                   previous=f"previous design's reading {prev:.5f} ms")
+    old_bound, old_by = bound_ms(ids.numel() * 5 + img_bytes + tabs.numel() * 4,
+                                 n_valid * M * (2 * S + 2))
+    print(f"bloom_insert: old bound {old_bound:.7f} ms ({old_by}; the staged tables "
+          f"counted)", flush=True)
+    pair = timed(f"bloom_insert id pair ({L} x {SLOTS} ids twice, {n_valid} and "
+                 f"{n_wvalid} valid)", err_pair,
+                 lambda i, v, j, w: K.bloom_insert(spec, ids=i, valid=v, ids_b=j, valid_b=w),
+                 lambda i, v, j, w: K.bloom_insert_plain(spec, ids=i, valid=v, ids_b=j,
+                                                         valid_b=w),
+                 (ids, valid, wids, wvalid), nbytes=2 * ids.numel() * 5 + 2 * img_bytes,
+                 ops=(n_valid + n_wvalid) * hash_ops,
+                 previous=f"previous design's reading for one list {prev:.5f} ms")
+    prev = PREVIOUS_MS["bloom_insert bank"]
+    bank_one = timed(f"bloom_insert bank ({L} x {LINES} lines, {n_dirty} set, 16 "
+                     f"registers, no fill)", err_bank,
+                     lambda d: K.bloom_insert(spec, bitmap=d, num_lines=LINES, num_regs=16),
+                     lambda d: K.bloom_insert_plain(spec, bitmap=d, num_lines=LINES,
+                                                    num_regs=16),
+                     (dirty,), nbytes=dirty.numel() * 4 + bank_bytes,
+                     ops=n_dirty * hash_ops,
+                     previous=f"previous design's reading {prev:.5f} ms with its fill")
+    bank_pair = timed(f"bloom_insert bank pair ({L} x {LINES} lines twice, {n_dirty} and "
+                      f"{n_conc} set, no fill)", err_bank_pair,
+                      lambda d, c: K.bloom_insert(spec, bitmap=d, bitmap_b=c,
+                                                  num_lines=LINES, num_regs=16),
+                      lambda d, c: K.bloom_insert_plain(spec, bitmap=d, bitmap_b=c,
+                                                        num_lines=LINES, num_regs=16),
+                      (dirty, conc), nbytes=2 * dirty.numel() * 4 + 2 * bank_bytes,
+                      ops=(n_dirty + n_conc) * hash_ops,
+                      previous=f"previous design's reading {prev:.5f} ms for one bank "
+                               f"with its fill, two such calls a window")
+    out["bloom_insert"] = dict(single, old_bound_ms=old_bound, pair=pair, bank=bank_one,
+                               bank_pair=bank_pair,
+                               shape=dict(L=L, slots=SLOTS, valid=n_valid,
+                                          write_valid=n_wvalid, num_lines=LINES,
+                                          dirty_lines=n_dirty, conc_lines=n_conc))
 
     phase("kernel bloom_query")
     sigs = sigs[:, 0].contiguous()                          # (L * W, NW)
@@ -507,7 +618,6 @@ def kernel_phases(K) -> dict[str, dict]:
     exact("bloom_query (pair, first bitmap)", got[0], want[0])
     exact("bloom_query (pair, second bitmap)", got[1], want[1])
     read_sig = sigs.reshape(L, W, NW)[:, 0].contiguous()
-    log_seg = spec.seg_bits.bit_length() - 1
 
     def query_ops(words):
         """Parity operations the lines set in ``words`` need: every column
@@ -609,6 +719,7 @@ def main_path(K) -> dict[str, dict[str, int]]:
             check(counts[engine][name] > 0,
                   f"{engine}: kernel {name} was never launched")
         check_query_launches(f"Fig. 7/{engine}", study, rs, engine, counts[engine])
+        check_insert_launches(f"Fig. 7/{engine}", study, rs, engine, counts[engine])
         check(len(rs) == 12, f"{engine}: {len(rs)} points, want 12")
         for p in rs:
             for m, r in p.results.items():
@@ -684,9 +795,9 @@ class OnehotTap:
         self._orig = (P.bloom_insert_onehot, P.bloom_query_onehot)
         insert, query = self._orig
 
-        def tapped_insert(spec, sig, addrs, mask=None):
-            out = insert(spec, sig, addrs, mask)
-            self.inserts.append((spec, sig, addrs, mask, out))
+        def tapped_insert(spec, sig, addrs, mask=None, **pair):
+            out = insert(spec, sig, addrs, mask, **pair)
+            self.inserts.append((spec, sig, addrs, mask, pair, out))
             return out
 
         def tapped_query(spec, bits, addrs):
@@ -709,9 +820,10 @@ class OnehotTap:
         from repro_torch.kernels.bloom import onehot as K8
 
         err = 0
-        for spec, sig, addrs, mask, out in self.inserts:
-            want = K8.bloom_insert_onehot_plain(spec, sig, addrs, mask)
-            err = max(err, int((out.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        for spec, sig, addrs, mask, pair, out in self.inserts:
+            want = K8.bloom_insert_onehot_plain(spec, sig, addrs, mask, **pair)
+            for got, ref in zip(out, want) if pair else ((out, want),):
+                err = max(err, int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()))
         for spec, bits, addrs, out in self.queries:
             want = K8.bloom_query_onehot_plain(spec, bits, addrs)
             err = max(err, int((out != want).sum()))
@@ -775,6 +887,12 @@ def seed_path(sequential) -> tuple[dict, dict, OnehotTap]:
           f"ablation runs in {ablation_wall:.2f} s; launches {counts}", flush=True)
     for name in SEED_KERNELS:
         check(counts[name] > 0, f"seed: kernel {name} was never launched")
+    # one LazyPIM run a trace in run_all_bool, two an ablation workload
+    windows = sum(tt.num_windows * (1 + 2 * (tt.name in SEED_ABLATION_WORKLOADS))
+                  for tt in traces)
+    check(counts["bloom_insert_onehot"] == windows,
+          f"seed: {counts['bloom_insert_onehot']} bloom_insert_onehot launches, want "
+          f"{windows} (one a LazyPIM window)")
     n_fields = 0
     for tt, res in zip(traces, results):
         want = packed[tt.name].results
@@ -799,7 +917,8 @@ def seed_path(sequential) -> tuple[dict, dict, OnehotTap]:
           f"{len(results)} x 6 results and on the {len(ablations)} ablation runs "
           f"({', '.join(SEED_ABLATION_WORKLOADS)}: partial_commits=False, "
           f"use_dbi=False); goldens {GOLDEN_WORKLOADS} hold (worst rel gap "
-          f"{worst:.3g}); {len(tap.inserts)} bloom_insert_onehot and "
+          f"{worst:.3g}); bloom_insert_onehot launched once a LazyPIM window "
+          f"({windows} windows); {len(tap.inserts)} bloom_insert_onehot and "
           f"{len(tap.queries)} bloom_query_onehot calls equal their plain "
           f"versions", flush=True)
 
@@ -823,15 +942,15 @@ def seed_path(sequential) -> tuple[dict, dict, OnehotTap]:
     return counts, summary, tap
 
 
-def onehot_kernel_phases(tap: OnehotTap) -> dict[str, dict]:
+def onehot_kernel_phases(tap: OnehotTap, floor_ms: float) -> dict[str, dict]:
     """B8 timed at the seed path's shapes, on inputs it gave the kernels:
-    the insert with the most valid slots and the query over the most lines.
-    Bound: bytes over 3.35 TB/s or the hash's operations over 67 Top/s,
-    the larger: for the insert the xor-fold's (``addr_bits`` rounds of
-    ``XORFOLD_OPS`` for every segment of a valid address), for the query the
-    parity form's (``log2 seg_bits`` columns of ``PARITY_OPS`` for each
-    segment up to an address's first clear bit, where the kernel stops),
-    with the xor-fold bound of earlier runs printed beside it."""
+    the insert call with the most valid slots in its first list (alone, and
+    as the window's pair of lists) and the query over the most lines.
+    Bound: bytes over 3.35 TB/s or the parity hash's operations over 67
+    Top/s, the larger: ``log2 seg_bits`` columns of ``PARITY_OPS`` for
+    every segment of a valid address for the insert, for each segment up
+    to an address's first clear bit (where the kernel stops) for the query,
+    with the query's xor-fold bound of earlier runs printed beside it."""
     import torch
 
     from repro_torch.core.signatures import hash_positions_xorfold
@@ -839,22 +958,47 @@ def onehot_kernel_phases(tap: OnehotTap) -> dict[str, dict]:
 
     out = {}
     phase("kernel bloom_insert_onehot")
-    spec, sig, addrs, mask, _ = max(tap.inserts, key=lambda r: int(r[3].sum()))
-    got = K8.bloom_insert_onehot(spec, sig, addrs, mask)
-    err = int((got.to(torch.int64) - K8.bloom_insert_onehot_plain(
-        spec, sig, addrs, mask).to(torch.int64)).abs().max())
+    spec, _, addrs, mask, pair, _ = max(tap.inserts, key=lambda r: int(r[3].sum()))
+    addrs_b, mask_b = pair["addrs_b"], pair["mask_b"]
+
+    def max_err(got, want):
+        return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+    err = max_err(K8.bloom_insert_onehot(spec, None, addrs, mask),
+                  K8.bloom_insert_onehot_plain(spec, None, addrs, mask))
     check(err == 0, "bloom_insert_onehot: kernel disagrees with plain version")
+    got = K8.bloom_insert_onehot(spec, None, addrs, mask, addrs_b=addrs_b, mask_b=mask_b)
+    want = K8.bloom_insert_onehot_plain(spec, None, addrs, mask, addrs_b=addrs_b,
+                                        mask_b=mask_b)
+    err_pair = max(max_err(g, w) for g, w in zip(got, want))
+    check(err_pair == 0, "bloom_insert_onehot pair: kernel disagrees with plain version")
     lanes, n = addrs.shape
-    n_valid = int(mask.sum())
-    m, ab, nw = spec.num_segments, spec.addr_bits, spec.num_words
+    n_valid, n_valid_b = int(mask.sum()), int(mask_b.sum())
+    m, nw = spec.num_segments, spec.num_words
+    hash_ops = m * (spec.seg_bits.bit_length() - 1) * PARITY_OPS
+    previous = PREVIOUS_MS["bloom_insert_onehot"]
     st = measure(f"bloom_insert_onehot (L={lanes}, N={n}, {n_valid} valid, "
                  f"{spec.sig_bits} bits, M={m})", err,
-                 lambda s, a, k: K8.bloom_insert_onehot(spec, s, a, k),
-                 lambda s, a, k: K8.bloom_insert_onehot_plain(spec, s, a, k),
-                 (sig, addrs, mask), nbytes=n * 5 + 2 * lanes * nw * 4 + m * ab * 4,
-                 ops=n_valid * m * ab * XORFOLD_OPS)
-    out["bloom_insert_onehot"] = dict(st, shape=dict(L=lanes, N=n, valid=n_valid,
-                                                     sig_bits=spec.sig_bits, M=m))
+                 lambda a, k: K8.bloom_insert_onehot(spec, None, a, k),
+                 lambda a, k: K8.bloom_insert_onehot_plain(spec, None, a, k),
+                 (addrs, mask), nbytes=lanes * n * 5 + lanes * nw * 4,
+                 ops=n_valid * hash_ops)
+    pair_st = measure(f"bloom_insert_onehot pair (L={lanes}, N={n} twice, {n_valid} and "
+                      f"{n_valid_b} valid)", err_pair,
+                      lambda a, k, b, j: K8.bloom_insert_onehot(spec, None, a, k, addrs_b=b,
+                                                                mask_b=j),
+                      lambda a, k, b, j: K8.bloom_insert_onehot_plain(
+                          spec, None, a, k, addrs_b=b, mask_b=j),
+                      (addrs, mask, addrs_b, mask_b),
+                      nbytes=lanes * (n + addrs_b.shape[1]) * 5 + 2 * lanes * nw * 4,
+                      ops=(n_valid + n_valid_b) * hash_ops)
+    print(f"bloom_insert_onehot: launch floor {floor_ms:.5f} ms ({st['ms'] / floor_ms:.2f}x "
+          f"it, the pair {pair_st['ms'] / floor_ms:.2f}x); previous design's reading "
+          f"{previous:.5f} ms a single call ({PREVIOUS_CARD})", flush=True)
+    out["bloom_insert_onehot"] = dict(st, pair=pair_st,
+                                      shape=dict(L=lanes, N=n, valid=n_valid,
+                                                 pair_valid=n_valid_b,
+                                                 sig_bits=spec.sig_bits, M=m))
 
     phase("kernel bloom_query_onehot")
     spec, bits, addrs, _ = max(tap.queries, key=lambda r: r[2].shape[1])
@@ -935,14 +1079,14 @@ def signatures_phase(K, card: str) -> dict:
     valid = torch.ones_like(ids, dtype=torch.bool)
     sig0 = torch.zeros((1, nw), dtype=torch.int32, device=dev)
     onehot_sig = K8.bloom_insert_onehot(spec, sig0, ids, valid)
-    word_sig = K.bloom_insert(tabs, nw, ids=ids, valid=valid)[:, 0]
+    word_sig = K.bloom_insert(spec, ids=ids, valid=valid)[:, 0]
     check(torch.equal(onehot_sig, word_sig) and torch.equal(
         onehot_sig, K8.bloom_insert_onehot_plain(spec, sig0, ids, valid)),
         "signatures: one-hot insert != word-level insert / plain")
     out["insert"] = pair(
         f"insert (batch {SIG_KERNEL_BATCH})", "onehot_ms",
         ms(lambda s, a, v: K8.bloom_insert_onehot(spec, s, a, v), sig0, ids, valid),
-        "word_ms", ms(lambda a, v: K.bloom_insert(tabs, nw, ids=a, valid=v), ids, valid),
+        "word_ms", ms(lambda a, v: K.bloom_insert(spec, ids=a, valid=v), ids, valid),
         batch=SIG_KERNEL_BATCH, ids_below=SIG_LINES)
 
     probes = torch.cat([ids[0, :SIG_KERNEL_BATCH // 2],
@@ -1120,6 +1264,7 @@ def capture_path() -> tuple[dict, dict, KernelTap]:
             check(counts[engine][name] > 0,
                   f"capture/{engine}: kernel {name} was never launched")
         check_query_launches(f"capture/{engine}", study, rs, engine, counts[engine])
+        check_insert_launches(f"capture/{engine}", study, rs, engine, counts[engine])
         t0 = time.perf_counter()
         cpu = Study([CAPTURE_APP], device="cpu").run(engine=engine)
         cpu_wall = time.perf_counter() - t0
@@ -1425,6 +1570,7 @@ def kv_serve_path() -> tuple[dict, dict]:
             check(counts[engine][name] > 0,
                   f"kv_serve/{engine}: kernel {name} was never launched")
         check_query_launches(f"kv_serve/{engine}", study, rs, engine, counts[engine])
+        check_insert_launches(f"kv_serve/{engine}", study, rs, engine, counts[engine])
         worst = compare_results(rs, cpu, f"kv_serve/{engine}")
         print(f"{engine}: {KV_APP} x {len(MECHANISMS)} mechanisms in "
               f"{walls[engine]:.2f} s wall; launches {counts[engine]}; equals the "
@@ -1785,11 +1931,11 @@ def main() -> int:
         print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
               f"{torch.backends.cudnn.allow_tf32}", flush=True)
         floor_ms = launch_floor_ms()
-        stats = kernel_phases(K)
+        stats = kernel_phases(K, floor_ms)
         counts, walls, sequential = main_path(K)
         profile = main_path_profile(walls["batch"])
         seed_counts, seed, seed_tap = seed_path(sequential)
-        stats.update(onehot_kernel_phases(seed_tap))
+        stats.update(onehot_kernel_phases(seed_tap, floor_ms))
         del seed_tap, sequential
         signatures = signatures_phase(K, card)
         cap_counts, cap_walls, cap_tap = capture_path()
@@ -1810,7 +1956,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         smoke_counts = smoke_prefill_path()
-        for name in ("bloom_query", "bloom_query_onehot"):
+        for name in ("bloom_query", "bloom_query_onehot", "bloom_insert",
+                     "bloom_insert_onehot"):
             stats[name]["launch_floor_ms"] = floor_ms
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)

@@ -62,7 +62,7 @@ from repro_torch.sim.prep import (
     members_bool,
     neutral_trace,
     scatter_set_bool,
-    sig_bits_from_ids_bool,
+    sig_bits_pair_from_ids_bool,
 )
 
 __all__ = [
@@ -298,9 +298,9 @@ def _lazypim_acc_bool(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
             cpuws = _sel(start, dirty_before, cpuws) | cw_bm
             conc = _sel(start, cw_bm, conc | cw_bm)
 
-        r_bits_w = sig_bits_from_ids_bool(tt, tt.pim_reads[:, w], tt.pim_r_valid[:, w])
-        w_bits_w = sig_bits_from_ids_bool(tt, tt.pim_writes[:, w],
-                                          tt.pim_w_valid[:, w])
+        r_bits_w, w_bits_w = sig_bits_pair_from_ids_bool(
+            tt, tt.pim_reads[:, w], tt.pim_r_valid[:, w], tt.pim_writes[:, w],
+            tt.pim_w_valid[:, w])
         r_bm_w = scatter_set_bool(_zeros(tt), tt.pim_reads[:, w], tt.pim_r_valid[:, w])
         pim_ns = _pim_compute_ns(tt, hw, w) + _pim_mem_ns(tt, hw, w)
         replay_cheap = _pim_compute_ns(tt, hw, w) + (

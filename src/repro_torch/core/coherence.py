@@ -13,11 +13,13 @@ drains dirty lines every ``dbi_interval_cycles``.
 **Kernels on the card.**  Every Bloom-signature operation of the step runs
 on a hand-written CUDA kernel (:mod:`repro_torch.kernels.bloom.bloom`):
 
-* the read/write images: ``bloom_insert`` over the window's id lists;
-* the two conflict checks: the CPUWriteSet bank from the ``cpuws`` /
-  ``conc`` bitmaps (``bloom_insert`` in bank mode) intersected with the
-  read image (``bloom_intersect``), any register — the unfused form of the
-  reference's ``conflict_from_hits``, bit-exact with it;
+* the read/write images: one ``bloom_insert`` launch over the window's two
+  id lists;
+* the two conflict checks: the CPUWriteSet banks of the ``cpuws`` and
+  ``conc`` bitmaps (one ``bloom_insert`` launch in bank mode for both)
+  each intersected with the read image (``bloom_intersect``), any
+  register — the unfused form of the reference's ``conflict_from_hits``,
+  bit-exact with it;
 * the flush / merge / invalidate membership masks: ``bloom_query``, two
   launches a window — ``(dirty, conc)`` against the read image before the
   flush, ``(dirty, present)`` against the write image after it — as the
@@ -58,7 +60,7 @@ from repro_torch.sim.prep import (
     XXH_PRIME2,
     XXH_PRIME5,
     TraceTensors,
-    bank_bits_from_bitmap,
+    bank_pair_from_bitmaps,
     conflict_any,
     cpu_cache_step,
     line_window_u01,
@@ -66,7 +68,7 @@ from repro_torch.sim.prep import (
     pack_bitmap,
     popcount_words,
     scatter_set,
-    sig_bits_from_ids,
+    sig_bits_pair_from_ids,
 )
 
 __all__ = ["LazyPIMConfig", "SimResult", "simulate_lazypim"]
@@ -108,10 +110,6 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
     dbi_interval_ns = cfg.dbi_interval_cycles / hw.freq_ghz
     zero_f = _f0(tt)
 
-    def conflict(words, read_bits):
-        bank = bank_bits_from_bitmap(tt, words, cfg.cpuws_regs)
-        return conflict_any(tt, read_bits, bank)
-
     def step(carry, w):
         (present, dirty, cpuws, conc, read_bm, read_bits, write_bits,
          replay_ns, dbi_t, acc) = carry
@@ -133,8 +131,9 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
             cpuws = _sel(start, dirty_before, cpuws) | cw_bm
             conc = _sel(start, cw_bm, conc | cw_bm)
 
-        r_bits_w = sig_bits_from_ids(tt, tt.pim_reads[:, w], tt.pim_r_valid[:, w])
-        w_bits_w = sig_bits_from_ids(tt, tt.pim_writes[:, w], tt.pim_w_valid[:, w])
+        r_bits_w, w_bits_w = sig_bits_pair_from_ids(
+            tt, tt.pim_reads[:, w], tt.pim_r_valid[:, w], tt.pim_writes[:, w],
+            tt.pim_w_valid[:, w])
         r_bm_w = scatter_set(_zwords(tt), tt.pim_reads[:, w],
                              tt.pim_r_valid[:, w], n)
         pim_ns = _pim_compute_ns(tt, hw, w) + _pim_mem_ns(tt, hw, w)
@@ -154,11 +153,13 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
             commit = tt.kernel_end[:, w]
 
         # --- commit / conflict detection ------------------------------------
-        c1 = conflict(cpuws, read_bits) & commit
+        # Both conflict checks' CPUWriteSet banks from one launch.
+        bank_cpuws, bank_conc = bank_pair_from_bitmaps(tt, cpuws, conc, cfg.cpuws_regs)
+        c1 = conflict_any(tt, read_bits, bank_cpuws) & commit
         exact = ((cpuws & read_bm) != 0).any(1) & commit
         # Fresh concurrent writes can conflict again during the replay; after
         # max_rollbacks the conflicting lines are locked (§5.5).
-        c2 = conflict(conc, read_bits)
+        c2 = conflict_any(tt, read_bits, bank_conc)
         rollbacks = torch.where(c1, 1.0 + torch.where(c2, 1.0, 0.0), 0.0)
 
         c1_mask = torch.where(c1, ALL_ONES, 0).to(torch.int32)[:, None]

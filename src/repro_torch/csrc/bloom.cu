@@ -15,13 +15,25 @@
 //
 // bloom_insert (ports bloom_insert_pallas, bloom.py:135): OR hashed
 //   positions into packed signatures, either from an id list with a
-//   validity mask (one block per lane) or from a packed line bitmap
-//   (register = line % R, the CPUWriteSet bank).  Bound by the bytes of
-//   its inputs.  Design: each block ORs into a private signature bank in
-//   shared memory with atomicOr (OR is order-free, so the result is
-//   deterministic) and writes it out once; bitmap blocks walk only the
-//   set bits (__ffs) and skip empty chunks before loading the tables.
-//
+//   validity mask or from a packed line bitmap (register = line % R, the
+//   CPUWriteSet bank), for one list or two (the LazyPIM window's read and
+//   write images, or its cpuws and conc banks) from one launch.  Bound by
+//   the bytes of its inputs; at the window's shapes the launch is far above
+//   both.  Design (redesigned for Hopper; the kernel is bloom_insert.cuh's,
+//   shared with bloom_insert_onehot, and its note has the details): no
+//   table staging -- the hash is the parity form of h3_parity.cuh, its
+//   column masks a __grid_constant__ parameter (built with the paper's
+//   geometry fixed, so the masks are instruction operands, and for any
+//   spec under the mask cap); the blocks of a (list, lane) form one
+//   thread-block cluster whose shared memory holds the output words, one
+//   slice a block, ORed into through distributed shared memory and stored
+//   once, so the output is allocated with torch.empty and needs no zero
+//   fill.  An id list is one block a (list, lane).  A bitmap takes a
+//   cluster of one block a 1,024 words, at most 8, so the window's
+//   262,144-line bitmaps (8,192 words) take 8 blocks a (bitmap, lane); the
+//   other design, one block a (bitmap, lane) walking all 8,192 words, was
+//   slower when both were timed at the window's bank pair shape.
+
 // bloom_query (ports bloom_query_pallas, bloom.py:205): per-line
 //   membership of the lines set in a packed bitmap, ANDed with that bitmap
 //   and packed 32 lines a word; given a second bitmap, the same membership
@@ -59,13 +71,14 @@
 //   signatures (G <= 16) are staged in shared memory once per block; a
 //   grid-stride loop over a bounded grid amortizes that staging; each
 //   thread hashes its address once per segment (the h3 device function
-//   shared with the kernels above) and tests that position in every
-//   group, so no position is stored.
+//   shared with h3_hash) and tests that position in every group, so no
+//   position is stored.
 
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bloom_insert.cuh"
 #include "h3_parity.cuh"
 
 namespace {
@@ -88,10 +101,6 @@ __device__ __forceinline__ void copy_to_shared(uint32_t* dst,
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-__device__ __forceinline__ void zero_shared(uint32_t* dst, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = 0u;
-}
-
 __global__ void h3_hash_kernel(const uint32_t* __restrict__ addrs,
                                const uint32_t* __restrict__ tabs,
                                int32_t* __restrict__ out, int n, int S, int M) {
@@ -104,77 +113,6 @@ __global__ void h3_hash_kernel(const uint32_t* __restrict__ addrs,
     for (int m = 0; m < M; ++m) {
       out[static_cast<size_t>(i) * M + m] = static_cast<int32_t>(h3(smem, a, m, S, M));
     }
-  }
-}
-
-// One block per lane: ids (L, A), valid (L, A) -> out (L, R, NW).
-__global__ void insert_ids_kernel(const int32_t* __restrict__ ids,
-                                  const uint8_t* __restrict__ valid,
-                                  const uint32_t* __restrict__ tabs,
-                                  uint32_t* __restrict__ out, int A, int S,
-                                  int M, int R, int NW) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* stab = smem;
-  uint32_t* sbank = smem + S * kByteVals * M;
-  const int lane = blockIdx.x;
-  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
-  copy_to_shared(stab, tabs, S * kByteVals * M);
-  zero_shared(sbank, R * NW);
-  __syncthreads();
-  for (int j = threadIdx.x; j < A; j += blockDim.x) {
-    const size_t k = static_cast<size_t>(lane) * A + j;
-    if (!valid[k]) continue;  // invalid slots never hash: a hashed -1 sets real bits
-    const uint32_t a = static_cast<uint32_t>(ids[k]);
-    uint32_t* reg = sbank + (a % static_cast<uint32_t>(R)) * NW;
-    for (int m = 0; m < M; ++m) {
-      const uint32_t p = h3(stab, a, m, S, M);
-      if (p < nbits) atomicOr(reg + (p >> 5), 1u << (p & 31u));
-    }
-  }
-  __syncthreads();
-  uint32_t* dst = out + static_cast<size_t>(lane) * R * NW;
-  for (int i = threadIdx.x; i < R * NW; i += blockDim.x) dst[i] = sbank[i];
-}
-
-// grid (chunks, L): bitmap (L, NWL) -> out (L, R, NW), out zeroed by the caller.
-__global__ void insert_bitmap_kernel(const uint32_t* __restrict__ bitmap,
-                                     const uint32_t* __restrict__ tabs,
-                                     uint32_t* __restrict__ out, int NWL,
-                                     int num_lines, int chunk, int S, int M,
-                                     int R, int NW) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* stab = smem;
-  uint32_t* sbank = smem + S * kByteVals * M;
-  const int lane = blockIdx.y;
-  const int w0 = blockIdx.x * chunk;
-  const int w1 = min(w0 + chunk, NWL);
-  const uint32_t* row = bitmap + static_cast<size_t>(lane) * NWL;
-  int any = 0;
-  for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) any |= row[w] != 0u;
-  if (!__syncthreads_or(any)) return;
-  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
-  copy_to_shared(stab, tabs, S * kByteVals * M);
-  zero_shared(sbank, R * NW);
-  __syncthreads();
-  for (int w = w0 + threadIdx.x; w < w1; w += blockDim.x) {
-    uint32_t bits = row[w];
-    while (bits) {
-      const uint32_t b = static_cast<uint32_t>(__ffs(bits) - 1);
-      bits &= bits - 1u;
-      const uint32_t line = static_cast<uint32_t>(w) * 32u + b;
-      if (line >= static_cast<uint32_t>(num_lines)) break;  // later bits are further out
-      uint32_t* reg = sbank + (line % static_cast<uint32_t>(R)) * NW;
-      for (int m = 0; m < M; ++m) {
-        const uint32_t p = h3(stab, line, m, S, M);
-        if (p < nbits) atomicOr(reg + (p >> 5), 1u << (p & 31u));
-      }
-    }
-  }
-  __syncthreads();
-  uint32_t* dst = out + static_cast<size_t>(lane) * R * NW;
-  for (int i = threadIdx.x; i < R * NW; i += blockDim.x) {
-    const uint32_t v = sbank[i];
-    if (v) atomicOr(dst + i, v);
   }
 }
 
@@ -280,8 +218,6 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-int chunks_of(int nwl) { return (nwl + kThreads - 1) / kThreads; }
-
 template <int MC, int LOGC>
 int query_launch(const void* sig, const void* words_a, const void* words_b,
                  const void* columns, void* out_a, void* out_b, int L, int NWL,
@@ -322,32 +258,37 @@ int h3_hash_launch(const void* addrs, const void* tabs, void* out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int bloom_insert_ids_launch(const void* ids, const void* valid, const void* tabs,
-                            void* out, int L, int A, int S, int M, int R,
-                            int NW, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(R) * NW) *
-      sizeof(uint32_t);
-  if (int rc = set_smem(insert_ids_kernel, smem)) return rc;
-  insert_ids_kernel<<<L, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ids), static_cast<const uint8_t*>(valid),
-      static_cast<const uint32_t*>(tabs), static_cast<uint32_t*>(out), A, S, M,
-      R, NW);
-  return static_cast<int>(cudaGetLastError());
+// k = 1 or 2 lists (ids_b / words_b and valid_b then unused or read);
+// out (k, L, R, NW).
+int bloom_insert_ids_launch(const void* ids_a, const void* valid_a, const void* ids_b,
+                            const void* valid_b, const void* columns, void* out, int k,
+                            int L, int A_a, int A_b, int M, int log_seg, int R, int NW,
+                            void* stream) {
+  const bins::Args args{ids_a, ids_b, static_cast<const uint8_t*>(valid_a),
+                        static_cast<const uint8_t*>(valid_b), nullptr,
+                        static_cast<uint32_t*>(out), L, A_a, A_b, 0, M, log_seg, R, NW};
+  return bins::launch_any<false>(args, k, columns, stream);
 }
 
-int bloom_insert_bitmap_launch(const void* bitmap, const void* tabs, void* out,
-                               int L, int NWL, int num_lines, int S, int M,
-                               int R, int NW, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(R) * NW) *
-      sizeof(uint32_t);
-  if (int rc = set_smem(insert_bitmap_kernel, smem)) return rc;
-  const dim3 grid(chunks_of(NWL), L);
-  insert_bitmap_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(bitmap), static_cast<const uint32_t*>(tabs),
-      static_cast<uint32_t*>(out), NWL, num_lines, kThreads, S, M, R, NW);
-  return static_cast<int>(cudaGetLastError());
+int bloom_insert_bitmap_launch(const void* words_a, const void* words_b, const void* columns,
+                               void* out, int k, int L, int NWL, int num_lines, int M,
+                               int log_seg, int R, int NW, void* stream) {
+  const bins::Args args{words_a, words_b, nullptr, nullptr, nullptr,
+                        static_cast<uint32_t*>(out), L, NWL, NWL, num_lines, M, log_seg,
+                        R, NW};
+  return bins::launch_any<true>(args, k, columns, stream);
+}
+
+// Registers, local memory (bytes a thread) and static shared memory of the
+// loaded insert kernel, as cudaFuncGetAttributes reads them, three ints a
+// build: the id form with the paper's geometry fixed, the id form for any
+// spec, then the bitmap form the same two ways.
+int bloom_insert_attributes(void* out) {
+  int* o = static_cast<int*>(out);
+  if (int rc = bins::build_attributes<h3p::kPaperM, h3p::kPaperLog, false>(o)) return rc;
+  if (int rc = bins::build_attributes<0, 0, false>(o + 3)) return rc;
+  if (int rc = bins::build_attributes<h3p::kPaperM, h3p::kPaperLog, true>(o + 6)) return rc;
+  return bins::build_attributes<0, 0, true>(o + 9);
 }
 
 int bloom_query_launch(const void* sig, const void* words_a, const void* words_b,

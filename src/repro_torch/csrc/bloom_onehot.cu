@@ -2,28 +2,33 @@
 // (sm_90a): the CUDA counterparts of the two "seed" Pallas TPU kernels in
 // src/repro/kernels/bloom/bloom.py that hash with the per-bit xor-fold H3
 // (_h3_hash_block_xorfold, bloom.py:70) and keep the signature as an
-// unpacked sig_bits-wide 0/1 image (the insert hashes with that xor-fold,
-// the query with its parity form, which gives the same positions bit for
-// bit).  Addresses arrive as int32 bits and are read as uint32; packed words are uint32 here and int32 on the PyTorch
-// side.  Both kernels are lane-batched (lanes on gridDim.y), launch on the
-// caller's stream, allocate nothing and return cudaGetLastError().
+// unpacked sig_bits-wide 0/1 image.  Both kernels here hash with the parity
+// form of h3_parity.cuh, which gives the xor-fold's positions bit for bit.
+// Addresses arrive as int32 bits and are read as uint32; packed words are
+// uint32 here and int32 on the PyTorch side.  Both kernels are lane-batched
+// (lanes on gridDim.y), launch on the caller's stream, allocate nothing
+// and return cudaGetLastError().
 //
 // bloom_insert_onehot (ports bloom_insert_pallas_onehot, bloom.py:367, body
-//   _insert_kernel_onehot :350): out |= pack(onehot(xorfold(addrs) where
-//   mask)).  Bound by the operations of the xor-fold (N * M * addr_bits
-//   rounds of a shift, an AND and a select-XOR) at the shapes the seed path
-//   gives it; the bytes are 5 per address.  The TPU kernel expands each
-//   position against a sig_bits-wide iota and ORs the hits, because a TPU
-//   has no cheap scatter; here the one-hot image is a sig_bits-byte array in
-//   shared memory (2-4 KB at the paper's geometries) into which each thread
-//   stores a 1 at each of its M positions — plain stores of the same value,
-//   so the order of the threads does not matter and the result is
-//   deterministic.  Design: the (M, addr_bits) H3 matrix is staged in
-//   shared memory (512 B for the paper's 4 x 32); a block takes a chunk of
-//   addresses of one lane, exits at once when the mask clears all of them,
-//   hashes one address a thread, then packs the image 32 bytes a word with
-//   __ballot_sync and atomicOr-s the non-zero words into the lane's output
-//   (which the caller filled with the incoming signature).
+//   _insert_kernel_onehot :350): out = sig | pack(onehot(H3(addrs) where
+//   mask)), with sig optional (none: zero), for one address list or two
+//   (the seed window's read and write images) from one launch.  Bound by
+//   the bytes (5 an address and the signatures) at the seed path's shapes,
+//   with the launch far above them.  The TPU kernel expands each position
+//   against a sig_bits-wide iota and ORs the hits, because a TPU has no
+//   cheap scatter.  Design (redesigned for Hopper; the kernel is
+//   bloom_insert.cuh's, shared with bloom_insert): the hash is the parity
+//   form (36 popc an address at the paper's geometry, against the
+//   xor-fold's M * addr_bits = 128 select-XOR rounds), its column masks a
+//   __grid_constant__ parameter; the blocks of a (list, lane), one a 1,024
+//   addresses up to 8, form one thread-block cluster whose shared memory
+//   holds the packed signature, one slice a block, ORed into through
+//   distributed shared memory and stored once with the incoming signature
+//   ORed in, so the wrapper neither fills nor clones the output.  The seed
+//   window's 256-slot lists take one block a (list, lane), the whole-bitmap
+//   call (N = num_lines) a cluster of 8.  The TPU kernel's one-hot byte
+//   image, packed by a ballot (this kernel's design before), was slower than
+//   the packed words when both were timed at the seed window's (1, 256).
 //
 // bloom_query_onehot (ports bloom_query_pallas_onehot, bloom.py:420, body
 //   _query_kernel_onehot :405): member = all M positions set in the
@@ -49,73 +54,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bloom_insert.cuh"
 #include "h3_parity.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kInsertChunk = 4 * kThreads;  // addresses per insert block
-
-// Per-bit xor-fold H3 of one segment: XOR of row m of the H3 matrix over
-// the set bits of the address, plus the segment's offset.
-__device__ __forceinline__ uint32_t xorfold(const uint32_t* __restrict__ q,
-                                            uint32_t a, int m, int addr_bits,
-                                            uint32_t seg_bits) {
-  const uint32_t* row = q + m * addr_bits;
-  uint32_t h = 0u;
-  for (int j = 0; j < addr_bits; ++j) {
-    h ^= ((a >> j) & 1u) ? row[j] : 0u;
-  }
-  return h + static_cast<uint32_t>(m) * seg_bits;
-}
-
-__device__ __forceinline__ void stage_matrix(uint32_t* dst,
-                                             const uint32_t* __restrict__ q,
-                                             int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = q[i];
-}
-
-// grid (chunks, L): addrs (L, N), mask (L, N) or null, q (M, AB) ->
-// out (L, NW), which holds the incoming signature and is OR-ed into.
-__global__ void insert_onehot_kernel(const uint32_t* __restrict__ addrs,
-                                     const uint8_t* __restrict__ mask,
-                                     const uint32_t* __restrict__ q,
-                                     uint32_t* __restrict__ out, int N, int M,
-                                     int addr_bits, int sig_bits) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* sq = smem;
-  uint8_t* image = reinterpret_cast<uint8_t*>(smem + M * addr_bits);
-  const int lane = blockIdx.y;
-  const int i0 = blockIdx.x * kInsertChunk;
-  const int i1 = min(i0 + kInsertChunk, N);
-  const size_t row = static_cast<size_t>(lane) * N;
-  int any = 0;
-  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
-    any |= mask == nullptr || mask[row + i] != 0;
-  }
-  if (!__syncthreads_or(any)) return;  // an all-false chunk inserts nothing
-  stage_matrix(sq, q, M * addr_bits);
-  uint32_t* image_words = reinterpret_cast<uint32_t*>(image);
-  for (int i = threadIdx.x; i < sig_bits / 4; i += blockDim.x) image_words[i] = 0u;
-  __syncthreads();
-  const uint32_t seg_bits = static_cast<uint32_t>(sig_bits / M);
-  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
-    if (mask != nullptr && !mask[row + i]) continue;
-    const uint32_t a = addrs[row + i];
-    for (int m = 0; m < M; ++m) {
-      const uint32_t p = xorfold(sq, a, m, addr_bits, seg_bits);
-      if (p < static_cast<uint32_t>(sig_bits)) image[p] = 1;
-    }
-  }
-  __syncthreads();
-  const int t = threadIdx.x & 31;
-  const int nw = sig_bits / 32;
-  uint32_t* dst = out + static_cast<size_t>(lane) * nw;
-  for (int w = threadIdx.x >> 5; w < nw; w += blockDim.x >> 5) {
-    const uint32_t word = __ballot_sync(0xFFFFFFFFu, image[w * 32 + t] != 0);
-    if (t == 0 && word) atomicOr(dst + w, word);
-  }
-}
 
 // Nonzero flags of the four bytes of x, as bits 0-3.
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
@@ -171,11 +115,6 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-size_t smem_bytes(int M, int addr_bits, int sig_bits) {
-  return static_cast<size_t>(M) * addr_bits * sizeof(uint32_t) +
-         static_cast<size_t>(sig_bits);
-}
-
 template <int MC, int LOGC>
 int query_onehot_launch(const void* bits, const void* addrs, const void* columns,
                         void* out, int L, int N, int M, int log_seg, int sig_bits,
@@ -204,17 +143,15 @@ int attributes(Kernel kernel, int* out) {
 
 extern "C" {
 
-int bloom_insert_onehot_launch(const void* addrs, const void* mask,
-                               const void* q, void* out, int L, int N, int M,
-                               int addr_bits, int sig_bits, void* stream) {
-  const size_t smem = smem_bytes(M, addr_bits, sig_bits);
-  if (int rc = set_smem(insert_onehot_kernel, smem)) return rc;
-  const dim3 grid((N + kInsertChunk - 1) / kInsertChunk, L);
-  insert_onehot_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(addrs), static_cast<const uint8_t*>(mask),
-      static_cast<const uint32_t*>(q), static_cast<uint32_t*>(out), N, M,
-      addr_bits, sig_bits);
-  return static_cast<int>(cudaGetLastError());
+// k = 1 or 2 address lists; sig (L, NW) or null; out (k, L, NW).
+int bloom_insert_onehot_launch(const void* addrs_a, const void* mask_a,
+                               const void* addrs_b, const void* mask_b, const void* sig,
+                               const void* columns, void* out, int k, int L, int N_a,
+                               int N_b, int M, int log_seg, int NW, void* stream) {
+  const bins::Args args{addrs_a, addrs_b, static_cast<const uint8_t*>(mask_a),
+                        static_cast<const uint8_t*>(mask_b), static_cast<const uint32_t*>(sig),
+                        static_cast<uint32_t*>(out), L, N_a, N_b, 0, M, log_seg, 1, NW};
+  return bins::launch_any<false>(args, k, columns, stream);
 }
 
 int bloom_query_onehot_launch(const void* bits, const void* addrs,
@@ -228,8 +165,15 @@ int bloom_query_onehot_launch(const void* bits, const void* addrs,
 }
 
 // Registers, local memory (bytes a thread) and static shared memory of the
-// loaded query kernel, as cudaFuncGetAttributes reads them, into out[0..2]
+// loaded insert kernel, as cudaFuncGetAttributes reads them, into out[0..2]
 // for the paper's geometry and out[3..5] for any other.
+int bloom_insert_onehot_attributes(void* out) {
+  int* o = static_cast<int*>(out);
+  if (int rc = bins::build_attributes<h3p::kPaperM, h3p::kPaperLog, false>(o)) return rc;
+  return bins::build_attributes<0, 0, false>(o + 3);
+}
+
+// The same of the loaded query kernel.
 int bloom_query_onehot_attributes(void* out) {
   int* o = static_cast<int*>(out);
   if (int rc = attributes(query_onehot_kernel<h3p::kPaperM, h3p::kPaperLog>, o)) {

@@ -15,7 +15,8 @@ does about that).  Each wrapper here:
 * ``h3_hash`` ports ``_h3_hash_block`` (``repro/kernels/bloom/bloom.py:62``):
   the line table of ``prepare`` / ``pad_trace`` / ``dummy_trace``;
 * ``bloom_insert`` ports ``bloom_insert_pallas`` (``bloom.py:135``): the
-  per-window read/write images and the CPUWriteSet bank;
+  per-window read/write images and the CPUWriteSet banks, two lists or two
+  bitmaps a launch;
 * ``bloom_query`` ports ``bloom_query_pallas`` (``bloom.py:205``): the
   flush / merge / invalidate membership masks, two bitmaps a launch;
 * ``bloom_intersect`` ports ``bloom_intersect_pallas`` (``bloom.py:316``):
@@ -52,7 +53,7 @@ __all__ = [
     "bloom_detect_conflicts", "h3_hash_plain", "bloom_insert_plain",
     "bloom_query_plain", "bloom_intersect_plain",
     "bloom_detect_conflicts_plain", "KERNELS", "reset_launch_counts",
-    "launch_counts", "query_attributes",
+    "launch_counts", "query_attributes", "insert_attributes",
 ]
 
 SOURCE = _build.CSRC / "bloom.cu"
@@ -66,8 +67,9 @@ SOURCE = _build.CSRC / "bloom.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "h3_hash_launch": [_P, _P, _P, _I, _I, _I, _P],
-    "bloom_insert_ids_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "bloom_insert_bitmap_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_insert_ids_launch": [_P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
+    "bloom_insert_bitmap_launch": [_P, _P, _P, _P, *[_I] * 8, _P],
+    "bloom_insert_attributes": [_P],
     "bloom_query_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bloom_query_attributes": [_P],
     "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -192,12 +194,8 @@ def _stage_and_pack(lane, reg, pos, lanes, num_regs, num_words):
     return pack_words(staged.reshape(lanes, num_regs, sig_bits))
 
 
-def bloom_insert_plain(tabs: torch.Tensor, num_words: int, *,
-                       ids: torch.Tensor | None = None,
-                       valid: torch.Tensor | None = None,
-                       bitmap: torch.Tensor | None = None,
-                       num_lines: int = 0, num_regs: int = 1) -> torch.Tensor:
-    """Plain version of :func:`bloom_insert` (same arguments and result)."""
+def _insert_plain(spec, ids, valid, bitmap, num_lines, num_regs):
+    """One list or bitmap through the byte-sliced tables."""
     if ids is not None:
         lanes = ids.shape[0]
         lane, slot = torch.nonzero(valid, as_tuple=True)
@@ -207,16 +205,42 @@ def bloom_insert_plain(tabs: torch.Tensor, num_words: int, *,
         bits = unpack_words(bitmap, num_lines)
         lane, addr = torch.nonzero(bits, as_tuple=True)
     a64 = addr.to(torch.int64) & 0xFFFFFFFF
-    pos = hash_with_tables(addr, tabs)
-    return _stage_and_pack(lane, a64 % num_regs, pos, lanes, num_regs, num_words)
+    pos = hash_with_tables(addr, tables_tensor(spec, addr.device))
+    return _stage_and_pack(lane, a64 % num_regs, pos, lanes, num_regs, spec.num_words)
 
 
-def bloom_insert(tabs: torch.Tensor, num_words: int, *,
+def bloom_insert_plain(spec: SignatureSpec, *,
+                       ids: torch.Tensor | None = None,
+                       valid: torch.Tensor | None = None,
+                       bitmap: torch.Tensor | None = None,
+                       num_lines: int = 0, num_regs: int = 1,
+                       ids_b: torch.Tensor | None = None,
+                       valid_b: torch.Tensor | None = None,
+                       bitmap_b: torch.Tensor | None = None):
+    """Plain version of :func:`bloom_insert` (same arguments and result),
+    hashing with the byte-sliced tables."""
+    one = _insert_plain(spec, ids, valid, bitmap, num_lines, num_regs)
+    if ids_b is None and bitmap_b is None:
+        return one
+    return one, _insert_plain(spec, ids_b, valid_b, bitmap_b, num_lines, num_regs)
+
+
+def _check_ids(name: str, ids: torch.Tensor, valid: torch.Tensor) -> None:
+    _check(name, ids, torch.int32, 2)
+    _check(f"valid for {name}", valid, torch.bool, 2)
+    if valid.shape != ids.shape:
+        raise ValueError(f"valid {tuple(valid.shape)} != {name} {tuple(ids.shape)}")
+
+
+def bloom_insert(spec: SignatureSpec, *,
                  ids: torch.Tensor | None = None,
                  valid: torch.Tensor | None = None,
                  bitmap: torch.Tensor | None = None,
-                 num_lines: int = 0, num_regs: int = 1) -> torch.Tensor:
-    """Packed Bloom images (L, num_regs, num_words) int32 of
+                 num_lines: int = 0, num_regs: int = 1,
+                 ids_b: torch.Tensor | None = None,
+                 valid_b: torch.Tensor | None = None,
+                 bitmap_b: torch.Tensor | None = None):
+    """Packed Bloom images (L, num_regs, spec.num_words) int32 of
 
     * an id list: ``ids`` (L, A) int32 with ``valid`` (L, A) bool — invalid
       slots are skipped before hashing; or
@@ -225,49 +249,71 @@ def bloom_insert(tabs: torch.Tensor, num_words: int, *,
 
     Each address goes to register ``address % num_regs`` (``num_regs=16``
     with a bitmap is the CPUWriteSet bank of ``prep.bank_bits_from_bitmap``;
-    ``num_regs=1`` a single PIMReadSet/PIMWriteSet image).
+    ``num_regs=1`` a single PIMReadSet/PIMWriteSet image).  Given a second
+    list ``ids_b`` / ``valid_b`` (L, A_b) or a second bitmap ``bitmap_b`` of
+    the same shape, returns the pair of images from the same launch (one
+    count).
 
     Ports ``bloom_insert_pallas`` (``src/repro/kernels/bloom/bloom.py:135``);
     its bound and design are noted in ``csrc/bloom.cu``."""
-    s, m = _check_tables(tabs)
+    if not isinstance(spec, SignatureSpec):
+        raise TypeError(f"spec: expected a SignatureSpec, got {type(spec).__name__}")
     if (ids is None) == (bitmap is None):
         raise ValueError("bloom_insert takes exactly one of ids= or bitmap=")
-    if num_regs < 1 or num_words < 1:
-        raise ValueError(f"num_regs={num_regs}, num_words={num_words} must be >= 1")
+    if num_regs < 1:
+        raise ValueError(f"num_regs={num_regs} must be >= 1")
     if ids is not None:
-        _check("ids", ids, torch.int32, 2)
-        _check("valid", valid, torch.bool, 2)
-        if valid.shape != ids.shape:
-            raise ValueError(f"valid {tuple(valid.shape)} != ids {tuple(ids.shape)}")
-        inputs = (ids, valid, tabs)
+        if bitmap_b is not None:
+            raise ValueError("bitmap_b= pairs with bitmap=, not ids=")
+        _check_ids("ids", ids, valid)
+        inputs = (ids, valid)
+        if ids_b is not None:
+            _check_ids("ids_b", ids_b, valid_b)
+            if ids_b.shape[0] != ids.shape[0]:
+                raise ValueError(f"ids_b lanes {ids_b.shape[0]} != ids lanes "
+                                 f"{ids.shape[0]}")
+            inputs += (ids_b, valid_b)
+        second, src = ids_b, ids
     else:
+        if ids_b is not None:
+            raise ValueError("ids_b= pairs with ids=, not bitmap=")
         _check("bitmap", bitmap, torch.int32, 2)
         if bitmap.shape[1] != (num_lines + 31) // 32:
             raise ValueError(f"bitmap width {bitmap.shape[1]} != "
                              f"ceil(num_lines/32) for num_lines={num_lines}")
-        inputs = (bitmap, tabs)
+        inputs = (bitmap,)
+        if bitmap_b is not None:
+            _check("bitmap_b", bitmap_b, torch.int32, 2)
+            if bitmap_b.shape != bitmap.shape:
+                raise ValueError(f"bitmap_b {tuple(bitmap_b.shape)} != bitmap "
+                                 f"{tuple(bitmap.shape)}")
+            inputs += (bitmap_b,)
+        second, src = bitmap_b, bitmap
     if _on_cpu(*inputs):
-        return bloom_insert_plain(tabs, num_words, ids=ids, valid=valid,
-                                  bitmap=bitmap, num_lines=num_lines,
-                                  num_regs=num_regs)
-    dev = tabs.device
-    lanes = inputs[0].shape[0]
-    if ids is not None:
-        out = torch.empty((lanes, num_regs, num_words), dtype=torch.int32, device=dev)
-        if lanes:
-            _launch("bloom_insert_ids_launch", ids.data_ptr(), valid.data_ptr(),
-                    tabs.data_ptr(), out.data_ptr(), lanes, ids.shape[1], s, m,
-                    num_regs, num_words, _stream(tabs))
-            bloom_insert.launches += 1
-        return out
+        return bloom_insert_plain(spec, ids=ids, valid=valid, bitmap=bitmap,
+                                  num_lines=num_lines, num_regs=num_regs, ids_b=ids_b,
+                                  valid_b=valid_b, bitmap_b=bitmap_b)
+    lanes = src.shape[0]
     _check_lanes(lanes)
-    out = torch.zeros((lanes, num_regs, num_words), dtype=torch.int32, device=dev)
-    if lanes and bitmap.shape[1]:
-        _launch("bloom_insert_bitmap_launch", bitmap.data_ptr(), tabs.data_ptr(),
-                out.data_ptr(), lanes, bitmap.shape[1], num_lines, s, m,
-                num_regs, num_words, _stream(tabs))
+    cols, log_seg = _columns(spec)
+    pair = second is not None
+    out = torch.empty((1 + pair, lanes, num_regs, spec.num_words), dtype=torch.int32,
+                      device=src.device)
+    if lanes:  # every output word is written by the kernel: no fill
+        geometry = (spec.num_segments, log_seg, num_regs, spec.num_words, _stream(src))
+        if ids is not None:
+            _launch("bloom_insert_ids_launch", ids.data_ptr(), valid.data_ptr(),
+                    ids_b.data_ptr() if pair else None,
+                    valid_b.data_ptr() if pair else None, cols.ctypes.data,
+                    out.data_ptr(), out.shape[0], lanes, ids.shape[1],
+                    ids_b.shape[1] if pair else 0, *geometry)
+        else:
+            _launch("bloom_insert_bitmap_launch", bitmap.data_ptr(),
+                    bitmap_b.data_ptr() if pair else None, cols.ctypes.data,
+                    out.data_ptr(), out.shape[0], lanes, bitmap.shape[1], num_lines,
+                    *geometry)
         bloom_insert.launches += 1
-    return out
+    return (out[0], out[1]) if pair else out[0]
 
 
 bloom_insert.launches = 0
@@ -452,6 +498,18 @@ def query_attributes() -> dict[str, dict[str, int]]:
     _build.launch(_lib(), "bloom_query_attributes", ctypes.addressof(out))
     keys = ("registers", "local_bytes", "static_smem_bytes")
     return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
+
+
+def insert_attributes() -> dict[str, dict[str, dict[str, int]]]:
+    """The same for the loaded ``bloom_insert`` kernel, as ``{"ids": {"paper":
+    ..., "any": ...}, "bitmap": {...}}``: the id-list and bitmap forms, each
+    built with the paper's geometry fixed and for any other spec."""
+    out = (ctypes.c_int * 12)()
+    _build.launch(_lib(), "bloom_insert_attributes", ctypes.addressof(out))
+    keys = ("registers", "local_bytes", "static_smem_bytes")
+    rows = [dict(zip(keys, out[i:i + 3])) for i in range(0, 12, 3)]
+    return {"ids": {"paper": rows[0], "any": rows[1]},
+            "bitmap": {"paper": rows[2], "any": rows[3]}}
 
 
 def reset_launch_counts() -> None:

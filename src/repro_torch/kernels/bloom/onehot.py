@@ -9,15 +9,16 @@ about that):
 
 * ``bloom_insert_onehot`` ports ``bloom_insert_pallas_onehot``
   (``repro/kernels/bloom/bloom.py:367``): the seed path's read/write
-  images (``prep.sig_bits_from_ids_bool`` / ``sig_bits_from_bitmap_bool``);
+  images, both from one launch (``prep.sig_bits_pair_from_ids_bool``; also
+  ``sig_bits_from_ids_bool`` / ``sig_bits_from_bitmap_bool``);
 * ``bloom_query_onehot`` ports ``bloom_query_pallas_onehot``
   (``bloom.py:420``): the seed path's membership masks
   (``prep.members_bool`` / ``ids_member_bool``).
 
-The insert hashes with the per-bit xor-fold H3 over ``spec.h3_matrix``
-(the TPU kernels' ``_h3_hash_block_xorfold``, ``bloom.py:70``), the query
-with its parity form over the column masks ``h3_columns(spec)`` (the same
-positions bit for bit); both are lane-batched.
+Both kernels hash with the parity form of H3 over the column masks
+``h3_columns(spec)``, which gives the positions of the TPU kernels'
+per-bit xor-fold (``_h3_hash_block_xorfold``, ``bloom.py:70``) bit for bit;
+the plain versions hash with that xor-fold.  Both are lane-batched.
 The wrappers follow the rule of :mod:`.bloom`: the plain version for CPU
 tensors, the kernel for CUDA tensors (with a raise on a launch error and
 one count a launch), a raise on anything mixed, no fallback.  The shared
@@ -33,7 +34,6 @@ import torch
 
 from repro_torch.core.signatures import (
     SignatureSpec,
-    h3_matrix_tensor,
     hash_positions_xorfold,
     pack_words,
 )
@@ -48,19 +48,21 @@ from repro_torch.kernels.bloom.bloom import (
 
 __all__ = ["bloom_insert_onehot", "bloom_query_onehot",
            "bloom_insert_onehot_plain", "bloom_query_onehot_plain", "KERNELS",
-           "reset_launch_counts", "launch_counts", "query_attributes"]
+           "reset_launch_counts", "launch_counts", "query_attributes",
+           "insert_attributes"]
 
 SOURCE = _build.CSRC / "bloom_onehot.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "bloom_insert_onehot_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bloom_insert_onehot_launch": [*[_P] * 7, *[_I] * 7, _P],
+    "bloom_insert_onehot_attributes": [_P],
     "bloom_query_onehot_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bloom_query_onehot_attributes": [_P],
 }
 
-# A block stages the H3 matrix and a sig_bits-byte image (the insert) or the
-# packed image (the query) in shared memory.
+# A block keeps the packed signature (the insert) or packed image (the
+# query) in shared memory.
 MAX_SIG_BITS = 1 << 17
 
 
@@ -98,13 +100,11 @@ def _positions(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def bloom_insert_onehot_plain(spec: SignatureSpec, sig: torch.Tensor,
-                              addrs: torch.Tensor,
-                              mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of :func:`bloom_insert_onehot` (same arguments and
-    result): the xor-fold positions of the unmasked addresses set in a
-    full-width 0/1 image per lane, packed and OR-ed into ``sig``.  Masked
-    positions go to a staged extra slot per lane, which is cut off."""
+def _image_plain(spec: SignatureSpec, addrs: torch.Tensor,
+                 mask: torch.Tensor | None) -> torch.Tensor:
+    """Packed (L, num_words) image of the unmasked addresses' xor-fold
+    positions, set in a full-width 0/1 image per lane.  Masked positions go
+    to a staged extra slot per lane, which is cut off."""
     lanes, n = addrs.shape
     stride = spec.sig_bits + 1
     pos = _positions(spec, addrs)
@@ -115,42 +115,85 @@ def bloom_insert_onehot_plain(spec: SignatureSpec, sig: torch.Tensor,
     flat = base[:, None, None] + torch.where(keep, pos, spec.sig_bits)
     image = torch.zeros((lanes * stride,), dtype=torch.bool, device=addrs.device)
     image[flat.reshape(-1)] = True
-    return sig | pack_words(image.reshape(lanes, stride)[:, :spec.sig_bits])
+    return pack_words(image.reshape(lanes, stride)[:, :spec.sig_bits])
 
 
-def bloom_insert_onehot(spec: SignatureSpec, sig: torch.Tensor,
+def bloom_insert_onehot_plain(spec: SignatureSpec, sig: torch.Tensor | None,
+                              addrs: torch.Tensor,
+                              mask: torch.Tensor | None = None, *,
+                              addrs_b: torch.Tensor | None = None,
+                              mask_b: torch.Tensor | None = None):
+    """Plain version of :func:`bloom_insert_onehot` (same arguments and
+    result), hashing with the xor-fold."""
+    images = [_image_plain(spec, addrs, mask)]
+    if addrs_b is not None:
+        images.append(_image_plain(spec, addrs_b, mask_b))
+    if sig is not None:
+        images = [sig | img for img in images]
+    return images[0] if addrs_b is None else tuple(images)
+
+
+def _check_mask(name: str, mask: torch.Tensor | None, addrs: torch.Tensor) -> tuple:
+    if mask is None:
+        return ()
+    _check(name, mask, torch.bool, 2)
+    if mask.shape != addrs.shape:
+        raise ValueError(f"{name} {tuple(mask.shape)} != addrs {tuple(addrs.shape)}")
+    return (mask,)
+
+
+def bloom_insert_onehot(spec: SignatureSpec, sig: torch.Tensor | None,
                         addrs: torch.Tensor,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Seed insert: ``sig`` (L, num_words) int32 packed signatures OR the
-    one-hot image of the xor-fold H3 positions of ``addrs`` (L, N) int32
-    (uint32 bits) where ``mask`` (L, N) bool is set (every address when
-    ``mask`` is None) -> (L, num_words) int32 packed words, as the TPU
-    kernel returns them.
+                        mask: torch.Tensor | None = None, *,
+                        addrs_b: torch.Tensor | None = None,
+                        mask_b: torch.Tensor | None = None):
+    """Seed insert: ``sig`` (L, num_words) int32 packed signatures (None: all
+    zero) OR the one-hot image of the H3 positions of ``addrs`` (L, N)
+    int32 (uint32 bits) where ``mask`` (L, N) bool is set (every address
+    when ``mask`` is None) -> (L, num_words) int32 packed words, as the TPU
+    kernel returns them.  Given a second list ``addrs_b`` (L, N_b) with its
+    ``mask_b``, returns the pair of signatures (``sig`` ORed into both) from
+    the same launch (one count).
 
     Ports ``bloom_insert_pallas_onehot``
     (``src/repro/kernels/bloom/bloom.py:367``); its bound and design are
     noted in ``csrc/bloom_onehot.cu``."""
     lanes, n = _check_spec_addrs(spec, addrs)
-    _check("sig", sig, torch.int32, 2)
-    if tuple(sig.shape) != (lanes, spec.num_words):
-        raise ValueError(f"sig {tuple(sig.shape)}: want ({lanes}, {spec.num_words})")
-    inputs = (sig, addrs)
-    if mask is not None:
-        _check("mask", mask, torch.bool, 2)
-        if mask.shape != addrs.shape:
-            raise ValueError(f"mask {tuple(mask.shape)} != addrs {tuple(addrs.shape)}")
-        inputs += (mask,)
+    inputs = (addrs,) + _check_mask("mask", mask, addrs)
+    if sig is not None:
+        _check("sig", sig, torch.int32, 2)
+        if tuple(sig.shape) != (lanes, spec.num_words):
+            raise ValueError(f"sig {tuple(sig.shape)}: want ({lanes}, {spec.num_words})")
+        inputs += (sig,)
+    if addrs_b is not None:
+        _check("addrs_b", addrs_b, torch.int32, 2)
+        if addrs_b.shape[0] != lanes:
+            raise ValueError(f"addrs_b lanes {addrs_b.shape[0]} != addrs lanes {lanes}")
+        inputs += (addrs_b,) + _check_mask("mask_b", mask_b, addrs_b)
+    elif mask_b is not None:
+        raise ValueError("mask_b= needs addrs_b=")
     if _on_cpu(*inputs):
-        return bloom_insert_onehot_plain(spec, sig, addrs, mask)
-    out = sig.clone()  # the kernel ORs each lane's image into its signature
-    if lanes and n:
-        q = h3_matrix_tensor(spec, addrs.device)
-        _launch("bloom_insert_onehot_launch", addrs.data_ptr(),
-                None if mask is None else mask.data_ptr(), q.data_ptr(),
-                out.data_ptr(), lanes, n, spec.num_segments, spec.addr_bits,
-                spec.sig_bits, _stream(addrs))
+        return bloom_insert_onehot_plain(spec, sig, addrs, mask, addrs_b=addrs_b,
+                                         mask_b=mask_b)
+    cols, log_seg = _columns(spec)
+    pair = addrs_b is not None
+    n_b = addrs_b.shape[1] if pair else 0
+    shape = (1 + pair, lanes, spec.num_words)
+    if not (lanes and (n or n_b)):  # no address to insert: no launch
+        out = torch.zeros(shape, dtype=torch.int32, device=addrs.device)
+        out = out if sig is None else out | sig
+    else:  # every output word is written by the kernel: no fill, no clone
+        out = torch.empty(shape, dtype=torch.int32, device=addrs.device)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        _launch("bloom_insert_onehot_launch", addrs.data_ptr(), ptr(mask), ptr(addrs_b),
+                ptr(mask_b), ptr(sig), cols.ctypes.data, out.data_ptr(), out.shape[0],
+                lanes, n, n_b,
+                spec.num_segments, log_seg, spec.num_words, _stream(addrs))
         bloom_insert_onehot.launches += 1
-    return out
+    return (out[0], out[1]) if pair else out[0]
 
 
 bloom_insert_onehot.launches = 0
@@ -206,16 +249,28 @@ KERNELS = {"bloom_insert_onehot": bloom_insert_onehot,
            "bloom_query_onehot": bloom_query_onehot}
 
 
+def _attributes(entry: str) -> dict[str, dict[str, int]]:
+    out = (ctypes.c_int * 6)()
+    _build.launch(_lib(), entry, ctypes.addressof(out))
+    keys = ("registers", "local_bytes", "static_smem_bytes")
+    return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
+
+
+def insert_attributes() -> dict[str, dict[str, int]]:
+    """Registers and local memory a thread and static shared memory a block
+    of the loaded ``bloom_insert_onehot`` kernel (``cudaFuncGetAttributes``),
+    as ``{"paper": ..., "any": ...}``: built with the paper's geometry
+    fixed, and for any other spec."""
+    return _attributes("bloom_insert_onehot_attributes")
+
+
 def query_attributes() -> dict[str, dict[str, int]]:
     """Registers and local memory a thread and static shared memory a block
     of the loaded ``bloom_query_onehot`` kernel (``cudaFuncGetAttributes``), as
     ``{"paper": ..., "any": ...}``: built with the paper's geometry (M = 4,
     512-bit segments) fixed, and for any other spec.  The column masks are
     a ``__grid_constant__`` parameter, so neither uses local memory."""
-    out = (ctypes.c_int * 6)()
-    _build.launch(_lib(), "bloom_query_onehot_attributes", ctypes.addressof(out))
-    keys = ("registers", "local_bytes", "static_smem_bytes")
-    return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
+    return _attributes("bloom_query_onehot_attributes")
 
 
 def reset_launch_counts() -> None:

@@ -23,8 +23,7 @@ def bloom_insert(spec: SignatureSpec, sig: torch.Tensor, addrs: torch.Tensor,
     ids = to_addr_i32(addrs)
     valid = (torch.ones_like(ids, dtype=torch.bool) if mask is None
              else mask.reshape(-1).to(torch.bool).contiguous())
-    img = _k.bloom_insert(tables_tensor(spec, sig.device), spec.num_words,
-                          ids=ids[None, :], valid=valid[None, :])
+    img = _k.bloom_insert(spec, ids=ids[None, :], valid=valid[None, :])
     return sig | img[0, 0]
 
 

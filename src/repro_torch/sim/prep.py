@@ -19,9 +19,13 @@ the CUDA kernels of :mod:`repro_torch.kernels.bloom.bloom` (their plain
 PyTorch versions on the CPU):
 
 * ``sig_bits_from_ids``     — ``bloom_insert`` over an id list
+* ``sig_bits_pair_from_ids`` — ``bloom_insert`` over two id lists at once
+                              (the window's read and write images)
 * ``sig_bits_from_bitmap``  — ``bloom_insert`` over a packed bitmap
 * ``bank_bits_from_bitmap`` — ``bloom_insert`` in bank mode (register =
                               line % 16), the CPUWriteSet bank
+* ``bank_pair_from_bitmaps`` — ``bloom_insert`` in bank mode on two bitmaps
+                              at once (the window's ``cpuws`` and ``conc``)
 * ``conflict_any``          — ``bloom_intersect`` of the bank with the
                               read image, any register
 * ``members``               — ``bloom_query``: packed per-line membership
@@ -33,7 +37,8 @@ PyTorch versions on the CPU):
 ``line_sig_hits`` / ``members_from_hits`` / ``conflict_from_hits`` are the
 reference's fused gather forms, kept as plain PyTorch for parity tests;
 ``conflict_from_hits`` is bit-exact with ``conflict_any`` of
-``bank_bits_from_bitmap`` (the unfused pair the port's step computes).
+``bank_bits_from_bitmap`` (the unfused form the port's step computes, its
+two banks from one ``bank_pair_from_bitmaps``).
 
 The bitmap primitives the five baselines use (``scatter_set``,
 ``gather_hits``, ``cpu_cache_step``) stay plain PyTorch on the card, as
@@ -44,8 +49,9 @@ seed twins of the packed ones, for ``repro_torch.core._boolref``; on the
 card their Bloom images and membership masks run the seed one-hot kernels
 of :mod:`repro_torch.kernels.bloom.onehot`:
 
-* ``sig_bits_from_ids_bool`` / ``sig_bits_from_bitmap_bool`` —
-  ``bloom_insert_onehot``, its packed words unpacked at the boundary
+* ``sig_bits_from_ids_bool`` / ``sig_bits_pair_from_ids_bool`` /
+  ``sig_bits_from_bitmap_bool`` — ``bloom_insert_onehot`` (the pair form
+  one launch for two lists), its packed words unpacked at the boundary
 * ``members_bool`` / ``ids_member_bool`` — ``bloom_query_onehot``
 """
 
@@ -165,11 +171,6 @@ class TraceTensors:
     def device(self) -> torch.device:
         return self.window_valid.device
 
-    @property
-    def tables(self) -> torch.Tensor:
-        """The spec's offset-folded H3 tables on this trace's device."""
-        return tables_tensor(self.spec, self.device)
-
 
 # ---------------------------------------------------------------------------
 # Packed bitmap core
@@ -230,14 +231,24 @@ def gather_hits(words: torch.Tensor, ids: torch.Tensor,
 def sig_bits_from_ids(tt: TraceTensors, ids: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
     """Packed Bloom images (L, sig_words) of the valid line ids (L, A)."""
-    return K.bloom_insert(tt.tables, tt.sig_words, ids=ids.contiguous(),
+    return K.bloom_insert(tt.spec, ids=ids.contiguous(),
                           valid=valid.contiguous())[:, 0]
+
+
+def sig_bits_pair_from_ids(tt: TraceTensors, ids_a: torch.Tensor,
+                           valid_a: torch.Tensor, ids_b: torch.Tensor,
+                           valid_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sig_bits_from_ids(tt, ids_a, valid_a), sig_bits_from_ids(tt, ids_b,
+    valid_b))`` from one ``bloom_insert`` launch."""
+    a, b = K.bloom_insert(tt.spec, ids=ids_a.contiguous(), valid=valid_a.contiguous(),
+                          ids_b=ids_b.contiguous(), valid_b=valid_b.contiguous())
+    return a[:, 0], b[:, 0]
 
 
 def sig_bits_from_bitmap(tt: TraceTensors, words: torch.Tensor) -> torch.Tensor:
     """Packed Bloom images (L, sig_words) of all lines set in packed
     bitmaps (L, num_line_words)."""
-    return K.bloom_insert(tt.tables, tt.sig_words, bitmap=words.contiguous(),
+    return K.bloom_insert(tt.spec, bitmap=words.contiguous(),
                           num_lines=tt.num_lines)[:, 0]
 
 
@@ -247,8 +258,18 @@ def bank_bits_from_bitmap(tt: TraceTensors, words: torch.Tensor,
     dirty-line bitmaps (L, num_line_words); register = line id % num_regs,
     the deterministic equivalent of the paper's round-robin pointer for
     set-valued insertion."""
-    return K.bloom_insert(tt.tables, tt.sig_words, bitmap=words.contiguous(),
-                          num_lines=tt.num_lines, num_regs=num_regs)
+    return K.bloom_insert(tt.spec, bitmap=words.contiguous(), num_lines=tt.num_lines,
+                          num_regs=num_regs)
+
+
+def bank_pair_from_bitmaps(tt: TraceTensors, words_a: torch.Tensor,
+                           words_b: torch.Tensor, num_regs: int = CPUWS_REGS
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(bank_bits_from_bitmap(tt, words_a, num_regs),
+    bank_bits_from_bitmap(tt, words_b, num_regs))`` from one
+    ``bloom_insert`` launch."""
+    return K.bloom_insert(tt.spec, bitmap=words_a.contiguous(), num_lines=tt.num_lines,
+                          num_regs=num_regs, bitmap_b=words_b.contiguous())
 
 
 def conflict_any(tt: TraceTensors, read_words: torch.Tensor,
@@ -400,10 +421,7 @@ def _image_from_ids(tt: TraceTensors, ids: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """(L, sig_bits) bool image of the masked ids (L, N): B8 insert returns
     packed words, as the TPU kernel does, so they are unpacked here."""
-    zero = torch.zeros((ids.shape[0], tt.sig_words), dtype=torch.int32,
-                       device=ids.device)
-    words = bloom_insert_onehot(tt.spec, zero, ids.contiguous(),
-                                mask.contiguous())
+    words = bloom_insert_onehot(tt.spec, None, ids.contiguous(), mask.contiguous())
     return unpack_words(words, tt.sig_bits)
 
 
@@ -435,6 +453,16 @@ def sig_bits_from_ids_bool(tt: TraceTensors, ids: torch.Tensor,
     """Bloom images (L, sig_bits) bool of the valid line ids in ``ids``
     (L, A); B8 insert on the card, unpacked at its boundary."""
     return _image_from_ids(tt, ids, valid)
+
+
+def sig_bits_pair_from_ids_bool(tt: TraceTensors, ids_a: torch.Tensor,
+                                valid_a: torch.Tensor, ids_b: torch.Tensor,
+                                valid_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sig_bits_from_ids_bool(tt, ids_a, valid_a),
+    sig_bits_from_ids_bool(tt, ids_b, valid_b))`` from one B8 insert launch."""
+    a, b = bloom_insert_onehot(tt.spec, None, ids_a.contiguous(), valid_a.contiguous(),
+                               addrs_b=ids_b.contiguous(), mask_b=valid_b.contiguous())
+    return unpack_words(a, tt.sig_bits), unpack_words(b, tt.sig_bits)
 
 
 def sig_bits_from_bitmap_bool(tt: TraceTensors,

@@ -114,8 +114,7 @@ def test_bank_mode_from_ids_equals_bank_from_bitmap(pair):
     ids = torch.from_numpy(np.random.default_rng(4).choice(
         rtt.num_lines, size=(2, 64), replace=False).astype(np.int32))
     valid = torch.ones_like(ids, dtype=torch.bool)
-    bank = K.bloom_insert(ttt.tables, ttt.sig_words, ids=ids, valid=valid,
-                          num_regs=16)
+    bank = K.bloom_insert(ttt.spec, ids=ids, valid=valid, num_regs=16)
     bitmap = TP.scatter_set(torch.zeros((2, ttt.num_line_words), dtype=torch.int32),
                             ids, valid, ttt.num_lines)
     np.testing.assert_array_equal(bank.numpy(),
@@ -214,7 +213,7 @@ def _kernel_calls(tabs):
     sig = torch.ones((1, 64), dtype=torch.int32)
     return {
         "h3_hash": lambda: K.h3_hash(ids[0].contiguous(), tabs),
-        "bloom_insert": lambda: K.bloom_insert(tabs, 64, ids=ids, valid=valid),
+        "bloom_insert": lambda: K.bloom_insert(port_spec(), ids=ids, valid=valid),
         "bloom_query": lambda: K.bloom_query(port_spec(), sig, words, 40),
         "bloom_intersect": lambda: K.bloom_intersect(sig, sig, 4),
         "bloom_detect_conflicts": lambda: K.bloom_detect_conflicts(
@@ -262,7 +261,10 @@ def test_wrappers_check_arguments():
     with pytest.raises(ValueError):
         K.h3_hash(torch.zeros((4, 4), dtype=torch.int32)[:, 0], tabs)
     with pytest.raises(ValueError):
-        K.bloom_insert(tabs, 64)
+        K.bloom_insert(port_spec())
+    with pytest.raises(TypeError):
+        K.bloom_insert(tabs, ids=torch.zeros((1, 4), dtype=torch.int32),
+                       valid=torch.ones((1, 4), dtype=torch.bool))
     with pytest.raises(ValueError):
         K.bloom_query(port_spec(), torch.zeros((1, 64), dtype=torch.int32),
                       torch.zeros((1, 3), dtype=torch.int32), 40)

@@ -115,10 +115,9 @@ def test_onehot_plain_equals_word_level_plain(sig_bits, m):
     ids = torch.from_numpy(rng.integers(0, lines, size=(lanes, N)).astype(np.int32))
     valid = torch.from_numpy(rng.random((lanes, N)) < 0.7)
     valid[1] = False  # an all-false lane
-    tabs = S.tables_tensor(spec, torch.device("cpu"))
     sig0 = torch.zeros((lanes, spec.num_words), dtype=torch.int32)
     onehot = K8.bloom_insert_onehot(spec, sig0, ids, valid)
-    word = K.bloom_insert_plain(tabs, spec.num_words, ids=ids, valid=valid)[:, 0]
+    word = K.bloom_insert_plain(spec, ids=ids, valid=valid)[:, 0]
     assert torch.equal(onehot, word)
     assert not onehot[1].any()
 
@@ -184,8 +183,6 @@ def test_cuda_path_launches_kernel_or_raises_never_plain(monkeypatch, rc):
     monkeypatch.setattr(K8, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(K8, "_lib", lambda: fake)
     monkeypatch.setattr(K8, "_stream", lambda t: 0)
-    monkeypatch.setattr(K8, "h3_matrix_tensor",
-                        lambda spec, dev: S.h3_matrix_tensor(spec, torch.device("cpu")))
     for name in K8.KERNELS:
         monkeypatch.setattr(K8, f"{name}_plain", None)  # any use would fail
     K8.reset_launch_counts()

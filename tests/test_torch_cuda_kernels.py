@@ -82,7 +82,6 @@ def test_h3_hash(dev, spec, n):
 @pytest.mark.parametrize("lanes,slots", [(1, 1), (3, 7), (5, 256), (2, 1000)])
 @pytest.mark.parametrize("regs", [1, 16])
 def test_insert_ids(dev, spec, lanes, slots, regs):
-    tabs = tables_tensor(spec, dev)
     g = _gen(dev, lanes * slots + regs)
     ids = torch.randint(-2**31, 2**31 - 1, (lanes, slots), generator=g,
                         device=dev, dtype=torch.int32)
@@ -90,8 +89,7 @@ def test_insert_ids(dev, spec, lanes, slots, regs):
     ids = torch.where(valid | (torch.rand(ids.shape, generator=g, device=dev) < 0.5),
                       ids, -1)
     kw = dict(ids=ids, valid=valid, num_regs=regs)
-    assert torch.equal(K.bloom_insert(tabs, spec.num_words, **kw),
-                       K.bloom_insert_plain(tabs, spec.num_words, **kw))
+    assert torch.equal(K.bloom_insert(spec, **kw), K.bloom_insert_plain(spec, **kw))
 
 
 @pytest.mark.parametrize("num_lines", [1, 31, 33, 6409, 262_144])
@@ -99,12 +97,122 @@ def test_insert_ids(dev, spec, lanes, slots, regs):
 @pytest.mark.parametrize("regs", [1, 16])
 def test_insert_bitmap(dev, num_lines, density, regs):
     spec = default_spec()
-    tabs = tables_tensor(spec, dev)
     nw = (num_lines + 31) // 32
     words = _words((3, nw), density, dev, num_lines)  # pad bits may be set
     kw = dict(bitmap=words, num_lines=num_lines, num_regs=regs)
-    assert torch.equal(K.bloom_insert(tabs, spec.num_words, **kw),
-                       K.bloom_insert_plain(tabs, spec.num_words, **kw))
+    assert torch.equal(K.bloom_insert(spec, **kw), K.bloom_insert_plain(spec, **kw))
+
+
+def _poison(shape, dev) -> int:
+    """Leave the next allocation of ``shape`` int32 words on ``dev`` holding
+    -1 in every word: the cache is emptied, a block of that shape filled
+    with -1 and freed, so the allocator hands it out again.  Returns its
+    address, which the caller checks it got."""
+    torch.cuda.empty_cache()
+    t = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    ptr = t.data_ptr()
+    del t
+    return ptr
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("lanes,slots,slots_b", [(1, 1, 1), (3, 256, 256), (5, 7, 300),
+                                                 (216, 256, 256), (2, 5000, 0)])
+@pytest.mark.parametrize("regs", [1, 16])
+def test_insert_ids_pair(dev, spec, lanes, slots, slots_b, regs):
+    """Both lists from one launch into a poisoned output: each equals its
+    plain version and its single call; a list with no valid slot (lane 0
+    of the second) gives zeros; 5,000 slots take a cluster of 5 blocks."""
+    g = _gen(dev, lanes * slots + slots_b + regs)
+    ids = torch.randint(-2**31, 2**31 - 1, (lanes, slots), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids_b = torch.randint(-2**31, 2**31 - 1, (lanes, slots_b), generator=g, device=dev,
+                          dtype=torch.int32)
+    valid = torch.rand(ids.shape, generator=g, device=dev) < 0.6
+    valid_b = torch.rand(ids_b.shape, generator=g, device=dev) < 0.6
+    valid_b[0] = False
+    kw = dict(ids=ids, valid=valid, ids_b=ids_b, valid_b=valid_b, num_regs=regs)
+    want = K.bloom_insert_plain(spec, **kw)
+    ptr = _poison((2, lanes, regs, spec.num_words), dev)
+    got = K.bloom_insert(spec, **kw)
+    assert got[0].data_ptr() == ptr
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[1][0].any()
+    assert torch.equal(got[0], K.bloom_insert(spec, ids=ids, valid=valid, num_regs=regs))
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("num_lines", [1, 33, 6409, 32_768, 65_536, 70_000, 262_144,
+                                       262_145])
+@pytest.mark.parametrize("density", [0.0, 0.003, 0.3], ids=["empty", "sparse", "dense"])
+@pytest.mark.parametrize("regs", [1, 16])
+def test_insert_bitmap_pair(dev, spec, num_lines, density, regs):
+    """Both bitmaps from one launch into a poisoned output, at every width
+    the launcher gives its own cluster size (one block a 1,024 words, at
+    most 8): one block up to 32,768 lines, 2 blocks at 65,536, 3 at 70,000,
+    8 at 262,144 and past it.  Ragged line counts (pad bits set in the last
+    word), warps with no word and empty bitmaps all come out exact, zeros
+    where no line is set."""
+    nw = (num_lines + 31) // 32
+    words = _words((3, nw), density, dev, num_lines)  # pad bits may be set
+    words_b = _words((3, nw), 0.01, dev, num_lines + 1)
+    words_b[1] = 0
+    kw = dict(bitmap=words, bitmap_b=words_b, num_lines=num_lines, num_regs=regs)
+    want = K.bloom_insert_plain(spec, **kw)
+    assert not want[1][1].any()
+    ptr = _poison((2, 3, regs, spec.num_words), dev)
+    got = K.bloom_insert(spec, **kw)
+    assert got[0].data_ptr() == ptr
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    single = K.bloom_insert(spec, bitmap=words, num_lines=num_lines, num_regs=regs)
+    assert torch.equal(single, want[0])
+    if density == 0.0:
+        assert not single.any()
+
+
+def test_insert_pair_counts_one_launch(dev):
+    spec = default_spec()
+    ids = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    words = _words((1, 2), 0.5, dev, 6)
+    K.reset_launch_counts()
+    K.bloom_insert(spec, ids=ids, valid=valid, ids_b=ids, valid_b=valid)
+    assert K.launch_counts()["bloom_insert"] == 1
+    K.bloom_insert(spec, bitmap=words, bitmap_b=words, num_lines=64, num_regs=16)
+    assert K.launch_counts()["bloom_insert"] == 2
+    with pytest.raises(ValueError):
+        K.bloom_insert(spec, bitmap=words, bitmap_b=words.cpu(), num_lines=64)
+    with pytest.raises(ValueError, match="65,535"):
+        K.bloom_insert(spec, ids=ids.expand(65_536, 8).contiguous(),
+                       valid=valid.expand(65_536, 8).contiguous())
+    assert K.launch_counts()["bloom_insert"] == 2
+    K.reset_launch_counts()
+
+
+@pytest.mark.parametrize("sig_bits,num_segments", [(2048, 64), (2**17, 1)])
+def test_insert_spec_beyond_the_mask_cap_is_refused(dev, sig_bits, num_segments):
+    spec = SignatureSpec(sig_bits=sig_bits, num_segments=num_segments)
+    ids = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+    with pytest.raises(ValueError, match="num_segments <= 32"):
+        K.bloom_insert(spec, ids=ids, valid=valid)
+    with pytest.raises(ValueError, match="num_segments <= 32"):
+        K8.bloom_insert_onehot(spec, None, ids, valid)
+    assert K.launch_counts()["bloom_insert"] == 0
+    assert K8.launch_counts()["bloom_insert_onehot"] == 0
+
+
+@pytest.mark.parametrize("module", ["bloom", "onehot"])
+def test_insert_kernels_use_no_local_memory(dev, module):
+    """Both builds of every insert kernel keep the column masks in the
+    constant bank and the hash's callback inlined: no local memory."""
+    attrs = K.insert_attributes() if module == "bloom" else {"ids": K8.insert_attributes()}
+    for form, builds in attrs.items():
+        for build_of, a in builds.items():
+            assert a["local_bytes"] == 0, (form, build_of, a)
+            assert 0 < a["registers"] <= 255, (form, build_of, a)
 
 
 def _dense_words(shape, density, dev, seed):
@@ -265,6 +373,49 @@ def test_insert_onehot(dev, spec, lanes, n, mask_kind):
     assert torch.equal(got, K8.bloom_insert_onehot_plain(spec, sig, addrs, mask))
     if mask_kind == "all_false":
         assert torch.equal(got, sig)
+
+
+@pytest.mark.parametrize("spec", [default_spec(), SignatureSpec(sig_bits=512, num_segments=2),
+                                  SignatureSpec(sig_bits=4096, num_segments=8)],
+                         ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("lanes,n,n_b", [(1, 256, 256), (3, 300, 1), (2, 5000, 1024),
+                                         (1, 168_335, 256)])
+@pytest.mark.parametrize("with_sig", [False, True], ids=["no_sig", "sig"])
+def test_insert_onehot_pair(dev, spec, lanes, n, n_b, with_sig):
+    """Both lists from one launch, with and without an incoming signature,
+    into a poisoned output; N from one block to the whole-bitmap call's
+    168,335 (a cluster of 8); a list with every slot masked off gives the
+    signature alone."""
+    g = _gen(dev, lanes * n + n_b + spec.sig_bits)
+    addrs = torch.randint(-2**31, 2**31 - 1, (lanes, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    addrs_b = torch.randint(-2**31, 2**31 - 1, (lanes, n_b), generator=g, device=dev,
+                            dtype=torch.int32)
+    mask = torch.rand(addrs.shape, generator=g, device=dev) < 0.5
+    mask_b = torch.rand(addrs_b.shape, generator=g, device=dev) < 0.5
+    mask_b[0] = False
+    sig = _words((lanes, spec.num_words), 0.02, dev, n) if with_sig else None
+    want = K8.bloom_insert_onehot_plain(spec, sig, addrs, mask, addrs_b=addrs_b,
+                                        mask_b=mask_b)
+    ptr = _poison((2, lanes, spec.num_words), dev)
+    got = K8.bloom_insert_onehot(spec, sig, addrs, mask, addrs_b=addrs_b, mask_b=mask_b)
+    assert got[0].data_ptr() == ptr
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    zero = torch.zeros_like(got[1][0])
+    assert torch.equal(got[1][0], zero if sig is None else sig[0])
+    assert torch.equal(got[0], K8.bloom_insert_onehot(spec, sig, addrs, mask))
+
+
+def test_insert_onehot_whole_bitmap_equals_word_insert(dev):
+    """The seed path's whole-bitmap image (N = num_lines, a cluster of 8)
+    equals B2's bitmap image of the same lines."""
+    from repro_torch.sim.prep import prepare, sig_bits_from_bitmap, sig_bits_from_bitmap_bool
+    from repro_torch.sim.trace import make_trace
+
+    tt = prepare(make_trace("pagerank", "arxiv", num_kernels=3, device=dev), device=dev)
+    bits = torch.rand((2, tt.num_lines), generator=_gen(dev, 3), device=dev) < 0.01
+    got = sig_bits_from_bitmap_bool(tt, bits)
+    assert torch.equal(pack_words(got), sig_bits_from_bitmap(tt, pack_words(bits)))
 
 
 def _image(kind, lanes, sig_bits, dev, g):
