@@ -14,11 +14,11 @@ Phases, in order; any failure exits non-zero before the final line:
    ``cudaFuncGetAttributes`` reads from the loaded ``bloom_query``,
    ``bloom_query_onehot``, ``bloom_insert`` (id and bitmap forms) and
    ``bloom_insert_onehot`` kernels (both builds of each: the paper's geometry
-   fixed, and any; local memory must be 0) and from the sm90 flash attention
-   kernel at each head dim (registers and local memory, i.e. spills and
-   stack, a thread; static and dynamic shared memory a block); then the
-   card's launch floor: a one-element elementwise op timed as the kernels
-   are;
+   fixed, and any; local memory must be 0), from the general flash
+   attention kernel's bands (three a dtype) and from the sm90 one at each
+   head dim (registers and local memory, i.e. spills and stack, a thread;
+   static and dynamic shared memory a block); then the card's launch
+   floor: a one-element elementwise op timed as the kernels are;
 3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
    ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
    its plain PyTorch version on the card on that path's data (the HTAP
@@ -38,17 +38,24 @@ Phases, in order; any failure exits non-zero before the final line:
    the id pair, the bank and the bank pair (no fill in either); each
    timing prints its bound (the parity hash's operations against the
    bytes), the launch floor and, on its text line only, the previous
-   design's reading kept in ``PERF.md``;
+   design's reading kept in ``PERF.md``.  ``bloom_intersect`` is held per
+   row and, in its pair-and-any form (what the window launches), on every
+   window's ``dirty`` and ``conc`` banks against its read image, both
+   against the plain version and against two per-row calls and their
+   ``.any``; the pair is timed at the window's shape (3 lanes x 16
+   registers x 64 words, two banks) beside the per-row form and the two
+   per-row calls it replaced;
 4. Fig. 7 path — ``Study(all_workloads())`` with all six mechanisms on
    ``engine="batch"`` and ``engine="sequential"``, launch counts set to 0
    just before and read just after each run; ``bloom_query`` must launch
    exactly twice a window of each LazyPIM dispatch (``QUERIES_PER_WINDOW``;
    the windows of each geometry bucket in the batch engine, of each point
-   in the sequential one), and ``bloom_insert`` exactly twice a window
-   (``INSERTS_PER_WINDOW``: the two images, the two banks); the engines must
-   agree on
-   every field and ``pagerank-arxiv`` / ``htap128`` must match the goldens
-   in ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
+   in the sequential one), ``bloom_insert`` exactly twice a window
+   (``INSERTS_PER_WINDOW``: the two images, the two banks) and
+   ``bloom_intersect`` exactly once (``INTERSECTS_PER_WINDOW``: both
+   conflict checks); the engines must agree on every field and
+   ``pagerank-arxiv`` / ``htap128`` must match the goldens in
+   ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
 5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
    by kernel and the device's idle share of the unprofiled batch wall time;
 6. seed path — the seed reference engine ``run_all_bool`` over the same 12
@@ -80,8 +87,9 @@ Phases, in order; any failure exits non-zero before the final line:
    the 65,536-line bucket, 24 kernels x 3 steps) with all six mechanisms on
    both engines, held against the port's own ``device="cpu"`` run of the
    same study (event counts exact, ratios 1e-6, raw 1e-4); all six kernels
-   must launch, ``bloom_query`` and ``bloom_insert`` twice a LazyPIM window;
-   every ``bloom_detect_conflicts`` and ``lazy_merge`` call the
+   must launch, ``bloom_query`` and ``bloom_insert`` twice a LazyPIM window,
+   ``bloom_intersect`` once; every ``bloom_detect_conflicts`` and
+   ``lazy_merge`` call the
    protocol made is held against its plain version on its own inputs;
 10. LazySync at qwen3-4b width — ``LazyEmbed(get_config("qwen3_4b"),
    LazySyncConfig())`` (G = 4, vocab 151,936, d_model 2,560, bf16, 2,048-bit
@@ -107,7 +115,7 @@ Phases, in order; any failure exits non-zero before the final line:
    with all six mechanisms on both engines, each held to one
    ``device="cpu"`` run of the port (the engines agree bit for bit) at the
    same tolerances; B1–B4 must launch, ``bloom_query`` and ``bloom_insert``
-   twice a LazyPIM window;
+   twice a LazyPIM window, ``bloom_intersect`` once;
 13. qwen3-4b prefill — ``get_config("qwen3_4b")`` at full width and depth
    (36 layers, ~4.02 B parameters, ~8.0 GB in bf16) initialised on the card
    from a seeded generator; ``make_prefill_step`` on 4 prompts of 4,096
@@ -116,14 +124,16 @@ Phases, in order; any failure exits non-zero before the final line:
    and none on the general one; every call held to the plain version at
    the row-scaled tolerance of ``fa_excess``), unprofiled (wall time, peak
    memory), under ``torch.profiler`` (the device's idle share);
-14. kernel flash_attention, both routes — B7 at the prefill path's shape,
-   q (4, 4,096, 32, 128) and k / v (4, 4,096, 8, 128) bf16 causal, on layer
-   0's inputs, on the sm90 route (``flash_attention_sm90.cu``, what the path
-   takes) and on the general route (``flash_attention.cu``, forced): each
-   against its plain version (``fa_excess``), timed as in phase 3 with its
-   bound in operations at the bf16 tensor-core rate (989 TFLOP/s), and one
-   ``scaled_dot_product_attention`` call on the same inputs as the library
-   yardstick (the port never calls it);
+14. kernel flash_attention — B7 at the prefill path's shape, q (4, 4,096,
+   32, 128) and k / v (4, 4,096, 8, 128) causal, on layer 0's inputs: the
+   sm90 route in bf16 (``flash_attention_sm90.cu``, what the path takes),
+   the general route (``flash_attention.cu``) in float32 (the same inputs
+   cast: what phase 16 runs) and in bf16 (forced): each against its plain
+   version (``fa_excess``), timed as in phase 3 with its bound in
+   operations (bf16 at the tensor-core rate, 989 TFLOP/s; float32 at the
+   FFMA rate, 67 TFLOP/s), and one ``scaled_dot_product_attention`` call on
+   the same inputs as the library yardstick (float32 with TF32 off; the port
+   never calls it);
 15. qwen3-4b serve — ``launch.serve.serve`` at full width with the
    reference serve loop's defaults (8 requests, batch 4, max-new 16, max-len
    64) on the same weights: all 8 served, tokens per second; 8 decode
@@ -131,19 +141,28 @@ Phases, in order; any failure exits non-zero before the final line:
    time, idle share); then one teacher-forced 64-token prompt through
    decode against the full forward (top-1 agreement and max |logit
    difference|, recorded, not gated);
-16. smoke prefill, float32 — the qwen3-4b smoke config (2 layers, D = 16)
+16. qwen3-4b prefill, float32 — the bf16 weights cast to float32 (~16 GB;
+   the bf16 ones dropped), ``make_prefill_step`` on 1 prompt of 4,096
+   seeded tokens with TF32 off: counted and tapped (exactly 36 B7 launches,
+   all on the general route, each held to its plain version at
+   ``FA_TOL``'s float32 pair), logits finite; then unprofiled (wall time,
+   tokens/s, peak memory) and profiled (idle share, top kernels, B7's share
+   of device time): the general route at full width;
+17. smoke prefill, float32 — the qwen3-4b smoke config (2 layers, D = 16)
    in float32 through ``make_prefill_step`` on 2 x 150 tokens, counted
    (one general-route B7 launch a layer, none on the sm90 route), tapped
    (every call held to the plain version at ``FA_TOL``'s float32 pair,
    rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
    the general route's own path;
-17. the ``kernels`` JSON line (ten kernels: B7 once a route, as
-   ``flash_attention_general`` and ``flash_attention_sm90``; the four
-   redesigned Bloom kernels also carry the launch floor, the queries their
-   old bound, ``bloom_query`` its two-bitmap timing as ``pair``,
-   ``bloom_insert`` its pair, bank and bank pair timings and
-   ``bloom_insert_onehot`` its pair; every number in the line but the
-   bounds measured in this run), then the result line.
+18. the ``kernels`` JSON line (ten kernels: B7 once a route, as
+   ``flash_attention_general`` — its forced bf16 timing, the float32 one as
+   ``float32`` — and ``flash_attention_sm90``; the five redesigned Bloom
+   kernels also carry the launch floor, the queries their old bound,
+   ``bloom_query`` its two-bitmap timing as ``pair``, ``bloom_insert`` its
+   pair, bank and bank pair timings, ``bloom_insert_onehot`` its pair and
+   ``bloom_intersect`` (timed per row) its pair-and-any timing as ``pair``;
+   every number in the line but the bounds measured in this run), then the
+   result line.
 
 float32 matmuls run in full float32 (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False) wherever float32
@@ -212,6 +231,9 @@ PARITY_OPS = 3   # an AND, a POPC and a bit insert per column mask
 # another; the seed window builds its two images from one B8a launch.
 QUERIES_PER_WINDOW = 2
 INSERTS_PER_WINDOW = 2
+# ...and answers both conflict checks (its two banks against the read
+# image, any register) from one bloom_intersect launch.
+INTERSECTS_PER_WINDOW = 1
 # The previous insert designs' per-call readings at the shapes timed here
 # (PERF.md §6): the id list (3 x 256), the bank of one bitmap with the zero
 # fill it needed, B8a at (1, 256).  Printed beside this run's timings for
@@ -303,6 +325,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def build():
+    import torch
+
     phase("build")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
@@ -335,6 +359,15 @@ def build():
             check(a["local_bytes"] == 0,
                   f"{name} ({build_of}): {a['local_bytes']} bytes of local memory "
                   f"(the column masks must stay in the constant bank)")
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in FA.general_bands(dtype):
+            a = FA.general_attributes(dtype, d)
+            print(f"flash_attention_general {str(dtype).removeprefix('torch.')} band to "
+                  f"D = {d}: {a['registers']} "
+                  f"registers and {a['local_bytes']} bytes of local memory (spills, stack) "
+                  f"a thread; {a['static_smem_bytes']} static + {a['dynamic_smem_bytes']} "
+                  f"dynamic bytes of shared memory a block at that D; {a['threads']} threads, "
+                  f"{a['block_q']} query rows and {a['block_k']} keys a tile", flush=True)
     for d in sorted(FA.SM90_HEAD_DIMS):
         a = FA.sm90_attributes(d)
         print(f"flash_attention_sm90 D = {d}: {a['registers']} registers and "
@@ -417,15 +450,21 @@ def lazypim_windows(study, rs, engine: str) -> int:
     return sum(per_trace[p.workload] for p in rs)
 
 
+def _check_per_window(kernel: str, per_window: int, label: str, study, rs, engine: str,
+                      counts: dict) -> int:
+    windows = lazypim_windows(study, rs, engine)
+    want = per_window * windows
+    check(counts[kernel] == want,
+          f"{label}: {counts[kernel]} {kernel} launches, want {want} ({per_window} a "
+          f"window over {windows} LazyPIM windows)")
+    return want
+
+
 def check_query_launches(label: str, study, rs, engine: str, counts: dict) -> int:
     """``bloom_query`` must launch exactly ``QUERIES_PER_WINDOW`` times a
     window of each LazyPIM dispatch.  Returns the expected count."""
-    windows = lazypim_windows(study, rs, engine)
-    want = QUERIES_PER_WINDOW * windows
-    check(counts["bloom_query"] == want,
-          f"{label}: {counts['bloom_query']} bloom_query launches, want {want} "
-          f"({QUERIES_PER_WINDOW} a window over {windows} LazyPIM windows)")
-    return want
+    return _check_per_window("bloom_query", QUERIES_PER_WINDOW, label, study, rs, engine,
+                             counts)
 
 
 def check_insert_launches(label: str, study, rs, engine: str, counts: dict) -> int:
@@ -433,12 +472,16 @@ def check_insert_launches(label: str, study, rs, engine: str, counts: dict) -> i
     window of each LazyPIM dispatch: the read and write images from one
     launch, the ``cpuws`` and ``conc`` banks from another.  Returns the
     expected count."""
-    windows = lazypim_windows(study, rs, engine)
-    want = INSERTS_PER_WINDOW * windows
-    check(counts["bloom_insert"] == want,
-          f"{label}: {counts['bloom_insert']} bloom_insert launches, want {want} "
-          f"({INSERTS_PER_WINDOW} a window over {windows} LazyPIM windows)")
-    return want
+    return _check_per_window("bloom_insert", INSERTS_PER_WINDOW, label, study, rs, engine,
+                             counts)
+
+
+def check_intersect_launches(label: str, study, rs, engine: str, counts: dict) -> int:
+    """``bloom_intersect`` must launch exactly ``INTERSECTS_PER_WINDOW`` times
+    a window of each LazyPIM dispatch: both conflict checks from one
+    pair-and-any launch.  Returns the expected count."""
+    return _check_per_window("bloom_intersect", INTERSECTS_PER_WINDOW, label, study, rs,
+                             engine, counts)
 
 
 def measure(label: str, err: float, fn, plain, args: tuple, nbytes: float,
@@ -552,6 +595,7 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
                                 num_regs=16)
     err_bank_pair = max(exact("bloom_insert (bank pair, dirty)", got[0], want[0]),
                         exact("bloom_insert (bank pair, conc)", got[1], want[1]))
+    bank_conc = got[1]  # the window's conc bank, for bloom_intersect's pair form
     ids, valid = st.pim_reads[:, 0].contiguous(), st.pim_r_valid[:, 0].contiguous()
     wids, wvalid = st.pim_writes[:, 0].contiguous(), st.pim_w_valid[:, 0].contiguous()
     n_valid, n_wvalid = int(valid.sum()), int(wvalid.sum())
@@ -653,13 +697,41 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
 
     phase("kernel bloom_intersect")
     bank_all = bank.repeat_interleave(W, dim=0).reshape(L * W * 16, NW)
-    err = exact("bloom_intersect", K.bloom_intersect(bank_all, sigs, M),
-                K.bloom_intersect_plain(bank_all, sigs, M))
-    flat_bank = bank.reshape(L * 16, NW)
-    record("bloom_intersect", err, lambda a, b: K.bloom_intersect(a, b, M),
-           lambda a, b: K.bloom_intersect_plain(a, b, M), (flat_bank, read_sig),
-           nbytes=flat_bank.numel() * 4 + read_sig.numel() * 4 + L * 16,
-           ops=flat_bank.numel() * 2)
+    conc_all = bank_conc.repeat_interleave(W, dim=0).reshape(L * W * 16, NW)
+    err_row = exact("bloom_intersect", K.bloom_intersect(bank_all, sigs, M),
+                    K.bloom_intersect_plain(bank_all, sigs, M))
+    # the pair-and-any form on every window of every lane: against its plain
+    # version and against two per-row calls and their .any over registers
+    got = K.bloom_intersect(bank_all, sigs, M, a_b=conc_all)
+    err = exact("bloom_intersect (pair)", got,
+                K.bloom_intersect_plain(bank_all, sigs, M, a_b=conc_all))
+    two = torch.stack([K.bloom_intersect(x, sigs, M).reshape(L * W, 16).any(1)
+                       for x in (bank_all, conc_all)])
+    exact("bloom_intersect (pair vs two per-row calls)", got, two)
+    n_hits = [int(x.sum()) for x in got]
+    flat_bank, flat_conc = bank.reshape(L * 16, NW), bank_conc.reshape(L * 16, NW)
+    bank_bytes = flat_bank.numel() * 4
+    pair = measure(f"bloom_intersect pair ({L} lanes x 16 registers x {NW} words, two "
+                   f"banks, any register)", err,
+                   lambda a, c, b: K.bloom_intersect(a, b, M, a_b=c),
+                   lambda a, c, b: K.bloom_intersect_plain(a, b, M, a_b=c),
+                   (flat_bank, flat_conc, read_sig),
+                   nbytes=2 * bank_bytes + read_sig.numel() * 4 + 2 * L,
+                   ops=2 * flat_bank.numel() * 2)
+    per_row = measure(f"bloom_intersect per row ({L * 16} rows x {NW} words)", err_row,
+                      lambda a, b: K.bloom_intersect(a, b, M),
+                      lambda a, b: K.bloom_intersect_plain(a, b, M), (flat_bank, read_sig),
+                      nbytes=bank_bytes + read_sig.numel() * 4 + L * 16,
+                      ops=flat_bank.numel() * 2)
+    two_ms = event_ms(lambda a, c, b: (K.bloom_intersect(a, b, M).reshape(L, 16).any(1),
+                                       K.bloom_intersect(c, b, M).reshape(L, 16).any(1)),
+                      rotations((flat_bank, flat_conc, read_sig), 200), 200)
+    print(f"bloom_intersect: a window's two checks as two per-row calls and their .any "
+          f"(the previous path) {two_ms:.5f} ms against the pair's {pair['ms']:.5f} ms; "
+          f"launch floor {floor_ms:.5f} ms ({pair['ms'] / floor_ms:.2f}x it); "
+          f"{n_hits} lane-windows hit in the two banks", flush=True)
+    out["bloom_intersect"] = dict(per_row, pair=pair, two_per_row_calls_ms=two_ms,
+                                  shape=dict(L=L, registers=16, words=NW, hits=n_hits))
     return out
 
 
@@ -720,6 +792,7 @@ def main_path(K) -> dict[str, dict[str, int]]:
                   f"{engine}: kernel {name} was never launched")
         check_query_launches(f"Fig. 7/{engine}", study, rs, engine, counts[engine])
         check_insert_launches(f"Fig. 7/{engine}", study, rs, engine, counts[engine])
+        check_intersect_launches(f"Fig. 7/{engine}", study, rs, engine, counts[engine])
         check(len(rs) == 12, f"{engine}: {len(rs)} points, want 12")
         for p in rs:
             for m, r in p.results.items():
@@ -743,9 +816,9 @@ def main_path(K) -> dict[str, dict[str, int]]:
     return counts, walls, runs["sequential"]
 
 
-def device_busy_s(fn) -> tuple[float, int, list]:
+def device_busy_s(fn, top: int | None = 8) -> tuple[float, int, list]:
     """Device time of all kernels ``fn()`` runs (``torch.profiler``), their
-    number, and the top eight by name."""
+    number, and the ``top`` by name (all of them for None), largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -756,7 +829,7 @@ def device_busy_s(fn) -> tuple[float, int, list]:
     by_name = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), reverse=True)
-    return sum(t for t, _, _ in by_name), sum(c for _, c, _ in by_name), by_name[:8]
+    return sum(t for t, _, _ in by_name), sum(c for _, c, _ in by_name), by_name[:top]
 
 
 def main_path_profile(batch_wall_s: float) -> dict:
@@ -1265,6 +1338,7 @@ def capture_path() -> tuple[dict, dict, KernelTap]:
                   f"capture/{engine}: kernel {name} was never launched")
         check_query_launches(f"capture/{engine}", study, rs, engine, counts[engine])
         check_insert_launches(f"capture/{engine}", study, rs, engine, counts[engine])
+        check_intersect_launches(f"capture/{engine}", study, rs, engine, counts[engine])
         t0 = time.perf_counter()
         cpu = Study([CAPTURE_APP], device="cpu").run(engine=engine)
         cpu_wall = time.perf_counter() - t0
@@ -1571,6 +1645,7 @@ def kv_serve_path() -> tuple[dict, dict]:
                   f"kv_serve/{engine}: kernel {name} was never launched")
         check_query_launches(f"kv_serve/{engine}", study, rs, engine, counts[engine])
         check_insert_launches(f"kv_serve/{engine}", study, rs, engine, counts[engine])
+        check_intersect_launches(f"kv_serve/{engine}", study, rs, engine, counts[engine])
         worst = compare_results(rs, cpu, f"kv_serve/{engine}")
         print(f"{engine}: {KV_APP} x {len(MECHANISMS)} mechanisms in "
               f"{walls[engine]:.2f} s wall; launches {counts[engine]}; equals the "
@@ -1720,61 +1795,160 @@ def prefill_path() -> tuple[dict, dict, dict, tuple]:
 
 
 def flash_kernel_phase(layer0: tuple) -> dict[str, dict]:
-    """B7 at the prefill path's shape on layer 0's inputs, on both routes
-    (the sm90 kernel the path takes, and the general kernel held to the
-    same inputs): each against its plain version, timed, with its bound in
-    operations at the bf16 tensor-core rate and one
-    ``scaled_dot_product_attention`` call as yardstick.  Returns the stats
-    by kernel name."""
+    """B7 at the prefill path's shape on layer 0's inputs: the sm90 kernel
+    the bf16 path takes, and the general kernel in float32 (the dtype of
+    the float32 prefill, which runs it at full width) and in bfloat16
+    (forced): each against its plain version, timed, with its bound in
+    operations (bf16 at the tensor-core rate, float32 at the FFMA rate:
+    no TF32) and one ``scaled_dot_product_attention`` call on the same
+    inputs as yardstick (float32 with TF32 off).  Returns the stats by
+    kernel name; the general kernel's record is its forced bf16 timing, as
+    before the float32 path existed, with the float32 one as ``float32``."""
     import torch
     import torch.nn.functional as F
 
     FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
-    phase("kernel flash_attention (both routes)")
-    q, k, v = (t.contiguous() for t in layer0)
-    b, s, hq, d = q.shape
-    hkv = k.shape[2]
-    check(FA._route_for(q.dtype, d) == "sm90", f"layer 0's B7 call ({q.dtype}, D = {d}) "
-                                               f"does not take the sm90 route")
-    want = FA.flash_attention_plain(q, k, v, causal=True)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_err = float((lib.transpose(1, 2).to(torch.float32)
-                     - want.to(torch.float32)).abs().max())
-    del lib
-    es = q.element_size()
+    phase("kernel flash_attention (sm90 bf16; general float32 and bf16)")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 attention")
+    bf = tuple(t.contiguous() for t in layer0)
+    b, s, hq, d = bf[0].shape
+    hkv = bf[1].shape[2]
+    check(FA._route_for(bf[0].dtype, d) == "sm90", f"layer 0's B7 call ({bf[0].dtype}, "
+                                                   f"D = {d}) does not take the sm90 route")
     useful = 4 * d * (s * (s + 1) // 2) * b * hq  # QK^T and PV over the causal triangle
-    out = {}
-    for route, iters in (("sm90", 200), ("general", 50)):
+    runs = {}
+    for label, route, dtype, iters, peak in (
+            ("sm90", "sm90", torch.bfloat16, 200, PEAK_BF16_FLOP_PER_S),
+            ("general", "general", torch.float32, 20, PEAK_OPS_PER_S),
+            ("general bf16", "general", torch.bfloat16, 50, PEAK_BF16_FLOP_PER_S)):
+        q, k, v = bf if dtype == torch.bfloat16 else tuple(t.to(dtype) for t in bf)
         name = FA_ROUTE_KERNEL[route]
+        tname = str(dtype).removeprefix("torch.")
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2).to(torch.float32)
+                         - want.to(torch.float32)).abs().max())
+        del lib
         got = FA._flash_attention(q, k, v, causal=True, route=route)
         err, excess = fa_excess(got, want)
-        del got
-        check(excess <= 1.0, f"{name}: kernel disagrees with plain version (max |diff| "
-                             f"{err:.4g}, {excess:.3g} of the tolerance)")
-        print(f"{name} ({route} route) q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} "
+        del got, want
+        check(excess <= 1.0, f"{name} {tname}: kernel disagrees with plain version (max "
+                             f"|diff| {err:.4g}, {excess:.3g} of the tolerance)")
+        print(f"{name} ({route} route) q {tuple(q.shape)} k/v {tuple(k.shape)} {tname} "
               f"causal: max |kernel - plain| {err:.4g} ({excess:.3g} of the tolerance); "
               f"SDPA against plain {lib_err:.4g}", flush=True)
-        st = measure(f"{name} (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, bf16, causal)",
+        st = measure(f"{name} (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, {tname}, causal)",
                      err, lambda *a, r=route: FA._flash_attention(*a, causal=True, route=r),
                      lambda *a: FA.flash_attention_plain(*a, causal=True), (q, k, v),
-                     nbytes=(2 * q.numel() + 2 * k.numel()) * es, ops=useful, iters=iters,
-                     plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
+                     nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(), ops=useful,
+                     iters=iters, plain_iters=3, ops_per_s=peak,
                      library=lambda *a: F.scaled_dot_product_attention(
                          *a, is_causal=True, enable_gqa=True),
                      library_args=(qt, kt, vt))
-        out[name] = dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=hkv, D=d, dtype=str(q.dtype),
-                                        causal=True), b7_route=route, useful_flop=useful,
-                         tolerance_share=excess,
-                         library_call="torch.nn.functional.scaled_dot_product_attention"
-                                      "(is_causal=True, enable_gqa=True)",
-                         library_max_abs_diff_vs_plain=lib_err)
-    out["flash_attention_sm90"]["kernel_attributes"] = FA.sm90_attributes(d)
-    sm90, general = out["flash_attention_sm90"], out["flash_attention_general"]
-    print(f"flash_attention: sm90 route {sm90['ms']:.5f} ms, general route "
-          f"{general['ms']:.5f} ms ({general['ms'] / sm90['ms']:.2f}x), SDPA "
-          f"{sm90['library_ms']:.5f} ms, bound {sm90['bound_ms']:.5f} ms", flush=True)
-    return out
+        runs[label] = dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=hkv, D=d, dtype=tname,
+                                          causal=True), b7_route=route, useful_flop=useful,
+                           tolerance_share=excess,
+                           library_call="torch.nn.functional.scaled_dot_product_attention"
+                                        "(is_causal=True, enable_gqa=True)",
+                           library_max_abs_diff_vs_plain=lib_err)
+        del q, k, v, qt, kt, vt
+        gc.collect()
+        torch.cuda.empty_cache()
+    sm90, general, general_bf16 = runs["sm90"], runs["general"], runs["general bf16"]
+    sm90["kernel_attributes"] = FA.sm90_attributes(d)
+    general["kernel_attributes"] = FA.general_attributes(torch.float32, d)
+    general_bf16["kernel_attributes"] = FA.general_attributes(torch.bfloat16, d)
+    print(f"flash_attention bf16: sm90 route {sm90['ms']:.5f} ms, general route "
+          f"{general_bf16['ms']:.5f} ms ({general_bf16['ms'] / sm90['ms']:.2f}x), SDPA "
+          f"{sm90['library_ms']:.5f} ms, bound {sm90['bound_ms']:.5f} ms; float32: general "
+          f"route {general['ms']:.5f} ms, SDPA {general['library_ms']:.5f} ms, bound "
+          f"{general['bound_ms']:.5f} ms (FFMA, {general['bound_ms'] / general['ms']:.3f} "
+          f"of it reached)", flush=True)
+    return {"flash_attention_sm90": sm90,
+            "flash_attention_general": dict(general_bf16, float32=general)}
+
+
+def prefill_f32_path(params: dict) -> tuple[dict, dict]:
+    """qwen3-4b at full width and depth in float32 on the card: ``params``
+    (the float32 cast of the bf16 phases' weights, ~16 GB) through
+    ``make_prefill_step`` on 1 x 4,096 seeded tokens, with TF32 off;
+    counted and tapped (exactly 36 B7 launches, all on the general route,
+    each held to its plain version at ``FA_TOL``'s float32 pair),
+    unprofiled (wall time, peak memory) and profiled (idle share, top
+    kernels, B7's share of device time).  Returns (summary, launch counts
+    of the counted run)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+
+    phase("qwen3-4b prefill, float32 (general B7 route, full width)")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the float32 prefill")
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config("qwen3_4b"), param_dtype=torch.float32)
+    model = Model(cfg)
+    check(all(t.dtype == torch.float32 for t in tree_leaves(params)),
+          "prefill f32: weights not float32")
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    step(params, {"tokens": tokens[:, :256]})  # warm-up: cuBLAS handles, kernels
+    torch.cuda.synchronize()
+
+    tap = FlashTap()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tap:
+        last = step(params, batch)
+    torch.cuda.synchronize()
+    tapped_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["flash_attention_general"] == cfg.num_layers
+          and counts["flash_attention_sm90"] == 0,
+          f"prefill f32: {counts['flash_attention_general']} general and "
+          f"{counts['flash_attention_sm90']} sm90 B7 launches, want exactly "
+          f"{cfg.num_layers} general (one per layer)")
+    check(len(tap.calls) == cfg.num_layers, f"prefill f32: {len(tap.calls)} ops.mha calls")
+    check(tuple(last.shape) == (1, cfg.vocab) and last.dtype == torch.float32
+          and bool(last.isfinite().all()),
+          f"prefill f32: last-position logits {last.dtype}{tuple(last.shape)} not finite")
+    err, excess = tap.check("prefill f32")
+    print(f"prefill f32 (counted): {tapped_wall:.3f} s wall; launches {counts}; all "
+          f"{len(tap.calls)} flash_attention calls (general route) within tolerance of "
+          f"their plain versions (max |diff| {err:.4g}, at most {excess:.3g} of the "
+          f"tolerance)", flush=True)
+    del tap, last
+    gc.collect()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    busy, n_kernels, by_name = device_busy_s(lambda: step(params, batch), top=None)
+    for t, c, name in by_name[:8]:
+        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    b7_s = sum(t for t, _, name in by_name if "flash_attention" in name)
+    tokens_per_s = PREFILL_LEN / wall
+    n_params = model.param_count()
+    print(f"prefill f32: {wall:.4f} s wall ({tokens_per_s:.0f} tokens/s); device busy "
+          f"{busy:.4f} s in {n_kernels} kernels (idle share {1.0 - busy / wall:.3f}), B7 "
+          f"{b7_s:.4f} s of it ({b7_s / busy:.3f}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB (the {n_params * 4 / 2**30:.2f} GiB of weights "
+          f"included)", flush=True)
+    return dict(batch=1, seq=PREFILL_LEN, layers=cfg.num_layers, dtype="float32",
+                wall_s=wall, counted_wall_s=tapped_wall, tokens_per_s=tokens_per_s,
+                device_busy_s=busy, idle_share=1.0 - busy / wall, kernels=n_kernels,
+                flash_device_s=b7_s, flash_share=b7_s / busy, peak_mem_bytes=peak,
+                flash_calls=cfg.num_layers, flash_max_abs_err=err,
+                flash_max_tolerance_share=excess,
+                top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in by_name[:8]]), counts
 
 
 def smoke_prefill_path() -> dict[str, int]:
@@ -1926,6 +2100,8 @@ def main() -> int:
         K = build()
         import torch
 
+        from repro_torch.models.common import tree_map
+
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
@@ -1952,12 +2128,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serving, serve_counts = serve_path(params)
+        # the bf16 weights are dropped once cast: the float32 phase holds ~16 GB
+        params = tree_map(lambda t: t.to(torch.float32), params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefill32, prefill32_counts = prefill_f32_path(params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
         smoke_counts = smoke_prefill_path()
         for name in ("bloom_query", "bloom_query_onehot", "bloom_insert",
-                     "bloom_insert_onehot"):
+                     "bloom_insert_onehot", "bloom_intersect"):
             stats[name]["launch_floor_ms"] = floor_ms
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
@@ -1970,6 +2151,7 @@ def main() -> int:
                "kv_serve_batch": kv_counts["batch"],
                "kv_serve_sequential": kv_counts["sequential"],
                "qwen3_prefill": prefill_counts, "qwen3_serve": serve_counts,
+               "qwen3_prefill_f32": prefill32_counts,
                "smoke_prefill_f32": smoke_counts}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=TPU_KERNEL[name],
@@ -1980,7 +2162,7 @@ def main() -> int:
                       "signatures": signatures,
                       "capture_wall_s": cap_walls, "lazysync": lazy,
                       "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,
-                      "qwen3_serve": serving}))
+                      "qwen3_serve": serving, "qwen3_prefill_f32": prefill32}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,7 @@ from repro_torch.sim.prep import (
     XXH_PRIME5,
     TraceTensors,
     bank_pair_from_bitmaps,
-    conflict_any,
+    conflict_any_pair,
     cpu_cache_step,
     line_window_u01,
     members_pair,
@@ -153,13 +153,14 @@ def _lazypim_acc(tt: TraceTensors, hw: HWParams, cfg: LazyPIMConfig):
             commit = tt.kernel_end[:, w]
 
         # --- commit / conflict detection ------------------------------------
-        # Both conflict checks' CPUWriteSet banks from one launch.
+        # Both conflict checks' CPUWriteSet banks from one launch, and both
+        # checks from another.  Fresh concurrent writes (conc) can conflict
+        # again during the replay; after max_rollbacks the conflicting lines
+        # are locked (§5.5).
         bank_cpuws, bank_conc = bank_pair_from_bitmaps(tt, cpuws, conc, cfg.cpuws_regs)
-        c1 = conflict_any(tt, read_bits, bank_cpuws) & commit
+        c1, c2 = conflict_any_pair(tt, read_bits, bank_cpuws, bank_conc)
+        c1 = c1 & commit
         exact = ((cpuws & read_bm) != 0).any(1) & commit
-        # Fresh concurrent writes can conflict again during the replay; after
-        # max_rollbacks the conflicting lines are locked (§5.5).
-        c2 = conflict_any(tt, read_bits, bank_conc)
         rollbacks = torch.where(c1, 1.0 + torch.where(c2, 1.0, 0.0), 0.0)
 
         c1_mask = torch.where(c1, ALL_ONES, 0).to(torch.int32)[:, None]

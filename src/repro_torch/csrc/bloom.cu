@@ -57,7 +57,20 @@
 // bloom_intersect (ports bloom_intersect_pallas, bloom.py:316): the
 //   AND-prefilter, true iff every segment of a & b has a set bit.  Bound
 //   by bytes.  Design: one warp per row, a per-thread segment mask and
-//   one __reduce_or_sync.
+//   one __reduce_or_sync.  Pair-and-any form (what the LazyPIM window
+//   launches): both CPUWriteSet banks of a window (cpuws and conc, L lanes
+//   x R registers each) against the lanes' read images, and per bank and
+//   lane whether ANY register passes -- the two conflict checks of a
+//   window and their .any over registers in one launch.  Bound by the
+//   bytes of the two banks and the images (~25 KB at the window's 3 lanes
+//   x 16 registers x 64 words), far under the launch itself.  Design: one
+//   block a lane, one warp a register (2R warps, at most 32, striding past
+//   that), so every register's words are in flight at once; each warp
+//   reads the lane's image words it needs once (2 a thread at 64 words),
+//   tests its register with one __reduce_or_sync, and the block ORs the
+//   warps' verdicts in shared memory.  (One warp a lane walking all 2R
+//   registers would put the window's 96 register reads behind each other
+//   in 3 warps.)
 //
 // bloom_detect_conflicts (ports bloom_detect_conflicts_pallas,
 //   bloom.py:266, kernel _conflict_kernel :240): LazySync's fused hash ->
@@ -179,6 +192,41 @@ __global__ void intersect_kernel(const uint32_t* __restrict__ a,
   segs = __reduce_or_sync(0xFFFFFFFFu, segs);
   const uint32_t full = M >= 32 ? 0xFFFFFFFFu : ((1u << M) - 1u);
   if (t == 0) out[row] = segs == full ? 1 : 0;
+}
+
+// One block a lane, one warp a register: a and a_b (L * R, NW) banks, b (L,
+// NW) read images -> out (2, L): out[k][l] = any register r of bank k of
+// lane l passes the prefilter against b[l].
+__global__ void intersect_pair_kernel(const uint32_t* __restrict__ a,
+                                      const uint32_t* __restrict__ a_b,
+                                      const uint32_t* __restrict__ b,
+                                      uint8_t* __restrict__ out, int L, int R,
+                                      int NW, int WPS, int M) {
+  __shared__ int hit[2];
+  const int lane = blockIdx.x;
+  const int w = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  if (threadIdx.x < 2) hit[threadIdx.x] = 0;
+  __syncthreads();
+  const uint32_t* img = b + static_cast<size_t>(lane) * NW;
+  const uint32_t full = M >= 32 ? 0xFFFFFFFFu : ((1u << M) - 1u);
+  bool found[2] = {false, false};
+  for (int reg = w; reg < 2 * R; reg += blockDim.x >> 5) {  // uniform per warp
+    const int bank = reg >= R;
+    const uint32_t* row = (bank ? a_b : a) +
+                          (static_cast<size_t>(lane) * R + (reg - bank * R)) * NW;
+    uint32_t segs = 0u;
+    for (int j = t; j < NW; j += 32) {
+      if (row[j] & img[j]) segs |= 1u << (j / WPS);
+    }
+    if (__reduce_or_sync(0xFFFFFFFFu, segs) == full) found[bank] = true;
+  }
+  if (t == 0) {
+    if (found[0]) hit[0] = 1;  // every writer writes 1
+    if (found[1]) hit[1] = 1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) out[threadIdx.x * L + lane] = static_cast<uint8_t>(hit[threadIdx.x]);
 }
 
 // sigs (G, NW), addrs (N,) -> out (N,): groups holding every position.
@@ -318,6 +366,16 @@ int bloom_intersect_launch(const void* a, const void* b, void* out, int B,
   intersect_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint8_t*>(out), B, R, NW, WPS, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, a_b (L * R, NW), b (L, NW) -> out (2, L); L >= 1, R >= 1.
+int bloom_intersect_pair_launch(const void* a, const void* a_b, const void* b, void* out,
+                                int L, int R, int NW, int WPS, int M, void* stream) {
+  const int threads = 32 * std::min(2 * R, 32);
+  intersect_pair_kernel<<<L, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(a_b),
+      static_cast<const uint32_t*>(b), static_cast<uint8_t*>(out), L, R, NW, WPS, M);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,8 @@ does about that).  Each wrapper here:
 * ``bloom_query`` ports ``bloom_query_pallas`` (``bloom.py:205``): the
   flush / merge / invalidate membership masks, two bitmaps a launch;
 * ``bloom_intersect`` ports ``bloom_intersect_pallas`` (``bloom.py:316``):
-  the two conflict checks of each LazyPIM window;
+  per row, or in its pair-and-any form both conflict checks of a LazyPIM
+  window (its two banks against the read image, any register) a launch;
 * ``bloom_detect_conflicts`` ports ``bloom_detect_conflicts_pallas``
   (``bloom.py:266``): LazySync's per-address hit-group counts
   (``LazyEmbed.detect_conflicts``).
@@ -73,6 +74,7 @@ _SIGNATURES = {
     "bloom_query_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bloom_query_attributes": [_P],
     "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bloom_intersect_pair_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bloom_detect_conflicts_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -395,9 +397,13 @@ bloom_query.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def bloom_intersect_plain(a: torch.Tensor, b: torch.Tensor,
-                          num_segments: int) -> torch.Tensor:
+def bloom_intersect_plain(a: torch.Tensor, b: torch.Tensor, num_segments: int,
+                          a_b: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of :func:`bloom_intersect` (same arguments and result)."""
+    if a_b is not None:
+        lanes = b.shape[0]
+        return torch.stack([bloom_intersect_plain(x, b, num_segments).reshape(lanes, -1).any(1)
+                            for x in (a, a_b)])
     rows, nw = a.shape
     per = rows // b.shape[0]
     inter = a.reshape(b.shape[0], per, nw) & b[:, None, :]
@@ -405,12 +411,18 @@ def bloom_intersect_plain(a: torch.Tensor, b: torch.Tensor,
     return (seg != 0).any(2).all(1)
 
 
-def bloom_intersect(a: torch.Tensor, b: torch.Tensor,
-                    num_segments: int) -> torch.Tensor:
+def bloom_intersect(a: torch.Tensor, b: torch.Tensor, num_segments: int, *,
+                    a_b: torch.Tensor | None = None) -> torch.Tensor:
     """AND-prefilter: ``a`` (B, NW), ``b`` (L, NW) int32 with ``B % L == 0``;
     row ``i`` of ``a`` pairs with row ``i // (B // L)`` of ``b`` (so a
-    CPUWriteSet bank of ``B // L`` registers per lane meets its lane's read
-    image).  -> (B,) bool, True iff every segment of the AND is non-empty.
+    CPUWriteSet bank of ``R = B // L`` registers per lane meets its lane's
+    read image).  -> (B,) bool, True iff every segment of the AND is
+    non-empty.
+
+    Given ``a_b`` (a second bank, shaped as ``a``), the pair-and-any form:
+    -> (2, L) bool, entry (k, l) True iff ANY of the R registers of lane l
+    in bank k (``a``, then ``a_b``) passes against ``b[l]``; one launch for
+    both banks and their reductions over registers.
 
     Ports ``bloom_intersect_pallas``
     (``src/repro/kernels/bloom/bloom.py:316``); its bound and design are
@@ -423,12 +435,27 @@ def bloom_intersect(a: torch.Tensor, b: torch.Tensor,
     if not 1 <= num_segments <= 32 or nw % num_segments:
         raise ValueError(f"num_segments={num_segments} must divide {nw} words "
                          f"and be <= 32")
-    if _on_cpu(a, b):
-        return bloom_intersect_plain(a, b, num_segments)
+    if a_b is not None:
+        _check("a_b", a_b, torch.int32, 2)
+        if a_b.shape != a.shape:
+            raise ValueError(f"bloom_intersect: a_b {tuple(a_b.shape)} vs a {tuple(a.shape)}")
+        if rows == 0:
+            raise ValueError("bloom_intersect: the pair form needs at least one "
+                             "register a lane")
+    if _on_cpu(a, b, *(() if a_b is None else (a_b,))):
+        return bloom_intersect_plain(a, b, num_segments, a_b)
+    lanes = b.shape[0]
+    if a_b is not None:
+        out = torch.empty((2, lanes), dtype=torch.bool, device=a.device)
+        _launch("bloom_intersect_pair_launch", a.data_ptr(), a_b.data_ptr(), b.data_ptr(),
+                out.data_ptr(), lanes, rows // lanes, nw, nw // num_segments,
+                num_segments, _stream(a))
+        bloom_intersect.launches += 1
+        return out
     out = torch.empty((rows,), dtype=torch.bool, device=a.device)
     if rows:
         _launch("bloom_intersect_launch", a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), rows, rows // b.shape[0], nw,
+                out.data_ptr(), rows, rows // lanes, nw,
                 nw // num_segments, num_segments, _stream(a))
         bloom_intersect.launches += 1
     return out

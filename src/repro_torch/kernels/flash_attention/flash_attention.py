@@ -8,7 +8,9 @@ routes, chosen before any launch from the dtype and the head dim:
   256) goes to ``repro_torch/csrc/flash_attention_sm90.cu`` (register
   accumulators, a TMA-fed K/V ring, ``wgmma``);
 - ``"general"``: float32, and bfloat16 with every other head dim, goes to
-  ``repro_torch/csrc/flash_attention.cu``.
+  ``repro_torch/csrc/flash_attention.cu`` (bfloat16 on ``mma.sync`` with S,
+  P and O in registers; float32 as register-tiled exact FFMA; both with a
+  ``cp.async`` K/V ring).
 
 Each source carries the note on what bounds it and what its design does
 about that.  The wrapper checks device, dtype, shape, contiguity and
@@ -30,7 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "reset_launch_counts",
-           "launch_counts", "route_counts", "NEG_INF", "BLOCK_K", "SM90_HEAD_DIMS"]
+           "launch_counts", "route_counts", "sm90_attributes", "general_attributes",
+           "general_bands", "NEG_INF", "BLOCK_K", "SM90_HEAD_DIMS"]
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 SOURCE_SM90 = _build.CSRC / "flash_attention_sm90.cu"
@@ -47,7 +50,9 @@ _ENTRY = {"general": "flash_attention_launch", "sm90": "flash_attention_sm90_lau
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return _build.bind(SOURCE, {_ENTRY["general"]: _ARGS})
+    return _build.bind(SOURCE, {_ENTRY["general"]: _ARGS,
+                                "flash_attention_general_attributes": [_I, _I, _P],
+                                "flash_attention_general_bands": [_I, _I, _P]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +71,33 @@ def sm90_attributes(d: int) -> dict[str, int]:
                   ctypes.addressof(vals))
     return dict(zip(("registers", "local_bytes", "static_smem_bytes",
                      "dynamic_smem_bytes"), vals))
+
+
+def general_bands(dtype: torch.dtype) -> tuple[int, ...]:
+    """The largest head dim of each band of the general kernel that takes
+    ``dtype`` (float32 or bfloat16), smallest first, as the library's band
+    table has them; the last is the dtype's limit.  Builds the library;
+    needs a card."""
+    vals = (ctypes.c_int * 16)()
+    _build.launch(_lib(), "flash_attention_general_bands", _DTYPES[dtype], len(vals),
+                  ctypes.addressof(vals))
+    return tuple(vals[1:1 + vals[0]])
+
+
+def general_attributes(dtype: torch.dtype, d: int) -> dict[str, int]:
+    """What the loaded general kernel that takes ``dtype`` (float32 or
+    bfloat16) at head dim ``d`` is: its band's registers a thread, local
+    memory a thread (spills and stack) and static shared memory a block as
+    ``cudaFuncGetAttributes`` reads them, the dynamic shared memory a
+    launch at ``d`` asks for, and the band's keys a KV tile, threads and
+    query rows a block.  Head dims come in bands of one kernel instance
+    each (``csrc/flash_attention.cu``).  Builds the library; needs a card;
+    raises for a head dim the route refuses."""
+    vals = (ctypes.c_int * 7)()
+    _build.launch(_lib(), "flash_attention_general_attributes", _DTYPES[dtype], d,
+                  ctypes.addressof(vals))
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "block_k", "threads", "block_q"), vals))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -132,7 +164,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and head dim choose the route.  On the general route the head dim must
     be a multiple of 16 whose tiles fit a block's shared memory (up to 320
     in bfloat16, 208 in float32); each launcher refuses what it cannot
-    take, and a grid it cannot launch, and the wrapper raises."""
+    take, and a grid it cannot launch, and the wrapper raises.  The general
+    route computes float32 exactly (no TF32); in bfloat16 both routes round
+    P to bfloat16 for the PV product."""
     return _flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -28,6 +28,9 @@ PyTorch versions on the CPU):
                               at once (the window's ``cpuws`` and ``conc``)
 * ``conflict_any``          — ``bloom_intersect`` of the bank with the
                               read image, any register
+* ``conflict_any_pair``     — ``bloom_intersect``'s pair-and-any form: both
+                              banks of a window (``cpuws`` and ``conc``)
+                              against the read image, one launch
 * ``members``               — ``bloom_query``: packed per-line membership
 * ``members_pair``          — ``bloom_query`` on two bitmaps at once (one
                               lookup of each line against the image)
@@ -38,7 +41,8 @@ PyTorch versions on the CPU):
 reference's fused gather forms, kept as plain PyTorch for parity tests;
 ``conflict_from_hits`` is bit-exact with ``conflict_any`` of
 ``bank_bits_from_bitmap`` (the unfused form the port's step computes, its
-two banks from one ``bank_pair_from_bitmaps``).
+two banks from one ``bank_pair_from_bitmaps`` and both checks from one
+``conflict_any_pair``).
 
 The bitmap primitives the five baselines use (``scatter_set``,
 ``gather_hits``, ``cpu_cache_step``) stay plain PyTorch on the card, as
@@ -281,6 +285,17 @@ def conflict_any(tt: TraceTensors, read_words: torch.Tensor,
     hit = K.bloom_intersect(bank_words.reshape(lanes * regs, nw),
                             read_words.contiguous(), tt.num_segments)
     return hit.reshape(lanes, regs).any(1)
+
+
+def conflict_any_pair(tt: TraceTensors, read_words: torch.Tensor, bank_a: torch.Tensor,
+                      bank_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(conflict_any(tt, read_words, bank_a), conflict_any(tt, read_words,
+    bank_b))`` from one ``bloom_intersect`` launch: the banks (L, R,
+    sig_words) each, the per-lane any over registers inside the kernel."""
+    lanes, regs, nw = bank_a.shape
+    hit = K.bloom_intersect(bank_a.reshape(lanes * regs, nw), read_words.contiguous(),
+                            tt.num_segments, a_b=bank_b.reshape(lanes * regs, nw))
+    return hit[0], hit[1]
 
 
 def members(tt: TraceTensors, words: torch.Tensor,

@@ -8,8 +8,12 @@ from 1 to 4,096 across the 64-row tiles, MHA / GQA / MQA, head dims 64 and
 128, both dtypes, windows, and non-causal calls with ragged key tails, on
 whichever route each call takes, then the same shapes held to the sm90
 route by its route count, odd KV tile counts for its 2-stage ring, the
-general route forced on bfloat16 at the sm90 head dims, and the sm90
-kernel's registers and shared memory as the loaded binary reports them),
+general route forced on bfloat16 at the sm90 head dims, the general
+kernel at head dims across every band of both dtypes (16 to 208 in
+float32, to 320 in bfloat16) with Sq over and under Sk and no keys, and
+both kernels' registers and shared memory as the loaded binary reports
+them; for bloom_intersect's pair-and-any form 1 to 48 lanes, 1 or 16
+registers, 1 to 32 segments and all-zero banks and images),
 and small end-to-end runs (the Fig. 7 study, the capture study, the seed
 engine, nine LazySync steps, a smoke prefill and the smoke serve loop)
 held against the CPU path.  The Bloom kernels give integers and the merge
@@ -317,6 +321,32 @@ def test_intersect(dev, spec, lanes, regs):
     b = _words((lanes, spec.num_words), 0.05, dev, 3)
     got = K.bloom_intersect(a, b, spec.num_segments)
     assert torch.equal(got, K.bloom_intersect_plain(a, b, spec.num_segments))
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 48])
+@pytest.mark.parametrize("regs", [1, 16])
+@pytest.mark.parametrize("m", [1, 4, 32])
+@pytest.mark.parametrize("nw", [64, 256])
+@pytest.mark.parametrize("kind", ["random", "zeros"])
+def test_intersect_pair(dev, lanes, regs, m, nw, kind):
+    """The pair-and-any form: one launch for both banks, equal to its plain
+    version and to two per-row calls and their .any over registers;
+    all-zero banks and images give False."""
+    dens = 0.0 if kind == "zeros" else 0.15
+    a = _words((lanes * regs, nw), dens, dev, lanes + regs)
+    a_b = _words((lanes * regs, nw), dens / 3, dev, lanes + regs + 1)
+    b = _words((lanes, nw), 0.0 if kind == "zeros" else 0.3, dev, m)
+    K.reset_launch_counts()
+    got = K.bloom_intersect(a, b, m, a_b=a_b)
+    assert K.launch_counts()["bloom_intersect"] == 1
+    assert got.shape == (2, lanes) and got.dtype == torch.bool
+    assert torch.equal(got, K.bloom_intersect_plain(a, b, m, a_b))
+    two = torch.stack([K.bloom_intersect(x, b, m).reshape(lanes, regs).any(1)
+                       for x in (a, a_b)])
+    assert torch.equal(got, two)
+    if kind == "zeros":
+        assert not got.any()
+    K.reset_launch_counts()
 
 
 def test_launch_counts_and_device_checks(dev):
@@ -742,6 +772,65 @@ def test_flash_attention_head_dim_limits(dev, no_tf32, dtype, d, fits):
     with pytest.raises(RuntimeError, match="CUDA error"):
         FA.flash_attention(*qkv)
     assert FA.launch_counts() == {"flash_attention": 0}
+
+
+# The general route's kernels (flash_attention.cu): float32 register-tiled
+# FFMA and bfloat16 mma.sync, one template instance a head-dim band; every
+# case forces the general route (a no-op off the sm90 head dims) and checks
+# that it ran there.
+GENERAL_DIMS = (16, 32, 48, 80, 112, 128, 160, 208, 320)
+GENERAL_CASES = {
+    "causal": (200, 200, dict(causal=True)),
+    "window": (300, 300, dict(causal=True, window=100)),
+    "noncausal_ragged": (129, 77, dict(causal=False)),
+    "sq_over_sk": (300, 100, dict(causal=True, window=16)),
+    "sq_under_sk": (70, 300, dict(causal=False)),
+    "empty_k": (70, 0, dict(causal=False)),
+}
+
+
+@pytest.mark.parametrize("dtype,d", [(t, d) for t in (torch.float32, torch.bfloat16)
+                                     for d in GENERAL_DIMS
+                                     if t == torch.bfloat16 or d <= 208],
+                         ids=lambda x: str(x).removeprefix("torch."))
+@pytest.mark.parametrize("case", list(GENERAL_CASES))
+def test_flash_attention_general_head_dims(dev, no_tf32, dtype, d, case):
+    """Head dims across every band of both dtypes (D = 128 in bfloat16 is the
+    forced route), causal, causal + window, non-causal with a ragged Sk, Sq
+    over and under Sk, and no keys at all (zeros)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    sq, sk, kw = GENERAL_CASES[case]
+    q, k, v = _qkv(dev, 2, sq, sk, 8, 2, d, dtype, d + sq + sk)
+    FA.reset_launch_counts()
+    _fa_check(q, k, v, route="general", **kw)
+    assert FA.route_counts() == {"general": 1, "sm90": 0}
+    if case == "empty_k":
+        assert not bool(FA._flash_attention(q, k, v, route="general", **kw).any())
+    FA.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=lambda x: str(x).removeprefix("torch."))
+def test_flash_attention_general_attributes(dev, dtype):
+    """Each band's kernel, at the first and last head dim of every band the
+    library reports, as ``cudaFuncGetAttributes`` reads it: a block fits the
+    register file, its shared memory fits the SM's 227 KB, and no band
+    spills to local memory; the head dim past the last band is refused."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+
+    tops = FA.general_bands(dtype)
+    assert len(tops) >= 1 and list(tops) == sorted(set(tops))
+    assert tops[-1] == (320 if dtype == torch.bfloat16 else 208)
+    for first, last in zip((16,) + tuple(t + 16 for t in tops[:-1]), tops):
+        for d in (first, last):
+            a = FA.general_attributes(dtype, d)
+            assert 0 < a["registers"] <= 255 and a["registers"] * a["threads"] <= 65536
+            assert a["local_bytes"] == 0, (d, a)
+            assert 0 < a["static_smem_bytes"] + a["dynamic_smem_bytes"] <= 232448
+            assert a["block_k"] in (32, 64) and a["block_q"] in (64, 128)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FA.general_attributes(dtype, tops[-1] + 16)
 
 
 # The sm90 route (flash_attention_sm90.cu): bfloat16, D in {64, 96, 128,
