@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero before the final line:
    ``flash_attention_sm90.cu``) with ``nvcc`` for sm_90a, one process each,
    started together, into the gitignored ``build/``; print what
    ``cudaFuncGetAttributes`` reads from the loaded ``bloom_query``,
-   ``bloom_query_onehot``, ``bloom_insert`` (id and bitmap forms) and
-   ``bloom_insert_onehot`` kernels (both builds of each: the paper's geometry
-   fixed, and any; local memory must be 0), from the general flash
+   ``bloom_query_onehot``, ``bloom_insert`` (id and bitmap forms),
+   ``bloom_insert_onehot``, ``h3_hash`` and
+   ``bloom_detect_conflicts`` (transposed and direct routes) kernels (the
+   paper's geometry fixed, and any; local memory must be 0), from the general flash
    attention kernel's bands (three a dtype) and from the sm90 one at each
    head dim (registers and local memory, i.e. spills and stack, a thread;
    static and dynamic shared memory a block); then the card's launch
@@ -28,6 +29,10 @@ Phases, in order; any failure exits non-zero before the final line:
    over back-to-back calls on input copies rotated through 100 MB (twice
    the L2), and the kernel's bound (bytes over 3.35 TB/s vs operations
    over 67 Top/s, whichever is larger); a time under its bound fails.
+   ``h3_hash`` is held on the bucket's lines, on 262,144 random 32-bit
+   addresses and on LazySync's first 4 x 4,096 touched ids at qwen3-4b
+   width, and timed at 262,144 lines and at those 16,384 ids, with the
+   launch floor and, on a text line, the previous design's reading.
    ``bloom_query`` is held on every window with one bitmap and with two
    (``present`` and ``dirty``), and timed both ways; its bound counts the
    bitmaps read and written and the signature against the parity hash's
@@ -109,7 +114,8 @@ Phases, in order; any failure exits non-zero before the final line:
    ``lazy_merge`` at the reconcile shape (4, 1,024, 2,560) and the commit
    shape (4, 151,936, 2,560) in bf16, on inputs the two paths gave them:
    times and bounds as in phase 3 (merge: exact expected, 1e-6 relative
-   allowed);
+   allowed); B5 on its transposed route, with the launch floor and, on a
+   text line, the previous design's reading;
 12. capture/kv_serve — ``Study(["capture/kv_serve"])`` (the paged-KV decode
    loop at its default scale: 500 pages, batch 24, 24 kernels x 3 steps)
    with all six mechanisms on both engines, each held to one
@@ -156,8 +162,10 @@ Phases, in order; any failure exits non-zero before the final line:
    the general route's own path;
 18. the ``kernels`` JSON line (ten kernels: B7 once a route, as
    ``flash_attention_general`` — its forced bf16 timing, the float32 one as
-   ``float32`` — and ``flash_attention_sm90``; the five redesigned Bloom
-   kernels also carry the launch floor, the queries their old bound,
+   ``float32`` — and ``flash_attention_sm90``; the seven redesigned Bloom
+   kernels also carry the launch floor, ``h3_hash`` (timed at 262,144
+   lines) its timing at LazySync's ids as ``lazysync_ids``, ``bloom_detect_conflicts`` (timed
+   at qwen3-4b width) the capture's shape under ``other_shapes``, the queries their old bound,
    ``bloom_query`` its two-bitmap timing as ``pair``, ``bloom_insert`` its
    pair, bank and bank pair timings, ``bloom_insert_onehot`` its pair and
    ``bloom_intersect`` (timed per row) its pair-and-any timing as ``pair``;
@@ -234,12 +242,15 @@ INSERTS_PER_WINDOW = 2
 # ...and answers both conflict checks (its two banks against the read
 # image, any register) from one bloom_intersect launch.
 INTERSECTS_PER_WINDOW = 1
-# The previous insert designs' per-call readings at the shapes timed here
-# (PERF.md §6): the id list (3 x 256), the bank of one bitmap with the zero
-# fill it needed, B8a at (1, 256).  Printed beside this run's timings for
-# comparison, never reported as this run's.
+# The previous designs' per-call readings at the shapes timed here (PERF.md
+# §6): the insert's id list (3 x 256), the bank of one bitmap with the zero
+# fill it needed, B8a at (1, 256); the staged-table B1 at 262,144 lines and
+# B5 at G = 4 with N = 16,384 and 192.  Printed beside this run's timings
+# for comparison, never reported as this run's.
 PREVIOUS_MS = {"bloom_insert": 0.00574, "bloom_insert bank": 0.00911,
-               "bloom_insert_onehot": 0.00642}
+               "bloom_insert_onehot": 0.00642, "h3_hash": 0.01413,
+               "bloom_detect_conflicts": 0.00670,
+               "bloom_detect_conflicts capture": 0.00637}
 PREVIOUS_CARD = "PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W"
 SIG_HASH_BATCH, SIG_KERNEL_BATCH, SIG_LINES = 4096, 1024, 65_536
 SIG_GROUPS, SIG_IDS_PER_GROUP = 4, 256
@@ -350,6 +361,8 @@ def build():
                   ("bloom_insert_onehot", K8.insert_attributes())]
     attributes += [(f"bloom_insert {form} form", builds)
                    for form, builds in K.insert_attributes().items()]
+    attributes += [("h3_hash", K.hash_attributes()),
+                   ("bloom_detect_conflicts", K.detect_attributes())]
     for name, builds in attributes:
         for build_of, a in builds.items():
             print(f"{name} ({build_of} geometry): {a['registers']} registers and "
@@ -358,7 +371,7 @@ def build():
                   flush=True)
             check(a["local_bytes"] == 0,
                   f"{name} ({build_of}): {a['local_bytes']} bytes of local memory "
-                  f"(the column masks must stay in the constant bank)")
+                  f"(no build may spill or index a local array)")
     for dtype in (torch.bfloat16, torch.float32):
         for d in FA.general_bands(dtype):
             a = FA.general_attributes(dtype, d)
@@ -517,14 +530,17 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
     every lane; times are taken at the per-window call shape (3 lanes)."""
     import torch
 
-    from repro_torch.core.signatures import default_spec, tables_tensor, unpack_words
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lazy_sync import LazySyncConfig
+    from repro_torch.core.signatures import default_spec, packed_tables, unpack_words
     from repro_torch.sim.engine import stack_traces
     from repro_torch.sim.prep import pad_trace, popcount_words, prepare, scatter_set
     from repro_torch.sim.trace import make_trace
 
     dev = torch.device("cuda", 0)
     spec = default_spec()
-    tabs = tables_tensor(spec, dev)
     S, M, NW = spec.num_byte_slices, spec.num_segments, spec.num_words
     st = stack_traces([pad_trace(prepare(make_trace(app, device=dev), device=dev),
                                  num_lines=LINES) for app in HTAP_BUCKET])
@@ -560,14 +576,37 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
 
     phase("kernel h3_hash")
     lines = torch.arange(LINES, dtype=torch.int32, device=dev)
-    err = exact("h3_hash", K.h3_hash(lines, tabs), K.h3_hash_plain(lines, tabs))
+    err = exact("h3_hash", K.h3_hash(spec, lines), K.h3_hash_plain(spec, lines))
     full = torch.randint(-2**31, 2**31 - 1, (LINES,), device=dev, dtype=torch.int32,
                          generator=torch.Generator(device=dev).manual_seed(0))
-    exact("h3_hash (32-bit addresses)", K.h3_hash(full, tabs),
-          K.h3_hash_plain(full, tabs))
-    record("h3_hash", err, K.h3_hash, K.h3_hash_plain, (lines, tabs),
-           nbytes=LINES * 4 + LINES * M * 4 + tabs.numel() * 4,
-           ops=LINES * M * (2 * S - 1))
+    exact("h3_hash (32-bit addresses)", K.h3_hash(spec, full), K.h3_hash_plain(spec, full))
+    # LazySync's shape: the first step's 4 x 4,096 touched ids at qwen3-4b width
+    touched = torch.from_numpy(_lazy_touched(
+        np.random.default_rng([1, 0]), get_config("qwen3_4b").vocab,
+        LazySyncConfig().num_groups, LAZY_TOUCHED).reshape(-1)).to(dev)
+    err_ids = exact("h3_hash (LazySync ids)", K.h3_hash(spec, touched),
+                    K.h3_hash_plain(spec, touched))
+    ptab_bytes = packed_tables(spec).nbytes
+
+    def hash_bound(n):
+        """Each address read once, its M positions written once, the packed
+        table read once; per address S gathers, S - 1 XORs and a shift, mask
+        and OR a segment."""
+        return dict(nbytes=n * 4 + n * M * 4 + ptab_bytes, ops=n * (2 * S - 1 + 3 * M))
+
+    def hash_timed(label, n_err, args):
+        st_ = measure(label, n_err, lambda a: K.h3_hash(spec, a),
+                      lambda a: K.h3_hash_plain(spec, a), args, **hash_bound(args[0].numel()))
+        print(f"{label}: launch floor {floor_ms:.5f} ms ({st_['ms'] / floor_ms:.2f}x it)",
+              flush=True)
+        return st_
+
+    prev = PREVIOUS_MS["h3_hash"]
+    print(f"h3_hash: previous design's reading {prev:.5f} ms at {LINES} lines "
+          f"({PREVIOUS_CARD})", flush=True)
+    out["h3_hash"] = dict(hash_timed(f"h3_hash ({LINES} lines)", err, (lines,)),
+                          lazysync_ids=hash_timed(f"h3_hash ({touched.numel()} LazySync ids)",
+                                                  err_ids, (touched,)))
 
     phase("kernel bloom_insert")
     log_seg = spec.seg_bits.bit_length() - 1
@@ -600,6 +639,7 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
     wids, wvalid = st.pim_writes[:, 0].contiguous(), st.pim_w_valid[:, 0].contiguous()
     n_valid, n_wvalid = int(valid.sum()), int(wvalid.sum())
     img_bytes, bank_bytes = L * NW * 4, L * 16 * NW * 4
+    old_tab_bytes = S * 256 * M * 4  # the uint32 tables the old designs staged
 
     def timed(label, err, fn, plain, args, nbytes, ops, previous=None):
         st_ = measure(label, err, fn, plain, args, nbytes, ops)
@@ -614,7 +654,7 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
                    lambda i, v: K.bloom_insert_plain(spec, ids=i, valid=v), (ids, valid),
                    nbytes=ids.numel() * 5 + img_bytes, ops=n_valid * hash_ops,
                    previous=f"previous design's reading {prev:.5f} ms")
-    old_bound, old_by = bound_ms(ids.numel() * 5 + img_bytes + tabs.numel() * 4,
+    old_bound, old_by = bound_ms(ids.numel() * 5 + img_bytes + old_tab_bytes,
                                  n_valid * M * (2 * S + 2))
     print(f"bloom_insert: old bound {old_bound:.7f} ms ({old_by}; the staged tables "
           f"counted)", flush=True)
@@ -667,14 +707,14 @@ def kernel_phases(K, floor_ms: float) -> dict[str, dict]:
         """Parity operations the lines set in ``words`` need: every column
         of each segment hashed, up to the first clear bit."""
         lane, line = torch.nonzero(unpack_words(words, LINES), as_tuple=True)
-        pos = K.h3_hash(line.to(torch.int32), tabs).to(torch.int64)
+        pos = K.h3_hash(spec, line.to(torch.int32)).to(torch.int64)
         looked = ((read_sig[lane[:, None], pos >> 5] >> (pos & 31)) & 1)
         hashed = int((looked.cumprod(-1).sum(-1) + 1).clamp(max=M).sum())
         return hashed * log_seg * PARITY_OPS, hashed
 
     sig_bytes = read_sig.numel() * 4
     ops, hashed = query_ops(present)
-    old_bound, old_by = bound_ms(2 * present.numel() * 4 + sig_bytes + tabs.numel() * 4,
+    old_bound, old_by = bound_ms(2 * present.numel() * 4 + sig_bytes + old_tab_bytes,
                                  present.numel() * 2 + n_present * M * (2 * S + 2))
     st = measure(f"bloom_query ({L} x {LINES} lines, {n_present} set, {hashed} "
                  f"segments hashed)", err,
@@ -1118,7 +1158,6 @@ def signatures_phase(K, card: str) -> dict:
     phase("signatures (bench_signatures on the card)")
     dev = torch.device("cuda", 0)
     spec = S.default_spec()
-    tabs = S.tables_tensor(spec, dev)
     nw, iters = spec.num_words, 200
 
     def ms(fn, *args, n=iters):
@@ -1137,13 +1176,13 @@ def signatures_phase(K, card: str) -> dict:
     out = {"card": card, "spec": dict(sig_bits=spec.sig_bits, num_segments=spec.num_segments,
                                       addr_bits=spec.addr_bits)}
     addrs = u32(np.random.default_rng(0), SIG_HASH_BATCH)
-    got = K.h3_hash(addrs, tabs)
+    got = K.h3_hash(spec, addrs)
     check(torch.equal(got, S.hash_positions_xorfold(spec, addrs)),
           "signatures: byte-sliced H3 != xor-fold")
     out["hash_positions"] = pair(
         f"hash_positions (batch {SIG_HASH_BATCH})", "xorfold_ms",
         ms(lambda a: S.hash_positions_xorfold(spec, a), addrs, n=20),
-        "bytesliced_ms", ms(lambda a: K.h3_hash(a, tabs), addrs), batch=SIG_HASH_BATCH)
+        "bytesliced_ms", ms(lambda a: K.h3_hash(spec, a), addrs), batch=SIG_HASH_BATCH)
 
     # Line ids, so the word-level query (B3, over a line bitmap) can take
     # the same probes: half of them inserted, half fresh.
@@ -1192,13 +1231,13 @@ def signatures_phase(K, card: str) -> dict:
         pos = S.hash_positions(spec, a).to(torch.int64)
         return S.unpack_bits(spec, sg)[:, pos].all(-1).sum(0, dtype=torch.int32)
 
-    fused = K.bloom_detect_conflicts(sigs, probes, tabs)
+    fused = K.bloom_detect_conflicts(spec, sigs, probes)
     check(torch.equal(fused, two_pass(sigs, probes)),
           "signatures: fused conflict detector != two-pass path")
     out["conflict"] = pair(
         f"conflict (G={SIG_GROUPS}, {SIG_IDS_PER_GROUP} ids a group, "
         f"{SIG_KERNEL_BATCH} probes)", "two_pass_ms", ms(two_pass, sigs, probes),
-        "fused_ms", ms(lambda sg, a: K.bloom_detect_conflicts(sg, a, tabs), sigs, probes),
+        "fused_ms", ms(lambda sg, a: K.bloom_detect_conflicts(spec, sg, a), sigs, probes),
         batch=SIG_KERNEL_BATCH, num_groups=SIG_GROUPS,
         hit_counts=torch.bincount(fused.to(torch.int64),
                                   minlength=SIG_GROUPS + 1).tolist())
@@ -1250,14 +1289,13 @@ class KernelTap:
         over every recorded call; fails past exact / ``MERGE_RTOL``."""
         import torch
 
-        from repro_torch.core.signatures import tables_tensor, to_addr_i32
+        from repro_torch.core.signatures import to_addr_i32
         from repro_torch.kernels.bloom import bloom as K
 
         LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
         err5, err6 = 0, 0.0
         for spec, sigs, addrs, out in self.b5:
-            want = K.bloom_detect_conflicts_plain(
-                sigs.contiguous(), to_addr_i32(addrs), tables_tensor(spec, sigs.device))
+            want = K.bloom_detect_conflicts_plain(spec, sigs.contiguous(), to_addr_i32(addrs))
             err5 = max(err5, int((out.to(torch.int64) - want).abs().max())
                        if out.numel() else 0)
         for rows, base, valid, out in self.b6:
@@ -1504,7 +1542,7 @@ def unsaturated_checks(keep: dict) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.lazy_sync import LazyEmbed, LazySyncConfig
-    from repro_torch.core.signatures import pack_words, tables_tensor, to_addr_i32
+    from repro_torch.core.signatures import pack_words, to_addr_i32
     from repro_torch.kernels.bloom import bloom as K
 
     LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
@@ -1515,9 +1553,8 @@ def unsaturated_checks(keep: dict) -> dict:
                                              cfg.num_groups, 1024)).to(dev)
     sigs = pack_words(emb.signatures(touched)).contiguous()
     ids = to_addr_i32(touched.reshape(-1))
-    tabs = tables_tensor(emb.spec, dev)
-    got = K.bloom_detect_conflicts(sigs, ids, tabs)
-    want = K.bloom_detect_conflicts_plain(sigs, ids, tabs)
+    got = K.bloom_detect_conflicts(emb.spec, sigs, ids)
+    want = K.bloom_detect_conflicts_plain(emb.spec, sigs, ids)
     err5 = int((got.to(torch.int64) - want).abs().max())
     check(err5 == 0, f"B5 off saturation: kernel disagrees with plain version "
                      f"(max |diff| {err5})")
@@ -1549,35 +1586,42 @@ def unsaturated_checks(keep: dict) -> dict:
                         valid=n_valid, max_rel_err=err6))
 
 
-def lazysync_kernel_phases(capture_tap: KernelTap, keep: dict) -> dict[str, dict]:
+def lazysync_kernel_phases(capture_tap: KernelTap, keep: dict,
+                           floor_ms: float) -> dict[str, dict]:
     """B5 and B6 against their plain versions, timed, on inputs the two
     paths gave them: B5 at the capture's shape and at qwen3-4b width, B6
     at the qwen3 reconcile and commit shapes (and the capture's, printed)."""
     import torch
 
-    from repro_torch.core.signatures import tables_tensor, to_addr_i32
+    from repro_torch.core.signatures import packed_tables, to_addr_i32
     from repro_torch.kernels.bloom import bloom as K
 
     LM = importlib.import_module("repro_torch.kernels.lazy_merge.lazy_merge")
     out = {}
 
-    def b5(label, rec):
+    def b5(label, rec, previous):
         spec, sigs, addrs, _ = rec
         sigs = sigs.contiguous()
         ids = to_addr_i32(addrs)
-        tabs = tables_tensor(spec, sigs.device)
-        got = K.bloom_detect_conflicts(sigs, ids, tabs)
-        want = K.bloom_detect_conflicts_plain(sigs, ids, tabs)
+        got = K.bloom_detect_conflicts(spec, sigs, ids)
+        want = K.bloom_detect_conflicts_plain(spec, sigs, ids)
         err = int((got.to(torch.int64) - want).abs().max())
         check(err == 0, f"{label}: kernel disagrees with plain version")
+        check(K.detect_route(spec) == "transposed", f"{label}: not the transposed route")
         g, nw = sigs.shape
         n = ids.numel()
         m, s = spec.num_segments, spec.num_byte_slices
-        st = measure(f"{label} (G={g}, N={n})", err, K.bloom_detect_conflicts,
-                     K.bloom_detect_conflicts_plain, (sigs, ids, tabs),
-                     nbytes=n * 4 + n * 4 + g * nw * 4 + tabs.numel() * 4,
-                     ops=n * m * (2 * s - 1) + n * m * g * 2 + n * g)
-        return dict(st, shape=dict(G=g, N=n))
+        # each address in and its count out, the signatures and the packed
+        # table read once; the hash, one mask lookup a segment and a
+        # popcount an address, and the G x sig_bits mask bits built once
+        st = measure(f"{label} (G={g}, N={n})", err,
+                     lambda sg, a: K.bloom_detect_conflicts(spec, sg, a),
+                     lambda sg, a: K.bloom_detect_conflicts_plain(spec, sg, a), (sigs, ids),
+                     nbytes=n * 4 + n * 4 + g * nw * 4 + packed_tables(spec).nbytes,
+                     ops=n * (2 * s - 1 + 4 * m + 1) + 3 * g * spec.sig_bits)
+        print(f"{label}: launch floor {floor_ms:.5f} ms ({st['ms'] / floor_ms:.2f}x it); "
+              f"previous design's reading {previous:.5f} ms ({PREVIOUS_CARD})", flush=True)
+        return dict(st, shape=dict(G=g, N=n), launch_floor_ms=floor_ms)
 
     def b6(label, rec, iters=200):
         rows, base, valid, _ = rec
@@ -1600,8 +1644,10 @@ def lazysync_kernel_phases(capture_tap: KernelTap, keep: dict) -> dict[str, dict
     phase("LazySync kernels off saturation, qwen3-4b width")
     off = unsaturated_checks(keep)
     phase("kernel bloom_detect_conflicts")
-    cap = b5("bloom_detect_conflicts, capture", capture_tap.b5[0])
-    full = b5("bloom_detect_conflicts, qwen3-4b width", keep["detect"])
+    cap = b5("bloom_detect_conflicts, capture", capture_tap.b5[0],
+             PREVIOUS_MS["bloom_detect_conflicts capture"])
+    full = b5("bloom_detect_conflicts, qwen3-4b width", keep["detect"],
+              PREVIOUS_MS["bloom_detect_conflicts"])
     out["bloom_detect_conflicts"] = dict(full, other_shapes=[cap],
                                          unsaturated_check=off["b5"])
     phase("kernel lazy_merge")
@@ -2117,7 +2163,7 @@ def main() -> int:
         cap_counts, cap_walls, cap_tap = capture_path()
         lazy = lazysync_path()
         keep = lazy.pop("keep")
-        stats.update(lazysync_kernel_phases(cap_tap, keep))
+        stats.update(lazysync_kernel_phases(cap_tap, keep, floor_ms))
         del keep, cap_tap
         gc.collect()
         torch.cuda.empty_cache()
@@ -2137,7 +2183,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         smoke_counts = smoke_prefill_path()
-        for name in ("bloom_query", "bloom_query_onehot", "bloom_insert",
+        for name in ("h3_hash", "bloom_query", "bloom_query_onehot", "bloom_insert",
                      "bloom_insert_onehot", "bloom_intersect"):
             stats[name]["launch_floor_ms"] = floor_ms
     except SmokeFailure as e:

@@ -23,8 +23,15 @@ plain PyTorch version and the CPU path.
 
 **Parity form.**  H3 is linear over GF(2), so bit ``k`` of segment ``m``'s
 hash is the parity of ``a & C[m][k]`` with the column masks of
-:func:`h3_columns`; the ``bloom_query`` and ``bloom_query_onehot`` kernels
-hash this way, and :func:`hash_positions_parity` is its plain version.
+:func:`h3_columns`; the ``bloom_query``, ``bloom_insert`` and seed one-hot
+kernels hash this way, and :func:`hash_positions_parity` is its plain
+version.
+
+**Packed byte tables.**  The same byte slices with all segments of a byte
+packed into one 64-bit word (:func:`packed_tables`): an address is four
+gathers and three XORs for every segment at once.  The ``h3_hash`` and
+``bloom_detect_conflicts`` kernels hash this way, and
+:func:`hash_positions_packed` is its plain version.
 """
 
 from __future__ import annotations
@@ -42,11 +49,14 @@ __all__ = [
     "tables_tensor",
     "h3_matrix_tensor",
     "h3_columns",
+    "packed_tables",
+    "packed_tables_tensor",
     "empty_signature",
     "empty_bank",
     "hash_positions",
     "hash_positions_xorfold",
     "hash_positions_parity",
+    "hash_positions_packed",
     "hash_with_tables",
     "insert",
     "insert_bank_round_robin",
@@ -195,6 +205,33 @@ def h3_columns(spec: SignatureSpec) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def packed_tables(spec: SignatureSpec) -> np.ndarray:
+    """(num_byte_slices, 256, E) uint64 packed byte tables: word ``e`` of
+    entry ``(k, v)`` holds, for the ``P = 64 // log2(seg_bits)`` segments
+    ``m = e * P + j < num_segments``, segment ``m``'s hash of byte value
+    ``v`` in byte slice ``k`` at bits ``[j * log, (j + 1) * log)``; ``E =
+    ceil(num_segments / P)`` (1 for the paper's 4 x 9 bits: 8 KB).  XORing
+    an address's entries hashes P segments at once (read-only, cached per
+    spec)."""
+    tabs = _h3_tables(spec).astype(np.uint64)                 # (S, 256, M)
+    log_seg = spec.seg_bits.bit_length() - 1
+    per = 64 // log_seg
+    out = np.zeros((tabs.shape[0], 256, -(-spec.num_segments // per)), np.uint64)
+    for m in range(spec.num_segments):
+        out[:, :, m // per] |= tabs[:, :, m] << np.uint64((m % per) * log_seg)
+    out.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def packed_tables_tensor(spec: SignatureSpec, device: torch.device) -> torch.Tensor:
+    """:func:`packed_tables` as an int64 tensor on ``device`` (the same
+    bits; cached per spec and device, read-only by convention)."""
+    arr = np.ascontiguousarray(packed_tables(spec)).view(np.int64)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def default_spec() -> SignatureSpec:
     """The paper-default spec as a shared singleton."""
     return SignatureSpec()
@@ -304,7 +341,7 @@ def hash_positions(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
     # imported here: the kernel module itself imports this one
     from repro_torch.kernels.bloom.bloom import h3_hash
 
-    return h3_hash(to_addr_i32(addrs), tables_tensor(spec, addrs.device))
+    return h3_hash(spec, to_addr_i32(addrs))
 
 
 def hash_positions_xorfold(spec: SignatureSpec,
@@ -339,6 +376,24 @@ def hash_positions_parity(spec: SignatureSpec,
     h = ((x & 1) * weights).sum(-1)
     offs = torch.arange(spec.num_segments, device=addrs.device) * spec.seg_bits
     return (h + offs[None, :]).to(torch.int32)
+
+
+def hash_positions_packed(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
+    """H3 through the packed byte tables (the arithmetic of the ``h3_hash``
+    and ``bloom_detect_conflicts`` kernels): XOR the address's
+    :func:`packed_tables` entries, then cut each segment's field out of its
+    word and add the segment's offset -> (N, num_segments) int32 global
+    positions, equal to :func:`hash_with_tables`."""
+    a = as_u32(addrs.reshape(-1))
+    ptab = packed_tables_tensor(spec, addrs.device)          # (S, 256, E)
+    h = ptab[0][a & 0xFF]                                     # (N, E)
+    for k in range(1, ptab.shape[0]):
+        h = h ^ ptab[k][(a >> (8 * k)) & 0xFF]
+    log_seg = spec.seg_bits.bit_length() - 1
+    m = torch.arange(spec.num_segments, device=addrs.device)
+    per = 64 // log_seg
+    field = (h[:, m // per] >> ((m % per) * log_seg)) & (spec.seg_bits - 1)
+    return u32_to_i32(field + m * spec.seg_bits)
 
 
 def pack_bits(spec: SignatureSpec, bits: torch.Tensor) -> torch.Tensor:

@@ -5,13 +5,29 @@
 // PyTorch side stores the same bits as int32.  Every kernel launches on
 // the caller's stream, allocates nothing and returns cudaGetLastError().
 //
-// h3_hash (ports _h3_hash_block, bloom.py:62): byte-sliced H3, four
-//   table gathers and three XORs per (address, segment).  Bound by the
-//   bytes it moves (4 B in, 4*M B out per address).  Design: the
-//   offset-folded tables (S x 256 x M uint32, 16 KB for the paper's
-//   geometry) are staged once per block in shared memory and a
-//   grid-stride loop of a few hundred blocks amortizes that load; the
-//   gathers then hit shared memory instead of device memory.
+// h3_hash (ports _h3_hash_block, bloom.py:62): byte-sliced H3, (N,)
+//   addresses -> (N, M) global positions.  Bound by the bytes it moves (4 B
+//   in and 4*M B out an address, the table once).  Design (redesigned for
+//   Hopper): the packed byte table -- for each (byte slice, byte value) all
+//   M segment hashes of that byte in one 64-bit word (M x log_seg = 36 bits
+//   at the paper's geometry; more words an entry past 64 bits), 8 KB, read
+//   through L1 and never staged; one thread an address: 4 gathers and 3
+//   XORs for all segments, the positions cut out with shifts and stored as
+//   one 16-byte store (the paper's geometry compiled fixed; any other spec
+//   under the cap at run time).  The previous design staged the 16 KB
+//   uint32 tables in every block (4.3 MB of L2 reads at 262,144 lines) and
+//   gathered 16 times an address.  Three designs were timed side by side
+//   in one run on an H100 80GB HBM3 at 700 W, at 262,144 lines and at
+//   LazySync's 16,384 ids (PERF.md, section 6, has the run):
+//   - this one, the packed table through L1: 0.00372 and 0.00237 ms;
+//   - the parity form of h3_parity.cuh (36 AND + POPC an address, the
+//     masks a __grid_constant__ parameter, as B2/B3/B8 hash): 0.00518 ms,
+//     its 9.4 M POPCs at 16 a clock an SM costing more issue time than the
+//     table's bytes, and 0.00238 ms, a tie near the launch floor;
+//   - the packed table staged once a block, in grids of 132, 264, 528 and
+//     1,056 blocks: 0.00641 to 0.00406 ms and 0.00246 to 0.00297 ms,
+//     slower at both shapes (an L2 round trip and a barrier before any
+//     address).
 //
 // bloom_insert (ports bloom_insert_pallas, bloom.py:135): OR hashed
 //   positions into packed signatures, either from an id list with a
@@ -73,20 +89,25 @@
 //   in 3 warps.)
 //
 // bloom_detect_conflicts (ports bloom_detect_conflicts_pallas,
-//   bloom.py:266, kernel _conflict_kernel :240): LazySync's fused hash ->
-//   membership in each of G packed group signatures -> hit-group count.
-//   Bound by bytes at the shapes LazySync gives it (4 B in and 4 B out
-//   per address; G x 64 words of signature and the 16 KB of tables are
-//   read once per block).  The TPU kernel does its word lookup as a
-//   one-hot (BLK*M, W) select and sum, because a TPU has no cheap
-//   gather; on Hopper one thread per address gathers the word it needs
-//   straight from shared memory.  Design: the H3 tables and all G
-//   signatures (G <= 16) are staged in shared memory once per block; a
-//   grid-stride loop over a bounded grid amortizes that staging; each
-//   thread hashes its address once per segment (the h3 device function
-//   shared with h3_hash) and tests that position in every group, so no
-//   position is stored.
-
+//   bloom.py:266, kernel _conflict_kernel :241): LazySync's fused hash ->
+//   membership in each of G <= 16 packed group signatures -> hit-group
+//   count.  Bound by bytes at the shapes LazySync gives it (4 B in and 4 B
+//   out an address, G x 64 words of signature and the 8 KB table once), far
+//   under the launch.  The TPU kernel does its word lookup as a one-hot
+//   (BLK*M, W) select and sum, because a TPU has no cheap gather.  Design
+//   (redesigned for Hopper): h3_hash's packed table through L1, and the
+//   signatures staged transposed -- for each of the sig_bits positions a
+//   G-bit mask of the groups holding it (4 KB at 2,048 bits), built in
+//   shared memory from the G x NW words read in one coalesced pass, 8
+//   masks a thread by a multiply that spreads a byte's bits 16 apart; an
+//   address then costs M mask lookups, hit = AND_m mask[p_m], stopping at
+//   0, and popc(hit).  The first address's hash is issued before the
+//   staging barrier.  The grid is one block a 256 addresses, at most one
+//   wave (64 blocks at N = 16,384; one at the capture's N = 192).  The
+//   previous design staged the 16 KB uint32 tables and the G x NW words in
+//   every block and read M x G words an address.  Signatures past 2^15
+//   bits take the direct route (no staging, G words of each position read
+//   through L1), chosen by the spec before launch and counted.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,17 +117,8 @@
 
 namespace {
 
-constexpr int kByteVals = 256;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t h3(const uint32_t* __restrict__ tab,
-                                       uint32_t a, int m, int S, int M) {
-  uint32_t h = tab[(a & 0xFFu) * M + m];
-  for (int k = 1; k < S; ++k) {
-    h ^= tab[(k * kByteVals + ((a >> (8 * k)) & 0xFFu)) * M + m];
-  }
-  return h;
-}
+constexpr int kMaxGroups = 16;  // bloom_detect_conflicts' uint16 group masks
 
 __device__ __forceinline__ void copy_to_shared(uint32_t* dst,
                                                const uint32_t* __restrict__ src,
@@ -114,17 +126,66 @@ __device__ __forceinline__ void copy_to_shared(uint32_t* dst,
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-__global__ void h3_hash_kernel(const uint32_t* __restrict__ addrs,
-                               const uint32_t* __restrict__ tabs,
-                               int32_t* __restrict__ out, int n, int S, int M) {
-  extern __shared__ uint32_t smem[];
-  copy_to_shared(smem, tabs, S * kByteVals * M);
-  __syncthreads();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const uint32_t a = addrs[i];
-    for (int m = 0; m < M; ++m) {
-      out[static_cast<size_t>(i) * M + m] = static_cast<int32_t>(h3(smem, a, m, S, M));
+// ---------------------------------------------------------------------------
+// The packed byte table (h3_hash, bloom_detect_conflicts).  ptab (S, 256, E)
+// uint64: word e of entry (k, v) holds, for the P = 64 / log_seg segments
+// m = e * P + j < M, segment m's H3 hash of byte value v in byte slice k at
+// bits [j * log_seg, (j + 1) * log_seg).  XOR is bitwise, so XORing the S
+// entries of an address's bytes hashes all P segments at once; the paper's
+// geometry (M = 4 segments of 9 bits, S = 4) is one word an entry (8 KB).
+// The table is read through L1 (__ldg), never staged.
+// ---------------------------------------------------------------------------
+
+using u64 = unsigned long long;
+
+// Word e of the XOR of address a's S entries (E words an entry).
+template <int SC>
+__device__ __forceinline__ u64 packed_word(const u64* __restrict__ ptab, uint32_t a, int e,
+                                           int S, int E) {
+  if constexpr (SC > 0) {
+    u64 h = __ldg(ptab + (a & 0xFFu));
+#pragma unroll
+    for (int k = 1; k < SC; ++k) h ^= __ldg(ptab + (k << 8) + ((a >> (8 * k)) & 0xFFu));
+    return h;
+  } else {
+    u64 h = 0ull;
+    for (int k = 0; k < S; ++k) {
+      h ^= __ldg(ptab + (static_cast<size_t>((k << 8) + ((a >> (8 * k)) & 0xFFu)) * E + e));
+    }
+    return h;
+  }
+}
+
+// Global position of the segment at field j of a packed word: its hash, at
+// bits [j * log_seg, (j + 1) * log_seg), with the segment's offset m << log_seg.
+__device__ __forceinline__ uint32_t packed_position(u64 h, int m, int j, int log_seg) {
+  const uint32_t field =
+      static_cast<uint32_t>(h >> (j * log_seg)) & ((1u << log_seg) - 1u);
+  return (static_cast<uint32_t>(m) << log_seg) | field;
+}
+
+// One thread an address: addrs (n,) -> out (n, M) global positions.  With
+// the paper's geometry fixed (MC = 4, LOGC = 9, S = 4) one word holds all
+// four segments and the four positions go out as one 16-byte store.
+template <int MC, int LOGC>
+__global__ void __launch_bounds__(kThreads)
+h3_hash_kernel(const uint32_t* __restrict__ addrs, const u64* __restrict__ ptab,
+               int32_t* __restrict__ out, int n, int S, int M, int log_seg) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t a = addrs[i];
+  if constexpr (MC > 0) {
+    static_assert(MC == 4 && MC * LOGC <= 64, "the paper build stores one int4");
+    const u64 h = packed_word<4>(ptab, a, 0, 4, 1);
+    reinterpret_cast<int4*>(out)[i] = make_int4(
+        packed_position(h, 0, 0, LOGC), packed_position(h, 1, 1, LOGC),
+        packed_position(h, 2, 2, LOGC), packed_position(h, 3, 3, LOGC));
+  } else {
+    const int P = 64 / log_seg, E = (M + P - 1) / P;
+    int32_t* o = out + static_cast<size_t>(i) * M;
+    for (int e = 0, m = 0; e < E; ++e) {
+      const u64 h = packed_word<0>(ptab, a, e, S, E);
+      for (int j = 0; j < P && m < M; ++j, ++m) o[m] = packed_position(h, m, j, log_seg);
     }
   }
 }
@@ -229,31 +290,83 @@ __global__ void intersect_pair_kernel(const uint32_t* __restrict__ a,
   if (threadIdx.x < 2) out[threadIdx.x * L + lane] = static_cast<uint8_t>(hit[threadIdx.x]);
 }
 
+// Bits j = 0..3 of a 4-bit n moved to bits 16 j: the four partial products
+// of the multiply land on disjoint bits, so none carries.
+__device__ __forceinline__ u64 spread4(uint32_t n) {
+  return (static_cast<u64>(n) * 0x0000200040008001ull) & 0x0001000100010001ull;
+}
+
 // sigs (G, NW), addrs (N,) -> out (N,): groups holding every position.
-__global__ void detect_conflicts_kernel(const uint32_t* __restrict__ sigs,
-                                        const uint32_t* __restrict__ addrs,
-                                        const uint32_t* __restrict__ tabs,
-                                        int32_t* __restrict__ out, int n, int G,
-                                        int NW, int S, int M) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* stab = smem;
-  uint32_t* ssig = smem + S * kByteVals * M;
-  copy_to_shared(stab, tabs, S * kByteVals * M);
-  copy_to_shared(ssig, sigs, G * NW);
-  __syncthreads();
-  const uint32_t nbits = static_cast<uint32_t>(NW) * 32u;
-  constexpr int kMaxGroups = 16;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const uint32_t a = addrs[i];
-    uint32_t hit = (1u << G) - 1u;  // groups still holding every position
-    for (int m = 0; m < M && hit; ++m) {
-      const uint32_t p = h3(stab, a, m, S, M);
-      if (p >= nbits) { hit = 0u; break; }
-      const uint32_t w = p >> 5, b = 1u << (p & 31u);
+// TRANSPOSED: each block copies the G x NW signature words to shared memory
+// in one coalesced pass, then builds smask[p], bit g set iff group g holds
+// position p (NW * 32 uint16 masks, 4 KB at 2,048 bits), so a position is
+// tested against every group with one lookup.  A thread builds 8 masks at
+// a time: for each group one byte of a word, spread to the 8 masks' bit g
+// by a multiply, stored as 16 bytes.  The paper build hashes its first
+// address before the staging barrier, so the table gathers overlap the
+// signature reads.  Otherwise (signatures too large to stage) each
+// position reads its word of every group through L1.  A grid-stride loop
+// over at most one wave of blocks.
+template <int MC, int LOGC, bool TRANSPOSED>
+__global__ void __launch_bounds__(kThreads)
+detect_conflicts_kernel(const uint32_t* __restrict__ sigs,
+                        const uint32_t* __restrict__ addrs, const u64* __restrict__ ptab,
+                        int32_t* __restrict__ out, int n, int G, int NW, int S, int M,
+                        int log_seg) {
+  extern __shared__ uint4 sdyn[];  // TRANSPOSED: the masks, then the G * NW words
+  uint16_t* smask = reinterpret_cast<uint16_t*>(sdyn);
+  uint32_t* ssig = reinterpret_cast<uint32_t*>(smask + NW * 32);
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  u64 h_first = 0ull;  // the paper build's hash of this thread's first address
+  if constexpr (MC > 0) {
+    if (i < n) h_first = packed_word<4>(ptab, addrs[i], 0, 4, 1);
+  }
+  if constexpr (TRANSPOSED) {
+    for (int q = threadIdx.x; q < G * NW; q += kThreads) ssig[q] = __ldg(sigs + q);
+    __syncthreads();
+    for (int t = threadIdx.x; t < NW * 4; t += kThreads) {  // bits b0..b0 + 7 of word w
+      const int w = t >> 2, b0 = (t & 3) * 8;
+      u64 lo = 0ull, hi = 0ull;
+#pragma unroll 4
+      for (int g = 0; g < G; ++g) {
+        const uint32_t byte = (ssig[g * NW + w] >> b0) & 0xFFu;
+        lo |= spread4(byte & 0xFu) << g;
+        hi |= spread4(byte >> 4) << g;
+      }
+      reinterpret_cast<ulonglong2*>(smask)[t] = make_ulonglong2(lo, hi);
+    }
+    __syncthreads();
+  }
+  const uint32_t groups = (1u << G) - 1u;
+  // hit &= the groups holding position p; false once no group is left
+  auto holds = [&](uint32_t& hit, uint32_t p) {
+    if constexpr (TRANSPOSED) {
+      hit &= smask[p];
+    } else {
+      const uint32_t w = p >> 5, b = p & 31u;
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
-        if (g < G && !(ssig[g * NW + w] & b)) hit &= ~(1u << g);
+        if (g < G && !((__ldg(sigs + g * NW + w) >> b) & 1u)) hit &= ~(1u << g);
+      }
+    }
+    return hit != 0u;
+  };
+  for (bool first = true; i < n; i += gridDim.x * kThreads, first = false) {
+    uint32_t hit = groups;
+    if constexpr (MC > 0) {
+      const u64 h = first ? h_first : packed_word<4>(ptab, addrs[i], 0, 4, 1);
+#pragma unroll
+      for (int m = 0; m < MC; ++m) {
+        if (!holds(hit, packed_position(h, m, m, LOGC))) break;
+      }
+    } else {
+      const uint32_t a = addrs[i];
+      const int P = 64 / log_seg, E = (M + P - 1) / P;
+      for (int e = 0, m = 0; e < E && hit; ++e) {
+        const u64 h = packed_word<0>(ptab, a, e, S, E);
+        for (int j = 0; j < P && m < M; ++j, ++m) {
+          if (!holds(hit, packed_position(h, m, j, log_seg))) break;
+        }
       }
     }
     out[i] = __popc(hit);
@@ -291,19 +404,36 @@ int attributes(Kernel kernel, int* out) {
   return 0;
 }
 
+constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opting in
+
+// The paper's geometry, which the packed-table kernels compile with fixed:
+// M = 4 segments of 512 bits over 4 byte slices.
+inline bool paper_packed(int S, int M, int log_seg) {
+  return S == 4 && h3p::paper_geometry(M, log_seg);
+}
+
 }  // namespace
 
 extern "C" {
 
-int h3_hash_launch(const void* addrs, const void* tabs, void* out, int n,
-                   int S, int M, void* stream) {
-  const size_t smem = static_cast<size_t>(S) * kByteVals * M * sizeof(uint32_t);
-  if (int rc = set_smem(h3_hash_kernel, smem)) return rc;
-  const int blocks = std::min((n + kThreads - 1) / kThreads, 264);
-  h3_hash_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(addrs), static_cast<const uint32_t*>(tabs),
-      static_cast<int32_t*>(out), n, S, M);
+// ptab (S, 256, E) packed byte table (u64) -> out (n, M); n >= 1.
+int h3_hash_launch(const void* addrs, const void* ptab, void* out, int n, int S, int M,
+                   int log_seg, void* stream) {
+  auto kernel = paper_packed(S, M, log_seg) ? h3_hash_kernel<h3p::kPaperM, h3p::kPaperLog>
+                                            : h3_hash_kernel<0, 0>;
+  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(addrs), static_cast<const u64*>(ptab),
+      static_cast<int32_t*>(out), n, S, M, log_seg);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, local memory (bytes a thread) and static shared memory of the
+// loaded h3_hash kernel, three ints a build: the paper's geometry fixed,
+// then any spec.
+int h3_hash_attributes(void* out) {
+  int* o = static_cast<int*>(out);
+  if (int rc = attributes(h3_hash_kernel<h3p::kPaperM, h3p::kPaperLog>, o)) return rc;
+  return attributes(h3_hash_kernel<0, 0>, o + 3);
 }
 
 // k = 1 or 2 lists (ids_b / words_b and valid_b then unused or read);
@@ -379,20 +509,40 @@ int bloom_intersect_pair_launch(const void* a, const void* a_b, const void* b, v
   return static_cast<int>(cudaGetLastError());
 }
 
-int bloom_detect_conflicts_launch(const void* sigs, const void* addrs,
-                                  const void* tabs, void* out, int n, int G,
-                                  int NW, int S, int M, void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(S) * kByteVals * M + static_cast<size_t>(G) * NW) *
-      sizeof(uint32_t);
-  if (int rc = set_smem(detect_conflicts_kernel, smem)) return rc;
-  const int blocks = std::min((n + kThreads - 1) / kThreads, 264);
-  detect_conflicts_kernel<<<blocks, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+// sigs (G, NW) with G <= 16, addrs (n,) -> out (n,); n >= 1.  transposed
+// picks the staged group masks (G * NW words and NW * 32 masks of shared
+// memory), else each position reads the signatures' words.  sms, the
+// card's SM count, caps the grid at one wave.
+int bloom_detect_conflicts_launch(const void* sigs, const void* addrs, const void* ptab,
+                                  void* out, int n, int G, int NW, int S, int M,
+                                  int log_seg, int transposed, int sms, void* stream) {
+  const size_t smem = transposed ? static_cast<size_t>(NW) * (G * sizeof(uint32_t) +
+                                                              32 * sizeof(uint16_t))
+                                 : 0;
+  auto kernel = !transposed ? detect_conflicts_kernel<0, 0, false>
+                : paper_packed(S, M, log_seg)
+                    ? detect_conflicts_kernel<h3p::kPaperM, h3p::kPaperLog, true>
+                    : detect_conflicts_kernel<0, 0, true>;
+  if (smem > kDefaultSmem) {
+    if (int rc = set_smem(kernel, smem)) return rc;
+  }
+  const int blocks = std::min((n + kThreads - 1) / kThreads, sms);  // one wave
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(sigs), static_cast<const uint32_t*>(addrs),
-      static_cast<const uint32_t*>(tabs), static_cast<int32_t*>(out), n, G, NW,
-      S, M);
+      static_cast<const u64*>(ptab), static_cast<int32_t*>(out), n, G, NW, S, M, log_seg);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same three ints for the loaded bloom_detect_conflicts kernel: the
+// transposed route with the paper's geometry fixed, for any spec, then the
+// direct route (any spec).
+int bloom_detect_conflicts_attributes(void* out) {
+  int* o = static_cast<int*>(out);
+  if (int rc = attributes(detect_conflicts_kernel<h3p::kPaperM, h3p::kPaperLog, true>, o)) {
+    return rc;
+  }
+  if (int rc = attributes(detect_conflicts_kernel<0, 0, true>, o + 3)) return rc;
+  return attributes(detect_conflicts_kernel<0, 0, false>, o + 6);
 }
 
 }  // extern "C"

@@ -13,7 +13,8 @@ does about that).  Each wrapper here:
   error, and adds one to its ``launches`` counter — there is no fallback.
 
 * ``h3_hash`` ports ``_h3_hash_block`` (``repro/kernels/bloom/bloom.py:62``):
-  the line table of ``prepare`` / ``pad_trace`` / ``dummy_trace``;
+  the line table of ``prepare`` / ``pad_trace`` / ``dummy_trace`` and
+  LazySync's touched ids;
 * ``bloom_insert`` ports ``bloom_insert_pallas`` (``bloom.py:135``): the
   per-window read/write images and the CPUWriteSet banks, two lists or two
   bitmaps a launch;
@@ -24,7 +25,12 @@ does about that).  Each wrapper here:
   window (its two banks against the read image, any register) a launch;
 * ``bloom_detect_conflicts`` ports ``bloom_detect_conflicts_pallas``
   (``bloom.py:266``): LazySync's per-address hit-group counts
-  (``LazyEmbed.detect_conflicts``).
+  (``LazyEmbed.detect_conflicts``), on one of two routes chosen by the spec.
+
+``h3_hash`` and ``bloom_detect_conflicts`` take the ``SignatureSpec`` and
+hash with its packed byte tables (``packed_tables_tensor``); their plain
+versions hash with the byte-sliced tables, so the oracle shares no
+arithmetic with the kernels.
 
 The shared library is built with ``nvcc`` for ``sm_90a`` on first use into
 the checkout's ``build/`` directory (:mod:`repro_torch.kernels._build`)
@@ -44,6 +50,7 @@ from repro_torch.core.signatures import (
     h3_columns,
     hash_with_tables,
     pack_words,
+    packed_tables_tensor,
     tables_tensor,
     unpack_words,
 )
@@ -53,8 +60,9 @@ __all__ = [
     "h3_hash", "bloom_insert", "bloom_query", "bloom_intersect",
     "bloom_detect_conflicts", "h3_hash_plain", "bloom_insert_plain",
     "bloom_query_plain", "bloom_intersect_plain",
-    "bloom_detect_conflicts_plain", "KERNELS", "reset_launch_counts",
-    "launch_counts", "query_attributes", "insert_attributes",
+    "bloom_detect_conflicts_plain", "detect_route",
+    "detect_route_counts", "KERNELS", "reset_launch_counts", "launch_counts",
+    "query_attributes", "insert_attributes", "hash_attributes", "detect_attributes",
 ]
 
 SOURCE = _build.CSRC / "bloom.cu"
@@ -67,7 +75,8 @@ SOURCE = _build.CSRC / "bloom.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "h3_hash_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "h3_hash_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "h3_hash_attributes": [_P],
     "bloom_insert_ids_launch": [_P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
     "bloom_insert_bitmap_launch": [_P, _P, _P, _P, *[_I] * 8, _P],
     "bloom_insert_attributes": [_P],
@@ -75,7 +84,8 @@ _SIGNATURES = {
     "bloom_query_attributes": [_P],
     "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bloom_intersect_pair_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "bloom_detect_conflicts_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bloom_detect_conflicts_launch": [_P, _P, _P, _P, *[_I] * 8, _P],
+    "bloom_detect_conflicts_attributes": [_P],
 }
 
 
@@ -141,12 +151,22 @@ def _columns(spec: SignatureSpec) -> tuple[np.ndarray, int]:
     return cols, log_seg
 
 
-def _check_tables(tabs: torch.Tensor) -> tuple[int, int]:
-    _check("tabs", tabs, torch.int32, 3)
-    s, vals, m = tabs.shape
-    if vals != 256 or not 1 <= s <= 4 or not 1 <= m <= 32:
-        raise ValueError(f"tabs: shape {tuple(tabs.shape)}, want (S<=4, 256, M<=32)")
-    return s, m
+def _check_spec(spec) -> None:
+    if not isinstance(spec, SignatureSpec):
+        raise TypeError(f"spec: expected a SignatureSpec, got {type(spec).__name__}")
+
+
+def _packed(spec: SignatureSpec, device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """The spec's packed byte tables on ``device`` (what ``h3_hash`` and
+    ``bloom_detect_conflicts`` hash with), their byte slices and log2
+    seg_bits; a spec beyond the kernels' cap is refused (the plain
+    versions take any spec)."""
+    m, log_seg = spec.num_segments, spec.seg_bits.bit_length() - 1
+    if m > 32 or spec.addr_bits > 32 or log_seg > 31:
+        raise ValueError(f"{spec}: the packed-table kernels take num_segments <= 32, "
+                         f"addr_bits <= 32 and seg_bits <= 2**31, got {m} segments of "
+                         f"2**{log_seg} bits over {spec.addr_bits}-bit addresses")
+    return packed_tables_tensor(spec, device), spec.num_byte_slices, log_seg
 
 
 # ---------------------------------------------------------------------------
@@ -154,26 +174,28 @@ def _check_tables(tabs: torch.Tensor) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
-def h3_hash_plain(addrs: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
-    """Plain version: (N,) int32 addresses -> (N, M) int32 positions."""
-    return hash_with_tables(addrs, tabs)
+def h3_hash_plain(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`h3_hash` (same arguments and result), through
+    the byte-sliced tables."""
+    return hash_with_tables(addrs, tables_tensor(spec, addrs.device))
 
 
-def h3_hash(addrs: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
-    """Byte-sliced H3: (N,) int32 addresses (uint32 bits) x (S, 256, M) int32
-    offset-folded tables -> (N, M) int32 global bit positions.
+def h3_hash(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
+    """H3 of ``spec``: (N,) int32 addresses (uint32 bits) -> (N,
+    num_segments) int32 global bit positions.
 
     Ports ``_h3_hash_block`` (``src/repro/kernels/bloom/bloom.py:62``);
     its bound and design are noted in ``csrc/bloom.cu``."""
+    _check_spec(spec)
     _check("addrs", addrs, torch.int32, 1)
-    s, m = _check_tables(tabs)
-    if _on_cpu(addrs, tabs):
-        return h3_hash_plain(addrs, tabs)
+    if _on_cpu(addrs):
+        return h3_hash_plain(spec, addrs)
+    ptab, s, log_seg = _packed(spec, addrs.device)
     n = addrs.shape[0]
-    out = torch.empty((n, m), dtype=torch.int32, device=addrs.device)
+    out = torch.empty((n, spec.num_segments), dtype=torch.int32, device=addrs.device)
     if n:
-        _launch("h3_hash_launch", addrs.data_ptr(), tabs.data_ptr(),
-                out.data_ptr(), n, s, m, _stream(addrs))
+        _launch("h3_hash_launch", addrs.data_ptr(), ptab.data_ptr(), out.data_ptr(), n,
+                s, spec.num_segments, log_seg, _stream(addrs))
         h3_hash.launches += 1
     return out
 
@@ -258,8 +280,7 @@ def bloom_insert(spec: SignatureSpec, *,
 
     Ports ``bloom_insert_pallas`` (``src/repro/kernels/bloom/bloom.py:135``);
     its bound and design are noted in ``csrc/bloom.cu``."""
-    if not isinstance(spec, SignatureSpec):
-        raise TypeError(f"spec: expected a SignatureSpec, got {type(spec).__name__}")
+    _check_spec(spec)
     if (ids is None) == (bitmap is None):
         raise ValueError("bloom_insert takes exactly one of ids= or bitmap=")
     if num_regs < 1:
@@ -354,8 +375,7 @@ def bloom_query(spec: SignatureSpec, sig: torch.Tensor, words: torch.Tensor,
 
     Ports ``bloom_query_pallas`` (``src/repro/kernels/bloom/bloom.py:205``);
     its bound and design are noted in ``csrc/bloom.cu``."""
-    if not isinstance(spec, SignatureSpec):
-        raise TypeError(f"spec: expected a SignatureSpec, got {type(spec).__name__}")
+    _check_spec(spec)
     _check("sig", sig, torch.int32, 2)
     _check("words", words, torch.int32, 2)
     if sig.shape[1] != spec.num_words:
@@ -469,50 +489,109 @@ bloom_intersect.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def bloom_detect_conflicts_plain(sigs: torch.Tensor, addrs: torch.Tensor,
-                                 tabs: torch.Tensor) -> torch.Tensor:
+def bloom_detect_conflicts_plain(spec: SignatureSpec, sigs: torch.Tensor,
+                                 addrs: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`bloom_detect_conflicts` (same arguments and
-    result)."""
-    pos = hash_with_tables(addrs, tabs).to(torch.int64)       # (N, M)
+    result), hashing with the byte-sliced tables."""
+    pos = h3_hash_plain(spec, addrs).to(torch.int64)          # (N, M)
     w = sigs[:, pos >> 5]                                      # (G, N, M)
     member = (((w >> (pos & 31)) & 1) != 0).all(-1)           # (G, N)
     return member.sum(0, dtype=torch.int32)
 
 
-def bloom_detect_conflicts(sigs: torch.Tensor, addrs: torch.Tensor,
-                           tabs: torch.Tensor) -> torch.Tensor:
-    """Hit-group counts: ``sigs`` (G, NW) int32 packed group signatures,
-    ``addrs`` (N,) int32 addresses (uint32 bits) -> (N,) int32, the number
-    of group signatures holding all M of the address's H3 positions
-    (LazySync flags a conflict at >= 2).
+# Signatures up to this many bits are staged as per-position group masks
+# (their words and 2 bytes a bit of shared memory: 128 KB at 16 groups);
+# larger ones take the direct route.
+DETECT_TRANSPOSED_MAX_BITS = 2**15
+DETECT_ROUTES = ("transposed", "direct")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count, which sizes the kernel's one-wave grid."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def detect_route(spec: SignatureSpec) -> str:
+    """The route ``bloom_detect_conflicts`` takes on the card for ``spec``:
+    ``"transposed"`` (each position tested against all G groups with one
+    lookup in masks staged in shared memory) up to
+    ``DETECT_TRANSPOSED_MAX_BITS`` signature bits, ``"direct"`` (each
+    position reads its word of every group) past them."""
+    return "transposed" if spec.sig_bits <= DETECT_TRANSPOSED_MAX_BITS else "direct"
+
+
+def bloom_detect_conflicts(spec: SignatureSpec, sigs: torch.Tensor,
+                           addrs: torch.Tensor) -> torch.Tensor:
+    """Hit-group counts: ``sigs`` (G, spec.num_words) int32 packed group
+    signatures, ``addrs`` (N,) int32 addresses (uint32 bits) -> (N,) int32,
+    the number of group signatures holding all M of the address's H3
+    positions (LazySync flags a conflict at >= 2).  On the card the route
+    (:func:`detect_route`) is chosen by the spec before the launch and
+    counted (:func:`detect_route_counts`).
 
     Ports ``bloom_detect_conflicts_pallas``
     (``src/repro/kernels/bloom/bloom.py:266``); its bound and design are
     noted in ``csrc/bloom.cu``."""
-    s, m = _check_tables(tabs)
+    _check_spec(spec)
     _check("sigs", sigs, torch.int32, 2)
     _check("addrs", addrs, torch.int32, 1)
     g, nw = sigs.shape
+    if nw != spec.num_words:
+        raise ValueError(f"sigs {tuple(sigs.shape)}: want (G, {spec.num_words})")
     if not 1 <= g <= 16:
         raise ValueError(f"sigs: {g} groups, the kernel takes 1 to 16")
-    if _on_cpu(sigs, addrs, tabs):
-        return bloom_detect_conflicts_plain(sigs, addrs, tabs)
+    if _on_cpu(sigs, addrs):
+        return bloom_detect_conflicts_plain(spec, sigs, addrs)
+    ptab, s, log_seg = _packed(spec, addrs.device)
+    route = detect_route(spec)
     n = addrs.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=addrs.device)
     if n:
-        _launch("bloom_detect_conflicts_launch", sigs.data_ptr(),
-                addrs.data_ptr(), tabs.data_ptr(), out.data_ptr(), n, g, nw,
-                s, m, _stream(addrs))
+        _launch("bloom_detect_conflicts_launch", sigs.data_ptr(), addrs.data_ptr(),
+                ptab.data_ptr(), out.data_ptr(), n, g, nw, s, spec.num_segments, log_seg,
+                int(route == "transposed"), _sm_count(addrs.device), _stream(addrs))
         bloom_detect_conflicts.launches += 1
+        bloom_detect_conflicts.route_launches[route] += 1
     return out
 
 
 bloom_detect_conflicts.launches = 0
+bloom_detect_conflicts.route_launches = dict.fromkeys(DETECT_ROUTES, 0)
+
+
+def detect_route_counts() -> dict[str, int]:
+    """``bloom_detect_conflicts`` launches by route since the last reset;
+    they add up to ``launch_counts()["bloom_detect_conflicts"]``."""
+    return dict(bloom_detect_conflicts.route_launches)
 
 
 KERNELS = {"h3_hash": h3_hash, "bloom_insert": bloom_insert,
            "bloom_query": bloom_query, "bloom_intersect": bloom_intersect,
            "bloom_detect_conflicts": bloom_detect_conflicts}
+
+
+def _attributes(entry: str, builds: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    out = (ctypes.c_int * (3 * len(builds)))()
+    _build.launch(_lib(), entry, ctypes.addressof(out))
+    keys = ("registers", "local_bytes", "static_smem_bytes")
+    return {b: dict(zip(keys, out[3 * i:3 * i + 3])) for i, b in enumerate(builds)}
+
+
+def hash_attributes() -> dict[str, dict[str, int]]:
+    """Registers and local memory a thread and static shared memory a block
+    of the loaded ``h3_hash`` kernel, as ``{"paper": ..., "any": ...}``:
+    built with the paper's geometry (4 segments of 512 bits, 4 byte slices)
+    fixed, and for any other spec."""
+    return _attributes("h3_hash_attributes", ("paper", "any"))
+
+
+def detect_attributes() -> dict[str, dict[str, int]]:
+    """The same for the loaded ``bloom_detect_conflicts`` kernel, as
+    ``{"paper": ..., "any": ..., "direct": ...}``: the transposed route
+    built with the paper's geometry fixed and for any other spec, and the
+    direct route."""
+    return _attributes("bloom_detect_conflicts_attributes", ("paper", "any", "direct"))
 
 
 def query_attributes() -> dict[str, dict[str, int]]:
@@ -521,27 +600,22 @@ def query_attributes() -> dict[str, dict[str, int]]:
     ``{"paper": ..., "any": ...}``: built with the paper's geometry (M = 4,
     512-bit segments) fixed, and for any other spec.  The column masks are
     a ``__grid_constant__`` parameter, so neither uses local memory."""
-    out = (ctypes.c_int * 6)()
-    _build.launch(_lib(), "bloom_query_attributes", ctypes.addressof(out))
-    keys = ("registers", "local_bytes", "static_smem_bytes")
-    return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
+    return _attributes("bloom_query_attributes", ("paper", "any"))
 
 
 def insert_attributes() -> dict[str, dict[str, dict[str, int]]]:
     """The same for the loaded ``bloom_insert`` kernel, as ``{"ids": {"paper":
     ..., "any": ...}, "bitmap": {...}}``: the id-list and bitmap forms, each
     built with the paper's geometry fixed and for any other spec."""
-    out = (ctypes.c_int * 12)()
-    _build.launch(_lib(), "bloom_insert_attributes", ctypes.addressof(out))
-    keys = ("registers", "local_bytes", "static_smem_bytes")
-    rows = [dict(zip(keys, out[i:i + 3])) for i in range(0, 12, 3)]
-    return {"ids": {"paper": rows[0], "any": rows[1]},
-            "bitmap": {"paper": rows[2], "any": rows[3]}}
+    rows = _attributes("bloom_insert_attributes", ("ids", "ids any", "bitmap", "bitmap any"))
+    return {form: {"paper": rows[form], "any": rows[f"{form} any"]}
+            for form in ("ids", "bitmap")}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    bloom_detect_conflicts.route_launches = dict.fromkeys(DETECT_ROUTES, 0)
 
 
 def launch_counts() -> dict[str, int]:

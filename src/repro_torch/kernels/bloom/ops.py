@@ -8,12 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.signatures import (
-    SignatureSpec,
-    hash_positions,
-    tables_tensor,
-    to_addr_i32,
-)
+from repro_torch.core.signatures import SignatureSpec, hash_positions, to_addr_i32
 from repro_torch.kernels.bloom import bloom as _k
 
 
@@ -43,8 +38,7 @@ def bloom_detect_conflicts(spec: SignatureSpec, sigs: torch.Tensor,
     if sigs.dim() != 2 or sigs.shape[1] != spec.num_words:
         raise ValueError(f"sigs {tuple(sigs.shape)}: want (G, {spec.num_words}) "
                          f"packed words of a {spec.sig_bits}-bit signature")
-    return _k.bloom_detect_conflicts(sigs.contiguous(), to_addr_i32(addrs),
-                                     tables_tensor(spec, sigs.device))
+    return _k.bloom_detect_conflicts(spec, sigs.contiguous(), to_addr_i32(addrs))
 
 
 def bloom_intersect(spec: SignatureSpec, a: torch.Tensor,

@@ -71,7 +71,6 @@ from repro_torch.core.signatures import (
     default_spec,
     pack_words,
     popcount_per_word,
-    tables_tensor,
     u32_to_i32,
     unpack_words,
 )
@@ -637,7 +636,7 @@ def _line_tables(spec: SignatureSpec, start: int, stop: int, device):
     """(line_pos, line_reg) rows for line ids [start, stop): the H3 positions
     (``h3_hash`` kernel) and the CPUWriteSet register ids."""
     ids = torch.arange(start, stop, dtype=torch.int32, device=device)
-    return K.h3_hash(ids, tables_tensor(spec, device)), ids % CPUWS_REGS
+    return K.h3_hash(spec, ids), ids % CPUWS_REGS
 
 
 def prepare(trace: WindowTrace, spec: SignatureSpec | None = None,

@@ -63,12 +63,10 @@ def test_h3_hash_plain_equals_reference_tables():
     a = a.astype(np.uint32)
     want = np.asarray(hash_with_tables(jnp.asarray(a),
                                        jnp.asarray(r_tables(spec)), spec))
-    got = K.h3_hash(torch.from_numpy(a.view(np.int32)),
-                    tables_tensor(spec, torch.device("cpu")))
+    got = K.h3_hash(port_spec(), torch.from_numpy(a.view(np.int32)))
     assert got.dtype == torch.int32 and got.shape == (5000, 4)
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
-    assert K.h3_hash(torch.zeros(0, dtype=torch.int32),
-                     tables_tensor(spec, torch.device("cpu"))).shape == (0, 4)
+    assert K.h3_hash(port_spec(), torch.zeros(0, dtype=torch.int32)).shape == (0, 4)
 
 
 def test_insert_ids_equals_sig_bits_from_ids(pair):
@@ -206,18 +204,18 @@ class _FakeLib:
         return launch
 
 
-def _kernel_calls(tabs):
+def _kernel_calls():
     ids = torch.zeros((1, 4), dtype=torch.int32)
     valid = torch.ones((1, 4), dtype=torch.bool)
     words = torch.ones((1, 2), dtype=torch.int32)
     sig = torch.ones((1, 64), dtype=torch.int32)
     return {
-        "h3_hash": lambda: K.h3_hash(ids[0].contiguous(), tabs),
+        "h3_hash": lambda: K.h3_hash(port_spec(), ids[0].contiguous()),
         "bloom_insert": lambda: K.bloom_insert(port_spec(), ids=ids, valid=valid),
         "bloom_query": lambda: K.bloom_query(port_spec(), sig, words, 40),
         "bloom_intersect": lambda: K.bloom_intersect(sig, sig, 4),
         "bloom_detect_conflicts": lambda: K.bloom_detect_conflicts(
-            sig, ids[0].contiguous(), tabs),
+            port_spec(), sig, ids[0].contiguous()),
     }
 
 
@@ -226,15 +224,15 @@ def test_cuda_path_launches_kernel_or_raises_never_plain(monkeypatch, rc):
     """With the tensors treated as CUDA tensors each wrapper goes to its
     kernel: a clean launch counts once, a launch error raises — neither
     touches the plain version."""
-    tabs = tables_tensor(default_spec(), torch.device("cpu"))
     fake = _FakeLib(rc)
     monkeypatch.setattr(K, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(K, "_lib", lambda: fake)
     monkeypatch.setattr(K, "_stream", lambda t: 0)
+    monkeypatch.setattr(K, "_sm_count", lambda device: 132)  # no card to ask
     for name in K.KERNELS:
         monkeypatch.setattr(K, f"{name}_plain", None)  # any use would fail
     K.reset_launch_counts()
-    for name, call in _kernel_calls(tabs).items():
+    for name, call in _kernel_calls().items():
         if rc:
             with pytest.raises(RuntimeError, match="CUDA error 700"):
                 call()
@@ -247,23 +245,25 @@ def test_cuda_path_launches_kernel_or_raises_never_plain(monkeypatch, rc):
 
 
 def test_cpu_path_counts_no_launch():
-    tabs = tables_tensor(default_spec(), torch.device("cpu"))
     K.reset_launch_counts()
-    for call in _kernel_calls(tabs).values():
+    for call in _kernel_calls().values():
         call()
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 
 def test_wrappers_check_arguments():
-    tabs = tables_tensor(default_spec(), torch.device("cpu"))
+    spec = port_spec()
     with pytest.raises(TypeError):
-        K.h3_hash(torch.zeros(4, dtype=torch.int64), tabs)
+        K.h3_hash(spec, torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError):
-        K.h3_hash(torch.zeros((4, 4), dtype=torch.int32)[:, 0], tabs)
+        K.h3_hash(spec, torch.zeros((4, 4), dtype=torch.int32)[:, 0])
+    with pytest.raises(TypeError):
+        K.h3_hash(tables_tensor(spec, torch.device("cpu")), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         K.bloom_insert(port_spec())
     with pytest.raises(TypeError):
-        K.bloom_insert(tabs, ids=torch.zeros((1, 4), dtype=torch.int32),
+        K.bloom_insert(tables_tensor(spec, torch.device("cpu")),
+                       ids=torch.zeros((1, 4), dtype=torch.int32),
                        valid=torch.ones((1, 4), dtype=torch.bool))
     with pytest.raises(ValueError):
         K.bloom_query(port_spec(), torch.zeros((1, 64), dtype=torch.int32),
@@ -272,7 +272,7 @@ def test_wrappers_check_arguments():
         K.bloom_intersect(torch.zeros((3, 64), dtype=torch.int32),
                           torch.zeros((2, 64), dtype=torch.int32), 4)
     with pytest.raises(ValueError):
-        K.h3_hash(torch.zeros(4, dtype=torch.int32, device="meta"), tabs)
+        K.h3_hash(spec, torch.zeros(4, dtype=torch.int32, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +318,7 @@ def test_detect_conflicts_plain_equals_reference(sig_bits, m, num_groups):
     np.testing.assert_array_equal(pallas, want)
     t_sigs = torch.from_numpy(sigs.view(np.int32))
     t_probes = torch.from_numpy(probes.view(np.int32))
-    plain = K.bloom_detect_conflicts_plain(
-        t_sigs, t_probes, tables_tensor(t_spec, torch.device("cpu")))
+    plain = K.bloom_detect_conflicts_plain(t_spec, t_sigs, t_probes)
     assert plain.dtype == torch.int32
     np.testing.assert_array_equal(plain.numpy(), want)
     np.testing.assert_array_equal(TO.bloom_detect_conflicts(t_spec, t_sigs, t_probes).numpy(), want)
@@ -336,7 +335,7 @@ def test_detect_conflicts_ops_takes_any_integer_ids():
     from repro.core.signatures import SignatureSpec as RSpec
     from repro_torch.kernels.bloom import ops as TO
 
-    spec = default_spec()
+    spec = port_spec()
     sigs = torch.from_numpy(_group_sigs(RSpec(), 4).view(np.int32))
     ids = torch.from_numpy(_r_addrs(64, seed=0).astype(np.int64))
     want = TO.bloom_detect_conflicts(spec, sigs, ids.to(torch.int32))
@@ -348,12 +347,14 @@ def test_detect_conflicts_ops_takes_any_integer_ids():
 
 
 def test_detect_conflicts_checks_arguments():
-    tabs = tables_tensor(default_spec(), torch.device("cpu"))
+    spec = port_spec()
     ids = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="1 to 16"):
-        K.bloom_detect_conflicts(torch.zeros((17, 64), dtype=torch.int32), ids, tabs)
+        K.bloom_detect_conflicts(spec, torch.zeros((17, 64), dtype=torch.int32), ids)
     with pytest.raises(TypeError):
-        K.bloom_detect_conflicts(torch.zeros((4, 64), dtype=torch.int64), ids, tabs)
+        K.bloom_detect_conflicts(spec, torch.zeros((4, 64), dtype=torch.int64), ids)
     with pytest.raises(ValueError):
-        K.bloom_detect_conflicts(torch.zeros((4, 64), dtype=torch.int32),
-                                 ids.to("meta"), tabs)
+        K.bloom_detect_conflicts(spec, torch.zeros((4, 64), dtype=torch.int32),
+                                 ids.to("meta"))
+    with pytest.raises(ValueError, match=r"want \(G, 64\)"):
+        K.bloom_detect_conflicts(spec, torch.zeros((4, 32), dtype=torch.int32), ids)

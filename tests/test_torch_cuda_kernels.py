@@ -46,7 +46,6 @@ from repro_torch.core.signatures import (
     SignatureSpec,
     default_spec,
     pack_words,
-    tables_tensor,
     unpack_words,
 )
 from repro_torch.kernels.bloom import bloom as K
@@ -73,13 +72,39 @@ def _words(shape, density, dev, seed):
     return pack_words(bits.reshape(*shape[:-1], -1))
 
 
-@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+# The packed-table kernels (h3_hash, bloom_detect_conflicts) beyond SPECS:
+# several words an entry (32 segments), 64-bit entries whose top field holds
+# the sign bit (8 x 8 bits), fewer byte slices, and signatures past the
+# transposed route's staging cap (the direct route).
+PACKED_SPECS = SPECS + [SignatureSpec(sig_bits=2048, num_segments=32),
+                        SignatureSpec(sig_bits=2048, num_segments=8),
+                        SignatureSpec(sig_bits=4096, num_segments=8, addr_bits=9),
+                        SignatureSpec(sig_bits=2**17, num_segments=4)]
+
+
+def _spec_id(s):
+    return f"{s.sig_bits}m{s.num_segments}a{s.addr_bits}"
+
+
+@pytest.mark.parametrize("spec", PACKED_SPECS, ids=_spec_id)
 @pytest.mark.parametrize("n", [1, 33, 4097, 262_145])
 def test_h3_hash(dev, spec, n):
-    tabs = tables_tensor(spec, dev)
+    """The paper build (the default spec) and the any-spec build, against
+    the byte-sliced tables; sign-bit addresses included."""
     a = torch.randint(-2**31, 2**31 - 1, (n,), generator=_gen(dev, n), device=dev,
                       dtype=torch.int32)
-    assert torch.equal(K.h3_hash(a, tabs), K.h3_hash_plain(a, tabs))
+    a[:2] = torch.tensor([-2**31, -1], dtype=torch.int32)[:n]
+    assert torch.equal(K.h3_hash(spec, a), K.h3_hash_plain(spec, a))
+
+
+def test_hash_and_detect_attributes(dev):
+    """Every build of h3_hash (paper, any) and of bloom_detect_conflicts
+    (transposed paper and any, direct) uses no local memory."""
+    for builds, n in ((K.hash_attributes(), 2), (K.detect_attributes(), 3)):
+        assert len(builds) == n
+        for build_of, a in builds.items():
+            assert a["local_bytes"] == 0, build_of
+            assert 0 < a["registers"] <= 255, build_of
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
@@ -350,13 +375,14 @@ def test_intersect_pair(dev, lanes, regs, m, nw, kind):
 
 
 def test_launch_counts_and_device_checks(dev):
-    tabs = tables_tensor(default_spec(), dev)
+    spec = default_spec()
+    sigs = torch.zeros((4, spec.num_words), dtype=torch.int32, device=dev)
     K.reset_launch_counts()
-    K.h3_hash(torch.arange(10, dtype=torch.int32, device=dev), tabs)
-    K.h3_hash(torch.arange(0, dtype=torch.int32, device=dev), tabs)  # no launch
+    K.h3_hash(spec, torch.arange(10, dtype=torch.int32, device=dev))
+    K.h3_hash(spec, torch.arange(0, dtype=torch.int32, device=dev))  # no launch
     assert K.launch_counts()["h3_hash"] == 1
     with pytest.raises(ValueError):
-        K.h3_hash(torch.arange(10, dtype=torch.int32), tabs)  # mixed devices
+        K.bloom_detect_conflicts(spec, sigs, torch.arange(10, dtype=torch.int32))  # mixed
     K.reset_launch_counts()
 
 
@@ -549,20 +575,27 @@ def test_seed_engine_on_card_equals_cpu_and_packed(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s.sig_bits}m{s.num_segments}")
+@pytest.mark.parametrize("spec", PACKED_SPECS, ids=_spec_id)
 @pytest.mark.parametrize("groups", [1, 4, 16])
-@pytest.mark.parametrize("n", [1, 255, 257, 16_384])
+@pytest.mark.parametrize("n", [1, 192, 255, 257, 16_384, 70_000])
 def test_detect_conflicts(dev, spec, groups, n):
     """Sign-bit ids included; the signatures are dense enough that counts
-    from 0 to G all occur at the larger N."""
-    tabs = tables_tensor(spec, dev)
+    from 0 to G all occur at the larger N; past one address a thread of a
+    one-wave grid at 70,000; on the route the spec picks, counted."""
     g = _gen(dev, n * groups)
     ids = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
                         dtype=torch.int32)
-    sigs = _words((groups, spec.num_words), 0.7, dev, n + groups)
-    got = K.bloom_detect_conflicts(sigs, ids, tabs)
+    ids[:2 if n > 1 else 1] = torch.tensor([-2**31, -1][:n], dtype=torch.int32)
+    density = 0.7 ** (4 / spec.num_segments)  # a member in every group ~0.24
+    sigs = _words((groups, spec.num_words), density, dev, n + groups)
+    K.reset_launch_counts()
+    got = K.bloom_detect_conflicts(spec, sigs, ids)
+    route = K.detect_route(spec)
+    assert K.detect_route_counts() == {r: int(r == route) for r in K.DETECT_ROUTES}
+    assert route == ("direct" if spec.sig_bits > 2**15 else "transposed")
+    K.reset_launch_counts()
     assert got.dtype == torch.int32 and got.shape == (n,)
-    assert torch.equal(got, K.bloom_detect_conflicts_plain(sigs, ids, tabs))
+    assert torch.equal(got, K.bloom_detect_conflicts_plain(spec, sigs, ids))
 
 
 def test_detect_conflicts_counts_own_ids(dev):
