@@ -63,6 +63,23 @@ Phases, in order; any failure exits non-zero before the final line:
    ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
 5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
    by kernel and the device's idle share of the unprofiled batch wall time;
+5a. extended Fig. 7 fleet — ``Study(all_workloads(extended=True))``, the
+   reference Fig. 7 driver's 22 workloads (the paper's 12, ``bfs`` and
+   ``sssp`` on every graph input, ``htap_stream``, ``mtmix`` on every graph
+   input) at the reference's defaults, on both engines, counted as in
+   phase 4 (two ``bloom_query``, two ``bloom_insert`` and one
+   ``bloom_intersect`` launch a LazyPIM window); batch == sequential on
+   every field of 22 x 6 results; the goldens held; the 12 paper workloads
+   equal phase 4's sequential results on every field; the 10 new ones equal
+   one ``device="cpu"`` sequential run of the port on every field; both
+   walls and the CPU run's printed;
+5b. signature caps — the M = 64 ``Study`` (htap128 and pagerank-arxiv at
+   ``SignatureSpec(4096, 64)`` and ``(2048, 64)``, full size) on both
+   engines against its CPU run, every field exact, counted a window; every
+   parity-form kernel at ``SignatureSpec(4096, 128)`` (640 column masks,
+   two launches a call) and B4 / B1 at its 128 segments; the bitmap
+   kernels (B2 in both forms, B3, B8a, B8b) at 70,000 lanes, one launch
+   each; every result equal to its plain version;
 6. seed path — the seed reference engine ``run_all_bool`` over the same 12
    workloads at full scale (default ``SignatureSpec`` and ``HWParams``),
    one trace at a time, counted and tapped: every ``bloom_insert_onehot``
@@ -160,7 +177,8 @@ Phases, in order; any failure exits non-zero before the final line:
    (every call held to the plain version at ``FA_TOL``'s float32 pair,
    rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
    the general route's own path;
-18. the ``kernels`` JSON line (ten kernels: B7 once a route, as
+18. the ``kernels`` JSON line (ten kernels, launches by path including the
+   extended fleet's and the M = 64 Study's: B7 once a route, as
    ``flash_attention_general`` — its forced bf16 timing, the float32 one as
    ``float32`` — and ``flash_attention_sm90``; the seven redesigned Bloom
    kernels also carry the launch floor, ``h3_hash`` (timed at 262,144
@@ -854,6 +872,216 @@ def main_path(K) -> dict[str, dict[str, int]]:
     print("batch and sequential agree on every field of 12 x 6 results",
           flush=True)
     return counts, walls, runs["sequential"]
+
+
+def exact_points(got, want, label: str) -> None:
+    """Hold StudyPoints to others of the same workloads on every SimResult
+    field, exactly."""
+    check([p.workload for p in got] == [p.workload for p in want],
+          f"{label}: workloads {[p.workload for p in got]} vs {[p.workload for p in want]}")
+    for a, b in zip(got, want):
+        check(set(a.results) == set(b.results), f"{label}/{a.workload}: mechanisms differ")
+        for m in a.results:
+            da, db = dataclasses.asdict(a.results[m]), dataclasses.asdict(b.results[m])
+            diff = {k: (da[k], db[k]) for k in da if da[k] != db[k]}
+            check(not diff, f"{label}/{a.workload}/{m}: {diff}")
+
+
+def extended_fleet_path(paper_sequential, card: str) -> tuple[dict, dict]:
+    """``Study(all_workloads(extended=True))`` -- the reference's Fig. 7
+    driver's 22 workloads -- on both engines: the Bloom launches a LazyPIM
+    window, batch == sequential on every field, the goldens and the Fig. 7
+    phase's 12 paper results held, and the 10 new workloads against one CPU
+    run of the port, every field exact."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import MECHANISMS, Study, all_workloads
+
+    golden = json.loads((GOLDEN_DIR / "fig7_golden.json").read_text())
+    golden_batch = json.loads((GOLDEN_DIR / "fig7_batched_golden.json").read_text())
+    fleet, paper = all_workloads(extended=True), all_workloads()
+    check(fleet[:len(paper)] == paper and len(fleet) == 22, f"extended fleet {fleet}")
+    runs, counts, walls = {}, {}, {}
+    for engine in ("batch", "sequential"):
+        phase(f"extended Fig. 7 fleet, engine={engine}")
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        study = Study(fleet)
+        t0 = time.perf_counter()
+        rs = study.run(engine=engine)
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        counts[engine], runs[engine] = launch_counts(), rs
+        print(f"{engine}: {len(rs)} workloads x {len(MECHANISMS)} mechanisms in "
+              f"{walls[engine]:.2f} s wall on {card}; launches {counts[engine]}", flush=True)
+        for name in FIG7_KERNELS:
+            check(counts[engine][name] > 0, f"extended/{engine}: {name} never launched")
+        label = f"extended Fig. 7/{engine}"
+        check_query_launches(label, study, rs, engine, counts[engine])
+        check_insert_launches(label, study, rs, engine, counts[engine])
+        check_intersect_launches(label, study, rs, engine, counts[engine])
+        check(len(rs) == 22, f"{engine}: {len(rs)} points, want 22")
+        for p in rs:
+            for m, r in p.results.items():
+                for k, v in dataclasses.asdict(r).items():
+                    if isinstance(v, float):
+                        check(math.isfinite(v) and v >= 0.0,
+                              f"extended/{engine}/{p.workload}/{m}/{k} = {v}")
+        worst = check_golden(rs, golden if engine == "sequential" else golden_batch,
+                             f"extended/{engine}")
+        print(f"{engine}: goldens {GOLDEN_WORKLOADS} hold (worst rel gap {worst:.3g})",
+              flush=True)
+    phase("extended fleet: batch == sequential, paper 12 == Fig. 7 phase, new 10 == CPU")
+    exact_points(runs["batch"].points, runs["sequential"].points, "extended batch vs sequential")
+    exact_points(runs["sequential"].points[:12], paper_sequential.points,
+                 "extended fleet's paper 12 vs the Fig. 7 phase")
+    t0 = time.perf_counter()
+    cpu = Study(fleet[12:], device="cpu").run(engine="sequential")
+    cpu_wall = time.perf_counter() - t0
+    exact_points(runs["sequential"].points[12:], cpu.points, "extended new 10 vs CPU")
+    print(f"batch == sequential on every field of 22 x 6 results; the paper 12 equal "
+          f"the Fig. 7 phase's; the new 10 ({', '.join(p.workload for p in cpu)}) equal "
+          f"the CPU run ({cpu_wall:.2f} s) on every field", flush=True)
+    walls["cpu_new10_sequential"] = cpu_wall
+    return counts, walls
+
+
+C3_SPEC_BITS = (4096, 2048)  # the M = 64 Study's specs
+C3_LANES = 70_000            # past gridDim.y's 65,535
+
+
+def signature_caps_phase(K, K8) -> dict:
+    """§C3b on the card: the M = 64 Study of tests/test_torch_signature_caps.py
+    on both engines against its CPU run (exact, counted a LazyPIM window);
+    every parity-form kernel at a spec of 640 column masks (two passes) and
+    every bitmap kernel at 70,000 lanes of a small bitmap, one launch, each
+    against its plain version, exact."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import SignatureSpec, Study, workload
+    from repro_torch.core.signatures import default_spec, pack_words, unpack_words
+
+    counts = {}
+    for sig_bits in C3_SPEC_BITS:
+        spec = SignatureSpec(sig_bits=sig_bits, num_segments=64)
+        phase(f"signature caps: Study at {spec}")
+        wl = [workload("htap128"), workload("pagerank", "arxiv")]
+        t0 = time.perf_counter()
+        cpu = Study(wl, spec=spec, device="cpu").run(engine="sequential")
+        cpu_wall = time.perf_counter() - t0
+        for engine in ("batch", "sequential"):
+            torch.cuda.synchronize()
+            KS.reset_launch_counts()
+            study = Study(wl, spec=spec)
+            t0 = time.perf_counter()
+            rs = study.run(engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = launch_counts()
+            label = f"M=64 {sig_bits}/{engine}"
+            for name in FIG7_KERNELS:
+                check(c[name] > 0, f"{label}: {name} never launched")
+            check_query_launches(label, study, rs, engine, c)
+            check_insert_launches(label, study, rs, engine, c)
+            check_intersect_launches(label, study, rs, engine, c)
+            exact_points(rs.points, cpu.points, f"{label} vs CPU")
+            counts[f"{sig_bits}_{engine}"] = c
+            print(f"{label}: 2 workloads x 6 mechanisms in {wall:.2f} s (CPU {cpu_wall:.2f} "
+                  f"s), equal to the CPU run on every field; launches {c}", flush=True)
+
+    phase("signature caps: a spec of 640 column masks (two passes)")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    spec = SignatureSpec(sig_bits=4096, num_segments=128)
+    passes = len(K._passes(spec)[0])
+    check(passes == 2, f"{spec}: {passes} passes, want 2")
+
+    def words(shape, density):
+        return pack_words(torch.rand((*shape[:-1], shape[-1] * 32), generator=g,
+                                     device="cuda") < density)
+
+    def held(name, got, want, launched, want_launches):
+        got, want = (got if isinstance(got, tuple) else (got,)), \
+            (want if isinstance(want, tuple) else (want,))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}: kernel != plain")
+        check(launched == want_launches, f"{name}: {launched} launches, want {want_launches}")
+        print(f"{name}: equal to the plain version, {launched} launch(es)", flush=True)
+
+    ids = torch.randint(-2**31, 2**31 - 1, (3, 256), generator=g, device="cuda",
+                        dtype=torch.int32)
+    valid = torch.rand((3, 256), generator=g, device="cuda") < 0.8
+    bitmap = words((3, 205), 0.01)
+    sig = words((3, spec.num_words), 1 - 0.5 / spec.num_segments)
+    bits = unpack_words(sig, spec.sig_bits).contiguous()
+
+    def run(name, fn, plain, kernel, mod=K):
+        mod.reset_launch_counts()
+        got = fn()
+        launched = mod.launch_counts()[kernel]
+        held(name, got, plain(), launched, passes)
+
+    run("bloom_insert ids pair", lambda: K.bloom_insert(spec, ids=ids, valid=valid, ids_b=ids,
+                                                        valid_b=valid),
+        lambda: K.bloom_insert_plain(spec, ids=ids, valid=valid, ids_b=ids, valid_b=valid),
+        "bloom_insert")
+    run("bloom_insert bank pair", lambda: K.bloom_insert(spec, bitmap=bitmap, bitmap_b=bitmap,
+                                                         num_lines=6550, num_regs=16),
+        lambda: K.bloom_insert_plain(spec, bitmap=bitmap, bitmap_b=bitmap, num_lines=6550,
+                                     num_regs=16), "bloom_insert")
+    run("bloom_query pair", lambda: K.bloom_query(spec, sig, bitmap, 6550, words_b=bitmap),
+        lambda: K.bloom_query_plain(spec, sig, bitmap, 6550, bitmap), "bloom_query")
+    run("bloom_insert_onehot pair", lambda: K8.bloom_insert_onehot(spec, sig, ids, valid,
+                                                                   addrs_b=ids),
+        lambda: K8.bloom_insert_onehot_plain(spec, sig, ids, valid, addrs_b=ids),
+        "bloom_insert_onehot", K8)
+    run("bloom_query_onehot", lambda: K8.bloom_query_onehot(spec, bits, ids),
+        lambda: K8.bloom_query_onehot_plain(spec, bits, ids), "bloom_query_onehot", K8)
+    # registers that meet all 128 segments of their lane's image about half
+    # the time, so the runs of 32 segments past the first decide
+    a = words((48, spec.num_words), 0.15)
+    for name, fn, plain in (
+            ("bloom_intersect rows (128 segments)", lambda: K.bloom_intersect(a, sig, 128),
+             lambda: K.bloom_intersect_plain(a, sig, 128)),
+            ("bloom_intersect pair (128 segments)",
+             lambda: K.bloom_intersect(a, sig, 128, a_b=a.flip(0)),
+             lambda: K.bloom_intersect_plain(a, sig, 128, a.flip(0))),
+            ("h3_hash (128 segments)", lambda: K.h3_hash(spec, ids[0]),
+             lambda: K.h3_hash_plain(spec, ids[0]))):
+        K.reset_launch_counts()
+        got = fn()
+        held(name, got, plain(), sum(K.launch_counts().values()), 1)
+    rows = K.bloom_intersect_plain(a, sig, 128)
+    check(0 < int(rows.sum()) < rows.numel(), f"intersect rows all {bool(rows[0])}")
+
+    phase(f"signature caps: {C3_LANES:,} lanes, one launch a kernel")
+    spec, lanes = default_spec(), C3_LANES
+    ids = torch.randint(-2**31, 2**31 - 1, (lanes, 8), generator=g, device="cuda",
+                        dtype=torch.int32)
+    valid = torch.rand((lanes, 8), generator=g, device="cuda") < 0.7
+    bitmap = words((lanes, 2), 0.3)
+    sig = words((lanes, spec.num_words), 0.8)
+    bits = unpack_words(sig, spec.sig_bits).contiguous()
+    passes = 1
+    run("bloom_insert ids, 70,000 lanes", lambda: K.bloom_insert(spec, ids=ids, valid=valid),
+        lambda: K.bloom_insert_plain(spec, ids=ids, valid=valid), "bloom_insert")
+    run("bloom_insert bank pair (4 registers), 70,000 lanes",
+        lambda: K.bloom_insert(spec, bitmap=bitmap, bitmap_b=bitmap.flip(0), num_lines=60,
+                               num_regs=4),
+        lambda: K.bloom_insert_plain(spec, bitmap=bitmap, bitmap_b=bitmap.flip(0),
+                                     num_lines=60, num_regs=4), "bloom_insert")
+    run("bloom_query pair, 70,000 lanes",
+        lambda: K.bloom_query(spec, sig, bitmap, 60, words_b=bitmap.flip(0)),
+        lambda: K.bloom_query_plain(spec, sig, bitmap, 60, bitmap.flip(0)), "bloom_query")
+    run("bloom_insert_onehot, 70,000 lanes",
+        lambda: K8.bloom_insert_onehot(spec, None, ids, valid),
+        lambda: K8.bloom_insert_onehot_plain(spec, None, ids, valid),
+        "bloom_insert_onehot", K8)
+    run("bloom_query_onehot, 70,000 lanes", lambda: K8.bloom_query_onehot(spec, bits, ids),
+        lambda: K8.bloom_query_onehot_plain(spec, bits, ids), "bloom_query_onehot", K8)
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+    return counts
 
 
 def device_busy_s(fn, top: int | None = 8) -> tuple[float, int, list]:
@@ -2156,6 +2384,9 @@ def main() -> int:
         stats = kernel_phases(K, floor_ms)
         counts, walls, sequential = main_path(K)
         profile = main_path_profile(walls["batch"])
+        fig7x_counts, fig7x_walls = extended_fleet_path(sequential, card)
+        caps_counts = signature_caps_phase(K, importlib.import_module(
+            "repro_torch.kernels.bloom.onehot"))
         seed_counts, seed, seed_tap = seed_path(sequential)
         stats.update(onehot_kernel_phases(seed_tap, floor_ms))
         del seed_tap, sequential
@@ -2190,6 +2421,9 @@ def main() -> int:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
     by_path = {"fig7_batch": counts["batch"], "fig7_sequential": counts["sequential"],
+               "fig7x_batch": fig7x_counts["batch"],
+               "fig7x_sequential": fig7x_counts["sequential"],
+               **{f"m64_study_{k}": c for k, c in caps_counts.items()},
                "seed_fig7": seed_counts,
                "capture_batch": cap_counts["batch"],
                "capture_sequential": cap_counts["sequential"],
@@ -2204,7 +2438,8 @@ def main() -> int:
                     launches=sum(c[name] for c in by_path.values()),
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **stats[name]) for name in TPU_KERNEL]
-    print(json.dumps({"profile": profile, "fig7_wall_s": walls, "seed_fig7": seed,
+    print(json.dumps({"profile": profile, "fig7_wall_s": walls,
+                      "fig7x_wall_s": fig7x_walls, "seed_fig7": seed,
                       "signatures": signatures,
                       "capture_wall_s": cap_walls, "lazysync": lazy,
                       "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,

@@ -193,11 +193,13 @@ def h3_columns(spec: SignatureSpec) -> np.ndarray:
     """(num_segments, log2 seg_bits) uint32 column masks of the H3 matrix:
     bit ``j`` of ``C[m][k]`` is bit ``k`` of ``q[m][j]``, so bit ``k`` of
     segment ``m``'s hash of ``a`` is the parity of ``a & C[m][k]``
-    (read-only, cached per spec)."""
-    q = _h3_matrix(spec).astype(np.uint64)
+    (read-only, cached per spec).  Addresses are 32 bits, so rows of
+    ``q`` past bit 31 (``addr_bits > 32``) meet no set bit and are left
+    out."""
+    q = _h3_matrix(spec)[:, :32].astype(np.uint64)
     log_seg = spec.seg_bits.bit_length() - 1
     k = np.arange(log_seg, dtype=np.uint64)
-    j = np.arange(spec.addr_bits, dtype=np.uint64)
+    j = np.arange(q.shape[1], dtype=np.uint64)
     bits = (q[:, None, :] >> k[None, :, None]) & np.uint64(1)   # (M, log, AB)
     cols = (bits << j[None, None, :]).sum(-1).astype(np.uint32)
     cols.setflags(write=False)

@@ -14,7 +14,9 @@
 //   through L1 and never staged; one thread an address: 4 gathers and 3
 //   XORs for all segments, the positions cut out with shifts and stored as
 //   one 16-byte store (the paper's geometry compiled fixed; any other spec
-//   under the cap at run time).  The previous design staged the 16 KB
+//   at run time, as many words an entry as its M segments need; a 32-bit
+//   line id meets only the first 4 byte slices, so a spec of more address
+//   bits hashes with those).  The previous design staged the 16 KB
 //   uint32 tables in every block (4.3 MB of L2 reads at 262,144 lines) and
 //   gathered 16 times an address.  Three designs were timed side by side
 //   in one run on an H100 80GB HBM3 at 700 W, at 262,144 lines and at
@@ -48,7 +50,11 @@
 //   cluster of one block a 1,024 words, at most 8, so the window's
 //   262,144-line bitmaps (8,192 words) take 8 blocks a (bitmap, lane); the
 //   other design, one block a (bitmap, lane) walking all 8,192 words, was
-//   slower when both were timed at the window's bank pair shape.
+//   slower when both were timed at the window's bank pair shape.  A spec
+//   with more than 512 column masks (M * log2(seg_bits), e.g. 128 segments
+//   of 32 bits) is inserted in passes of whole segments, each ORing into
+//   the words the last one stored; a bank too large for 8 blocks' shared
+//   memory takes as many blocks as it needs, up to the cluster's 8.
 
 // bloom_query (ports bloom_query_pallas, bloom.py:205): per-line
 //   membership of the lines set in a packed bitmap, ANDed with that bitmap
@@ -69,11 +75,15 @@
 //   against the lane's signature staged in shared memory (NW words, 256 B
 //   for the paper's geometry); one ballot packs the word for its owner,
 //   which writes both masked results.  Lines past num_lines stay zero.
+//   Lanes sit on gridDim.y; past its 65,535 a block walks several lanes.
+//   A spec with more than 512 column masks is queried in passes of whole
+//   segments, each pass asked only for the lines the last one kept.
 
 // bloom_intersect (ports bloom_intersect_pallas, bloom.py:316): the
 //   AND-prefilter, true iff every segment of a & b has a set bit.  Bound
 //   by bytes.  Design: one warp per row, a per-thread segment mask and
-//   one __reduce_or_sync.  Pair-and-any form (what the LazyPIM window
+//   one __reduce_or_sync a run of 32 segments (one run at M <= 32, the
+//   next run only while every segment so far met).  Pair-and-any form (what the LazyPIM window
 //   launches): both CPUWriteSet banks of a window (cpuws and conc, L lanes
 //   x R registers each) against the lanes' read images, and per bank and
 //   lane whether ANY register passes -- the two conflict checks of a
@@ -190,20 +200,23 @@ h3_hash_kernel(const uint32_t* __restrict__ addrs, const u64* __restrict__ ptab,
   }
 }
 
-// grid (ceil(NWL / kQueryBlockWords), L): sig (L, NW), words_a / words_b
-// (L, NWL) -> out_a / out_b (L, NWL); words_b and out_b null for one bitmap.
+// grid (ceil(NWL / kQueryBlockWords), min(L, 65,535)): sig (L, NW),
+// words_a / words_b (L, NWL) -> out_a / out_b (L, NWL); words_b and out_b
+// null for one bitmap.  kLaneLoop, taken only past 65,535 lanes, walks the
+// lanes y, y + gridDim.y, ... in each block; without it a block answers its
+// one lane with no loop around it (the loop, built in at every lane count,
+// took registers and time at the paper's shapes: PERF.md, section 6).
 constexpr int kQueryWarpWords = 4;                                  // words a warp
 constexpr int kQueryBlockWords = kQueryWarpWords * (kThreads / 32);  // words a block
 
 template <int MC, int LOGC>
-__global__ void __launch_bounds__(kThreads)
-query_kernel(const uint32_t* __restrict__ sig, const uint32_t* __restrict__ words_a,
-             const uint32_t* __restrict__ words_b,
-             const __grid_constant__ h3p::Columns cols,
-             uint32_t* __restrict__ out_a, uint32_t* __restrict__ out_b, int NWL,
-             int num_lines, int M, int log_seg, int NW) {
-  extern __shared__ uint32_t ssig[];
-  const int lane = blockIdx.y;
+__device__ __forceinline__ void query_lane(const uint32_t* __restrict__ sig,
+                                           const uint32_t* __restrict__ words_a,
+                                           const uint32_t* __restrict__ words_b,
+                                           const h3p::Columns& cols, uint32_t* __restrict__ out_a,
+                                           uint32_t* __restrict__ out_b, uint32_t* ssig,
+                                           int lane, int NWL, int num_lines, int M,
+                                           int log_seg, int NW) {
   const int t = threadIdx.x & 31;
   const int w0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kQueryWarpWords;
   const int w = w0 + t;  // lanes t < kQueryWarpWords own word w
@@ -236,7 +249,60 @@ query_kernel(const uint32_t* __restrict__ sig, const uint32_t* __restrict__ word
   }
 }
 
+template <int MC, int LOGC, bool kLaneLoop>
+__global__ void __launch_bounds__(kThreads)
+query_kernel(const uint32_t* __restrict__ sig, const uint32_t* __restrict__ words_a,
+             const uint32_t* __restrict__ words_b,
+             const __grid_constant__ h3p::Columns cols,
+             uint32_t* __restrict__ out_a, uint32_t* __restrict__ out_b, int L, int NWL,
+             int num_lines, int M, int log_seg, int NW) {
+  extern __shared__ uint32_t ssig[];
+  if constexpr (kLaneLoop) {
+    for (int lane = blockIdx.y; lane < L; lane += gridDim.y) {
+      if (lane != static_cast<int>(blockIdx.y)) __syncthreads();  // the last ssig is read
+      query_lane<MC, LOGC>(sig, words_a, words_b, cols, out_a, out_b, ssig, lane, NWL,
+                           num_lines, M, log_seg, NW);
+    }
+  } else {
+    query_lane<MC, LOGC>(sig, words_a, words_b, cols, out_a, out_b, ssig, blockIdx.y, NWL,
+                         num_lines, M, log_seg, NW);
+  }
+}
+
+// True iff every one of the M segments (WPS words each) of row & img has a
+// set bit; called by a whole warp, t its lane: one bit a segment of a
+// warp-reduced mask.  kRuns, taken only for M > 32, takes the segments 32
+// at a time, stopping at the first run with an empty segment; without it
+// one run covers them all (the run loop, built in at every M, took time at
+// the paper's shapes: PERF.md, section 6).
+template <bool kRuns>
+__device__ __forceinline__ bool segments_meet(const uint32_t* __restrict__ row,
+                                              const uint32_t* __restrict__ img, int t,
+                                              int NW, int WPS, int M) {
+  if constexpr (!kRuns) {
+    uint32_t segs = 0u;
+    for (int j = t; j < NW; j += 32) {
+      if (row[j] & img[j]) segs |= 1u << (j / WPS);
+    }
+    const uint32_t full = M >= 32 ? 0xFFFFFFFFu : ((1u << M) - 1u);
+    return __reduce_or_sync(0xFFFFFFFFu, segs) == full;
+  } else {
+    for (int s0 = 0; s0 < M; s0 += 32) {
+      const int nseg = min(32, M - s0);
+      const int j0 = s0 * WPS, j1 = j0 + nseg * WPS;
+      uint32_t segs = 0u;
+      for (int j = j0 + t; j < j1; j += 32) {
+        if (row[j] & img[j]) segs |= 1u << ((j - j0) / WPS);
+      }
+      const uint32_t full = nseg == 32 ? 0xFFFFFFFFu : ((1u << nseg) - 1u);
+      if (__reduce_or_sync(0xFFFFFFFFu, segs) != full) return false;
+    }
+    return true;
+  }
+}
+
 // One warp per row: a (B, NW), b (B / R, NW), row i pairs with b[i / R].
+template <bool kRuns>
 __global__ void intersect_kernel(const uint32_t* __restrict__ a,
                                  const uint32_t* __restrict__ b,
                                  uint8_t* __restrict__ out, int B, int R,
@@ -244,20 +310,15 @@ __global__ void intersect_kernel(const uint32_t* __restrict__ a,
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int t = threadIdx.x & 31;
   if (row >= B) return;  // uniform per warp
-  const uint32_t* ar = a + static_cast<size_t>(row) * NW;
-  const uint32_t* br = b + static_cast<size_t>(row / R) * NW;
-  uint32_t segs = 0u;
-  for (int j = t; j < NW; j += 32) {
-    if (ar[j] & br[j]) segs |= 1u << (j / WPS);
-  }
-  segs = __reduce_or_sync(0xFFFFFFFFu, segs);
-  const uint32_t full = M >= 32 ? 0xFFFFFFFFu : ((1u << M) - 1u);
-  if (t == 0) out[row] = segs == full ? 1 : 0;
+  const bool pass = segments_meet<kRuns>(a + static_cast<size_t>(row) * NW,
+                                         b + static_cast<size_t>(row / R) * NW, t, NW, WPS, M);
+  if (t == 0) out[row] = pass ? 1 : 0;
 }
 
 // One block a lane, one warp a register: a and a_b (L * R, NW) banks, b (L,
 // NW) read images -> out (2, L): out[k][l] = any register r of bank k of
 // lane l passes the prefilter against b[l].
+template <bool kRuns>
 __global__ void intersect_pair_kernel(const uint32_t* __restrict__ a,
                                       const uint32_t* __restrict__ a_b,
                                       const uint32_t* __restrict__ b,
@@ -270,17 +331,12 @@ __global__ void intersect_pair_kernel(const uint32_t* __restrict__ a,
   if (threadIdx.x < 2) hit[threadIdx.x] = 0;
   __syncthreads();
   const uint32_t* img = b + static_cast<size_t>(lane) * NW;
-  const uint32_t full = M >= 32 ? 0xFFFFFFFFu : ((1u << M) - 1u);
   bool found[2] = {false, false};
   for (int reg = w; reg < 2 * R; reg += blockDim.x >> 5) {  // uniform per warp
     const int bank = reg >= R;
     const uint32_t* row = (bank ? a_b : a) +
                           (static_cast<size_t>(lane) * R + (reg - bank * R)) * NW;
-    uint32_t segs = 0u;
-    for (int j = t; j < NW; j += 32) {
-      if (row[j] & img[j]) segs |= 1u << (j / WPS);
-    }
-    if (__reduce_or_sync(0xFFFFFFFFu, segs) == full) found[bank] = true;
+    if (segments_meet<kRuns>(row, img, t, NW, WPS, M)) found[bank] = true;
   }
   if (t == 0) {
     if (found[0]) hit[0] = 1;  // every writer writes 1
@@ -382,14 +438,16 @@ int set_smem(Kernel kernel, size_t smem) {
 template <int MC, int LOGC>
 int query_launch(const void* sig, const void* words_a, const void* words_b,
                  const void* columns, void* out_a, void* out_b, int L, int NWL,
-                 int num_lines, int M, int log_seg, int NW, cudaStream_t stream) {
+                 int num_lines, int M, int log_seg, int m0, int NW, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(NW) * sizeof(uint32_t);
-  if (int rc = set_smem(query_kernel<MC, LOGC>, smem)) return rc;
-  const dim3 grid((NWL + kQueryBlockWords - 1) / kQueryBlockWords, L);
-  query_kernel<MC, LOGC><<<grid, kThreads, smem, stream>>>(
+  auto kernel = L > bins::kMaxLanesY ? query_kernel<MC, LOGC, true>
+                                     : query_kernel<MC, LOGC, false>;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  const dim3 grid((NWL + kQueryBlockWords - 1) / kQueryBlockWords, std::min(L, bins::kMaxLanesY));
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(sig), static_cast<const uint32_t*>(words_a),
-      static_cast<const uint32_t*>(words_b), h3p::load_columns(columns, M, log_seg),
-      static_cast<uint32_t*>(out_a), static_cast<uint32_t*>(out_b), NWL, num_lines,
+      static_cast<const uint32_t*>(words_b), h3p::load_columns(columns, M, log_seg, m0),
+      static_cast<uint32_t*>(out_a), static_cast<uint32_t*>(out_b), L, NWL, num_lines,
       M, log_seg, NW);
   return static_cast<int>(cudaGetLastError());
 }
@@ -437,23 +495,25 @@ int h3_hash_attributes(void* out) {
 }
 
 // k = 1 or 2 lists (ids_b / words_b and valid_b then unused or read);
-// out (k, L, R, NW).
+// out (k, L, R, NW).  columns holds the M segments from m0 on of one pass;
+// or_out ORs in what out holds (every pass but the first).
 int bloom_insert_ids_launch(const void* ids_a, const void* valid_a, const void* ids_b,
                             const void* valid_b, const void* columns, void* out, int k,
-                            int L, int A_a, int A_b, int M, int log_seg, int R, int NW,
-                            void* stream) {
+                            int L, int A_a, int A_b, int M, int log_seg, int m0, int or_out,
+                            int R, int NW, void* stream) {
   const bins::Args args{ids_a, ids_b, static_cast<const uint8_t*>(valid_a),
                         static_cast<const uint8_t*>(valid_b), nullptr,
-                        static_cast<uint32_t*>(out), L, A_a, A_b, 0, M, log_seg, R, NW};
+                        static_cast<uint32_t*>(out), L, A_a, A_b, 0, M, log_seg, R, NW,
+                        m0, or_out};
   return bins::launch_any<false>(args, k, columns, stream);
 }
 
 int bloom_insert_bitmap_launch(const void* words_a, const void* words_b, const void* columns,
                                void* out, int k, int L, int NWL, int num_lines, int M,
-                               int log_seg, int R, int NW, void* stream) {
+                               int log_seg, int m0, int or_out, int R, int NW, void* stream) {
   const bins::Args args{words_a, words_b, nullptr, nullptr, nullptr,
                         static_cast<uint32_t*>(out), L, NWL, NWL, num_lines, M, log_seg,
-                        R, NW};
+                        R, NW, m0, or_out};
   return bins::launch_any<true>(args, k, columns, stream);
 }
 
@@ -469,15 +529,17 @@ int bloom_insert_attributes(void* out) {
   return bins::build_attributes<0, 0, true>(o + 9);
 }
 
+// columns holds the M segments from m0 on of one pass (the words of a
+// later pass are the earlier pass's outputs).
 int bloom_query_launch(const void* sig, const void* words_a, const void* words_b,
                        const void* columns, void* out_a, void* out_b, int L,
-                       int NWL, int num_lines, int M, int log_seg, int NW,
+                       int NWL, int num_lines, int M, int log_seg, int m0, int NW,
                        void* stream) {
-  auto launch = h3p::paper_geometry(M, log_seg)
+  auto launch = h3p::paper_geometry(M, log_seg, m0)
                     ? query_launch<h3p::kPaperM, h3p::kPaperLog>
                     : query_launch<0, 0>;
   return launch(sig, words_a, words_b, columns, out_a, out_b, L, NWL, num_lines, M,
-                log_seg, NW, static_cast<cudaStream_t>(stream));
+                log_seg, m0, NW, static_cast<cudaStream_t>(stream));
 }
 
 // Registers, local memory (bytes a thread) and static shared memory of the
@@ -485,15 +547,16 @@ int bloom_query_launch(const void* sig, const void* words_a, const void* words_b
 // for the paper's geometry and out[3..5] for any other.
 int bloom_query_attributes(void* out) {
   int* o = static_cast<int*>(out);
-  if (int rc = attributes(query_kernel<h3p::kPaperM, h3p::kPaperLog>, o)) return rc;
-  return attributes(query_kernel<0, 0>, o + 3);
+  if (int rc = attributes(query_kernel<h3p::kPaperM, h3p::kPaperLog, false>, o)) return rc;
+  return attributes(query_kernel<0, 0, false>, o + 3);
 }
 
 int bloom_intersect_launch(const void* a, const void* b, void* out, int B,
                            int R, int NW, int WPS, int M, void* stream) {
   const int rows_per_block = kThreads / 32;
   const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  intersect_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = M > 32 ? intersect_kernel<true> : intersect_kernel<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint8_t*>(out), B, R, NW, WPS, M);
   return static_cast<int>(cudaGetLastError());
@@ -503,7 +566,8 @@ int bloom_intersect_launch(const void* a, const void* b, void* out, int B,
 int bloom_intersect_pair_launch(const void* a, const void* a_b, const void* b, void* out,
                                 int L, int R, int NW, int WPS, int M, void* stream) {
   const int threads = 32 * std::min(2 * R, 32);
-  intersect_pair_kernel<<<L, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = M > 32 ? intersect_pair_kernel<true> : intersect_pair_kernel<false>;
+  kernel<<<L, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(a_b),
       static_cast<const uint32_t*>(b), static_cast<uint8_t*>(out), L, R, NW, WPS, M);
   return static_cast<int>(cudaGetLastError());

@@ -6,8 +6,9 @@
 // form of h3_parity.cuh, which gives the xor-fold's positions bit for bit.
 // Addresses arrive as int32 bits and are read as uint32; packed words are
 // uint32 here and int32 on the PyTorch side.  Both kernels are lane-batched
-// (lanes on gridDim.y), launch on the caller's stream, allocate nothing
-// and return cudaGetLastError().
+// (lanes on gridDim.y, walked in a loop only past its 65,535), launch on the
+// caller's stream, allocate nothing and return cudaGetLastError().  A spec
+// with more than 512 column masks is hashed in passes (h3_parity.cuh).
 //
 // bloom_insert_onehot (ports bloom_insert_pallas_onehot, bloom.py:367, body
 //   _insert_kernel_onehot :350): out = sig | pack(onehot(H3(addrs) where
@@ -51,6 +52,7 @@
 //   grid of two blocks an SM when both were timed at the seed path's
 //   (1, 168,335) shape.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -87,26 +89,47 @@ __device__ __forceinline__ uint32_t pack_word(const uint8_t* __restrict__ src, i
   return word;
 }
 
-// grid (ceil(N / kThreads), L): bits (L, sig_bits) 0/1 bytes, addrs (L, N)
-// -> out (L, N) 0/1 bytes.
-template <int MC, int LOGC>
+// grid (ceil(N / kThreads), min(L, 65,535)): bits (L, sig_bits) 0/1
+// bytes, addrs (L, N) -> out (L, N) 0/1 bytes.  kMany, taken only past
+// 65,535 lanes or in a later pass of a spec hashed in passes, walks the
+// lanes y, y + gridDim.y, ... in each block and, with and_out, ANDs into
+// what out holds; without it a block answers its one lane in one pass, with
+// no loop around it (the loop and the AND, built in everywhere, took
+// registers and time at the paper's shapes: PERF.md, section 6).
+template <int MC, int LOGC, bool kMany>
 __global__ void __launch_bounds__(kThreads)
 query_onehot_kernel(const uint8_t* __restrict__ bits, const uint32_t* __restrict__ addrs,
                     const __grid_constant__ h3p::Columns cols,
-                    uint8_t* __restrict__ out, int N, int M, int log_seg,
-                    int sig_bits) {
+                    uint8_t* __restrict__ out, int L, int N, int M, int log_seg,
+                    int sig_bits, int and_out) {
   extern __shared__ uint32_t image[];
-  const int lane = blockIdx.y;
-  const uint8_t* src = bits + static_cast<size_t>(lane) * sig_bits;
-  const bool src_aligned = (reinterpret_cast<uintptr_t>(src) & 15u) == 0;
-  for (int w = threadIdx.x; w < sig_bits / 32; w += blockDim.x) {
-    image[w] = pack_word(src, w, src_aligned);
+  auto pack_image = [&](int lane) {
+    const uint8_t* src = bits + static_cast<size_t>(lane) * sig_bits;
+    const bool src_aligned = (reinterpret_cast<uintptr_t>(src) & 15u) == 0;
+    for (int w = threadIdx.x; w < sig_bits / 32; w += blockDim.x) {
+      image[w] = pack_word(src, w, src_aligned);
+    }
+    __syncthreads();
+  };
+  if constexpr (!kMany) {
+    const int lane = blockIdx.y;
+    pack_image(lane);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;  // not live across the packing
+    if (i >= N) return;
+    const size_t k = static_cast<size_t>(lane) * N + i;
+    out[k] = h3p::all_set<MC, LOGC>(cols, image, addrs[k], M, log_seg) ? 1 : 0;
+  } else {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int lane = blockIdx.y; lane < L; lane += gridDim.y) {
+      if (lane != static_cast<int>(blockIdx.y)) __syncthreads();  // the last image is read
+      pack_image(lane);
+      if (i < N) {
+        const size_t k = static_cast<size_t>(lane) * N + i;
+        const bool prior = !and_out || out[k];
+        out[k] = prior && h3p::all_set<MC, LOGC>(cols, image, addrs[k], M, log_seg) ? 1 : 0;
+      }
+    }
   }
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const size_t k = static_cast<size_t>(lane) * N + i;
-  out[k] = h3p::all_set<MC, LOGC>(cols, image, addrs[k], M, log_seg) ? 1 : 0;
 }
 
 template <typename Kernel>
@@ -117,15 +140,17 @@ int set_smem(Kernel kernel, size_t smem) {
 
 template <int MC, int LOGC>
 int query_onehot_launch(const void* bits, const void* addrs, const void* columns,
-                        void* out, int L, int N, int M, int log_seg, int sig_bits,
-                        cudaStream_t stream) {
+                        void* out, int L, int N, int M, int log_seg, int m0, int and_out,
+                        int sig_bits, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(sig_bits / 32) * sizeof(uint32_t);
-  if (int rc = set_smem(query_onehot_kernel<MC, LOGC>, smem)) return rc;
-  const dim3 grid((N + kThreads - 1) / kThreads, L);
-  query_onehot_kernel<MC, LOGC><<<grid, kThreads, smem, stream>>>(
+  auto kernel = L > bins::kMaxLanesY || and_out ? query_onehot_kernel<MC, LOGC, true>
+                                                : query_onehot_kernel<MC, LOGC, false>;
+  if (int rc = set_smem(kernel, smem)) return rc;
+  const dim3 grid((N + kThreads - 1) / kThreads, std::min(L, bins::kMaxLanesY));
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(bits), static_cast<const uint32_t*>(addrs),
-      h3p::load_columns(columns, M, log_seg), static_cast<uint8_t*>(out), N, M,
-      log_seg, sig_bits);
+      h3p::load_columns(columns, M, log_seg, m0), static_cast<uint8_t*>(out), L, N, M,
+      log_seg, sig_bits, and_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,24 +168,29 @@ int attributes(Kernel kernel, int* out) {
 
 extern "C" {
 
-// k = 1 or 2 address lists; sig (L, NW) or null; out (k, L, NW).
+// k = 1 or 2 address lists; sig (L, NW) or null; out (k, L, NW).  columns
+// holds the M segments from m0 on of one pass; or_out ORs in what out holds.
 int bloom_insert_onehot_launch(const void* addrs_a, const void* mask_a,
                                const void* addrs_b, const void* mask_b, const void* sig,
                                const void* columns, void* out, int k, int L, int N_a,
-                               int N_b, int M, int log_seg, int NW, void* stream) {
+                               int N_b, int M, int log_seg, int m0, int or_out, int NW,
+                               void* stream) {
   const bins::Args args{addrs_a, addrs_b, static_cast<const uint8_t*>(mask_a),
                         static_cast<const uint8_t*>(mask_b), static_cast<const uint32_t*>(sig),
-                        static_cast<uint32_t*>(out), L, N_a, N_b, 0, M, log_seg, 1, NW};
+                        static_cast<uint32_t*>(out), L, N_a, N_b, 0, M, log_seg, 1, NW,
+                        m0, or_out};
   return bins::launch_any<false>(args, k, columns, stream);
 }
 
+// columns holds the M segments from m0 on of one pass; and_out ANDs into
+// what out holds.
 int bloom_query_onehot_launch(const void* bits, const void* addrs,
                               const void* columns, void* out, int L, int N, int M,
-                              int log_seg, int sig_bits, void* stream) {
-  auto launch = h3p::paper_geometry(M, log_seg)
+                              int log_seg, int m0, int and_out, int sig_bits, void* stream) {
+  auto launch = h3p::paper_geometry(M, log_seg, m0)
                     ? query_onehot_launch<h3p::kPaperM, h3p::kPaperLog>
                     : query_onehot_launch<0, 0>;
-  return launch(bits, addrs, columns, out, L, N, M, log_seg, sig_bits,
+  return launch(bits, addrs, columns, out, L, N, M, log_seg, m0, and_out, sig_bits,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -176,10 +206,10 @@ int bloom_insert_onehot_attributes(void* out) {
 // The same of the loaded query kernel.
 int bloom_query_onehot_attributes(void* out) {
   int* o = static_cast<int*>(out);
-  if (int rc = attributes(query_onehot_kernel<h3p::kPaperM, h3p::kPaperLog>, o)) {
+  if (int rc = attributes(query_onehot_kernel<h3p::kPaperM, h3p::kPaperLog, false>, o)) {
     return rc;
   }
-  return attributes(query_onehot_kernel<0, 0>, o + 3);
+  return attributes(query_onehot_kernel<0, 0, false>, o + 3);
 }
 
 }  // extern "C"

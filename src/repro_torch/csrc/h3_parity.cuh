@@ -15,9 +15,17 @@
 // under dynamic indexing), and every lane of a warp reads the same mask at
 // the same time, which the constant cache broadcasts.  Each kernel that
 // hashes is built twice: with the paper's geometry fixed (kPaperM,
-// kPaperLog) and for any M <= 32, log_seg <= 16; its launcher picks one by
-// the spec.  all_set tests an address's M positions (the queries);
-// positions hands each of them to a callback (the inserts).
+// kPaperLog) and for any other; its launcher picks one by the spec.
+// all_set tests an address's M positions (the queries); positions hands
+// each of them to a callback (the inserts).
+//
+// Columns holds at most kMaxColumns masks: M * log_seg <= 512 covers every
+// spec up to 32 segments of 2^16 bits, or 64 of 2^8, in one launch.  A
+// spec with more masks is hashed in passes, each a launch over a run of
+// whole segments: Columns.m0 is the pass's first global segment, so its
+// positions are (m0 + m) << log_seg | h; the queries AND their passes'
+// results and the inserts OR theirs (the PyTorch wrappers drive the
+// passes).  log_seg may be up to 31 (positions are 32-bit).
 
 #pragma once
 
@@ -26,25 +34,29 @@
 
 namespace h3p {
 
-constexpr int kMaxLog = 16;                  // log2(seg_bits) <= 16
-constexpr int kMaxColumns = 32 * kMaxLog;    // M <= 32 segments
+constexpr int kMaxLog = 31;        // log2(seg_bits) <= 31
+constexpr int kMaxColumns = 512;   // masks a launch: M * log_seg <= 512
 
 struct Columns {
   uint32_t c[kMaxColumns];  // c[m * log_seg + k]
+  uint32_t m0;              // the first global segment of this pass
 };
 
-// Columns from the host's (M, log_seg) uint32 masks; callers check the cap.
-inline Columns load_columns(const void* host, int M, int log_seg) {
+// Columns from the host's (M, log_seg) uint32 masks of the segments m0 ..
+// m0 + M - 1; callers keep M * log_seg <= kMaxColumns.
+inline Columns load_columns(const void* host, int M, int log_seg, int m0) {
   Columns cols{};
   std::memcpy(cols.c, host, static_cast<size_t>(M) * log_seg * sizeof(uint32_t));
+  cols.m0 = static_cast<uint32_t>(m0);
   return cols;
 }
 
-// Global position of segment m's hash of address a: (m << log_seg) | h.
-// MC, LOGC > 0 fix the geometry at compile time: inside a loop over m that
-// the caller unrolls, every mask index is then a constant, so each AND
-// takes its mask straight from the constant bank as an operand instead of
-// issuing a load for it; MC = LOGC = 0 takes log_seg at run time.
+// Global position of the pass's segment m's hash of address a:
+// ((m0 + m) << log_seg) | h.  MC, LOGC > 0 fix the geometry at compile
+// time (one pass, m0 = 0): inside a loop over m that the caller unrolls,
+// every mask index is then a constant, so each AND takes its mask straight
+// from the constant bank as an operand instead of issuing a load for it;
+// MC = LOGC = 0 takes log_seg and m0 at run time.
 template <int MC, int LOGC>
 __device__ __forceinline__ uint32_t position(const Columns& cols, uint32_t a, int m,
                                              int log_seg) {
@@ -61,7 +73,7 @@ __device__ __forceinline__ uint32_t position(const Columns& cols, uint32_t a, in
     for (int k = 0; k < kMaxLog; ++k) {
       if (k < log_seg) h |= (static_cast<uint32_t>(__popc(a & col[k])) & 1u) << k;
     }
-    return (static_cast<uint32_t>(m) << log_seg) | h;
+    return ((cols.m0 + static_cast<uint32_t>(m)) << log_seg) | h;
   }
 }
 
@@ -100,12 +112,13 @@ __device__ __forceinline__ void positions(const Columns& cols, uint32_t a, int M
 }
 
 // The paper's geometry (2,048-bit registers, M = 4 segments of 512 bits),
-// which every main path uses, is compiled with its sizes fixed.
+// which every main path uses, is compiled with its sizes fixed; a pass of a
+// larger spec that happens to hold 4 segments of 512 bits is not it.
 constexpr int kPaperM = 4;
 constexpr int kPaperLog = 9;
 
-inline bool paper_geometry(int M, int log_seg) {
-  return M == kPaperM && log_seg == kPaperLog;
+inline bool paper_geometry(int M, int log_seg, int m0 = 0) {
+  return M == kPaperM && log_seg == kPaperLog && m0 == 0;
 }
 
 }  // namespace h3p

@@ -77,10 +77,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "h3_hash_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "h3_hash_attributes": [_P],
-    "bloom_insert_ids_launch": [_P, _P, _P, _P, _P, _P, *[_I] * 8, _P],
-    "bloom_insert_bitmap_launch": [_P, _P, _P, _P, *[_I] * 8, _P],
+    "bloom_insert_ids_launch": [_P, _P, _P, _P, _P, _P, *[_I] * 10, _P],
+    "bloom_insert_bitmap_launch": [_P, _P, _P, _P, *[_I] * 10, _P],
     "bloom_insert_attributes": [_P],
-    "bloom_query_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bloom_query_launch": [_P, _P, _P, _P, _P, _P, *[_I] * 7, _P],
     "bloom_query_attributes": [_P],
     "bloom_intersect_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bloom_intersect_pair_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -124,31 +124,52 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return _build.on_cpu("Bloom kernels", *ts)
 
 
-def _check_lanes(lanes: int) -> None:
-    """Bitmap kernels put lanes on gridDim.y, which CUDA caps at 65,535."""
-    if lanes > 65_535:
-        raise ValueError(f"{lanes} lanes exceed the kernels' 65,535-lane grid")
+# The parity-form kernels take the H3 column masks by value in a struct of
+# this many words (csrc/h3_parity.cuh); a spec with more (M * log2 seg_bits)
+# is hashed in passes of whole segments, each a launch.
+MAX_COLUMNS = 512
+# A block's shared memory on the H100 (opt-in), which holds a query's
+# signature or image and an insert block's slice of its output.
+MAX_SMEM_BYTES = 227 * 1024
+# An insert cluster: at most 8 blocks, and the bitmap form's line queues
+# (8 warps x 256 lines) beside each block's slice.
+MAX_CLUSTER, INSERT_QUEUE_BYTES = 8, 8 * 256 * 4
 
 
-# The parity-form kernels take the H3 column masks by value in a fixed
-# struct of this many words (csrc/h3_parity.cuh): M <= 32 segments of at
-# most 16 hash bits.
-MAX_COLUMNS, MAX_LOG_SEG = 512, 16
+def _check_positions(spec: SignatureSpec) -> None:
+    """Positions are int32 on the PyTorch side and uint32 in the kernels:
+    every bit of the signature must have one."""
+    if spec.sig_bits > 2**31:
+        raise ValueError(f"{spec}: the kernels address at most 2**31 signature bits")
 
 
 @functools.lru_cache(maxsize=None)
 def _columns(spec: SignatureSpec) -> tuple[np.ndarray, int]:
     """The spec's (M, log2 seg_bits) column masks as a C-contiguous uint32
-    array whose address the launchers copy from, and log2 seg_bits; a spec
-    beyond the kernels' mask struct is refused (the plain versions take
-    any spec)."""
+    array, and log2 seg_bits."""
+    _check_positions(spec)
     cols = np.ascontiguousarray(h3_columns(spec))
-    m, log_seg = cols.shape
-    if m > 32 or log_seg > MAX_LOG_SEG:
-        raise ValueError(f"{spec}: the parity-form kernels take num_segments <= 32 "
-                         f"and seg_bits <= 2**{MAX_LOG_SEG} ({MAX_COLUMNS} column "
-                         f"masks), got {m} x {log_seg}")
-    return cols, log_seg
+    return cols, cols.shape[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _passes(spec: SignatureSpec) -> tuple[tuple[tuple[np.ndarray, int], ...], int]:
+    """The launches a parity-form kernel hashes ``spec`` in: ((column masks
+    of a run of whole segments, C-contiguous, whose address the launcher
+    copies from; the run's first segment), ...) of at most ``MAX_COLUMNS``
+    masks each, and log2 seg_bits.  One pass for every spec up to 512
+    masks (the paper's is 36)."""
+    cols, log_seg = _columns(spec)
+    per = MAX_COLUMNS // log_seg
+    runs = tuple((np.ascontiguousarray(cols[m0:m0 + per]), m0)
+                 for m0 in range(0, cols.shape[0], per))
+    return runs, log_seg
+
+
+def _check_smem(what: str, nbytes: int, room: int = MAX_SMEM_BYTES) -> None:
+    if nbytes > room:
+        raise ValueError(f"{what} takes {nbytes} bytes of shared memory, past the "
+                         f"{room} a kernel has for it")
 
 
 def _check_spec(spec) -> None:
@@ -158,15 +179,13 @@ def _check_spec(spec) -> None:
 
 def _packed(spec: SignatureSpec, device: torch.device) -> tuple[torch.Tensor, int, int]:
     """The spec's packed byte tables on ``device`` (what ``h3_hash`` and
-    ``bloom_detect_conflicts`` hash with), their byte slices and log2
-    seg_bits; a spec beyond the kernels' cap is refused (the plain
-    versions take any spec)."""
-    m, log_seg = spec.num_segments, spec.seg_bits.bit_length() - 1
-    if m > 32 or spec.addr_bits > 32 or log_seg > 31:
-        raise ValueError(f"{spec}: the packed-table kernels take num_segments <= 32, "
-                         f"addr_bits <= 32 and seg_bits <= 2**31, got {m} segments of "
-                         f"2**{log_seg} bits over {spec.addr_bits}-bit addresses")
-    return packed_tables_tensor(spec, device), spec.num_byte_slices, log_seg
+    ``bloom_detect_conflicts`` hash with), the byte slices the kernels read
+    and log2 seg_bits.  A line id is 32 bits: the slices past the fourth
+    see its zero bytes, whose entries are zero, so a spec of more address
+    bits hashes with its first four (``tests/test_torch_hash_detect.py``)."""
+    _check_positions(spec)
+    slices = min(spec.num_byte_slices, 4)
+    return packed_tables_tensor(spec, device), slices, spec.seg_bits.bit_length() - 1
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +250,14 @@ def _insert_plain(spec, ids, valid, bitmap, num_lines, num_regs):
     a64 = addr.to(torch.int64) & 0xFFFFFFFF
     pos = hash_with_tables(addr, tables_tensor(spec, addr.device))
     return _stage_and_pack(lane, a64 % num_regs, pos, lanes, num_regs, spec.num_words)
+
+
+def _check_insert_bank(words: int, bitmap: bool) -> None:
+    """A (list, lane)'s output words over a cluster of at most
+    ``MAX_CLUSTER`` blocks must fit their shared memory."""
+    room = MAX_SMEM_BYTES - (INSERT_QUEUE_BYTES if bitmap else 0)
+    _check_smem(f"an insert output of {words} words over {MAX_CLUSTER} blocks",
+                -(-words // MAX_CLUSTER) * 4, room)
 
 
 def bloom_insert_plain(spec: SignatureSpec, *,
@@ -317,25 +344,27 @@ def bloom_insert(spec: SignatureSpec, *,
                                   num_lines=num_lines, num_regs=num_regs, ids_b=ids_b,
                                   valid_b=valid_b, bitmap_b=bitmap_b)
     lanes = src.shape[0]
-    _check_lanes(lanes)
-    cols, log_seg = _columns(spec)
+    passes, log_seg = _passes(spec)
+    _check_insert_bank(num_regs * spec.num_words, bitmap=ids is None)
     pair = second is not None
     out = torch.empty((1 + pair, lanes, num_regs, spec.num_words), dtype=torch.int32,
                       device=src.device)
     if lanes:  # every output word is written by the kernel: no fill
-        geometry = (spec.num_segments, log_seg, num_regs, spec.num_words, _stream(src))
-        if ids is not None:
-            _launch("bloom_insert_ids_launch", ids.data_ptr(), valid.data_ptr(),
-                    ids_b.data_ptr() if pair else None,
-                    valid_b.data_ptr() if pair else None, cols.ctypes.data,
-                    out.data_ptr(), out.shape[0], lanes, ids.shape[1],
-                    ids_b.shape[1] if pair else 0, *geometry)
-        else:
-            _launch("bloom_insert_bitmap_launch", bitmap.data_ptr(),
-                    bitmap_b.data_ptr() if pair else None, cols.ctypes.data,
-                    out.data_ptr(), out.shape[0], lanes, bitmap.shape[1], num_lines,
-                    *geometry)
-        bloom_insert.launches += 1
+        for i, (cols, m0) in enumerate(passes):
+            geometry = (cols.shape[0], log_seg, m0, int(i > 0), num_regs, spec.num_words,
+                        _stream(src))
+            if ids is not None:
+                _launch("bloom_insert_ids_launch", ids.data_ptr(), valid.data_ptr(),
+                        ids_b.data_ptr() if pair else None,
+                        valid_b.data_ptr() if pair else None, cols.ctypes.data,
+                        out.data_ptr(), out.shape[0], lanes, ids.shape[1],
+                        ids_b.shape[1] if pair else 0, *geometry)
+            else:
+                _launch("bloom_insert_bitmap_launch", bitmap.data_ptr(),
+                        bitmap_b.data_ptr() if pair else None, cols.ctypes.data,
+                        out.data_ptr(), out.shape[0], lanes, bitmap.shape[1], num_lines,
+                        *geometry)
+            bloom_insert.launches += 1
     return (out[0], out[1]) if pair else out[0]
 
 
@@ -394,18 +423,25 @@ def bloom_query(spec: SignatureSpec, sig: torch.Tensor, words: torch.Tensor,
         inputs += (words_b,)
     if _on_cpu(*inputs):
         return bloom_query_plain(spec, sig, words, num_lines, words_b)
-    _check_lanes(words.shape[0])
-    cols, log_seg = _columns(spec)
-    out = torch.empty_like(words)
-    out_b = None if words_b is None else torch.empty_like(words_b)
+    passes, log_seg = _passes(spec)
+    _check_smem(f"a {spec.sig_bits}-bit signature", spec.num_words * 4)
+    out, out_b = words, words_b
     if words.numel():
-        _launch("bloom_query_launch", sig.data_ptr(), words.data_ptr(),
-                None if words_b is None else words_b.data_ptr(),
-                cols.ctypes.data, out.data_ptr(),
-                None if out_b is None else out_b.data_ptr(), words.shape[0],
-                words.shape[1], num_lines, spec.num_segments, log_seg,
-                spec.num_words, _stream(sig))
-        bloom_query.launches += 1
+        # a later pass asks only for the lines the last one kept (its outputs)
+        for cols, m0 in passes:
+            src, src_b = out, out_b
+            out = torch.empty_like(words)
+            out_b = None if words_b is None else torch.empty_like(words_b)
+            _launch("bloom_query_launch", sig.data_ptr(), src.data_ptr(),
+                    None if src_b is None else src_b.data_ptr(),
+                    cols.ctypes.data, out.data_ptr(),
+                    None if out_b is None else out_b.data_ptr(), words.shape[0],
+                    words.shape[1], num_lines, cols.shape[0], log_seg, m0,
+                    spec.num_words, _stream(sig))
+            bloom_query.launches += 1
+    else:
+        out = torch.empty_like(words)
+        out_b = None if words_b is None else torch.empty_like(words_b)
     return out if words_b is None else (out, out_b)
 
 
@@ -452,9 +488,8 @@ def bloom_intersect(a: torch.Tensor, b: torch.Tensor, num_segments: int, *,
     rows, nw = a.shape
     if b.shape[1] != nw or b.shape[0] == 0 or rows % b.shape[0]:
         raise ValueError(f"bloom_intersect: a {tuple(a.shape)} vs b {tuple(b.shape)}")
-    if not 1 <= num_segments <= 32 or nw % num_segments:
-        raise ValueError(f"num_segments={num_segments} must divide {nw} words "
-                         f"and be <= 32")
+    if num_segments < 1 or nw % num_segments:
+        raise ValueError(f"num_segments={num_segments} must divide {nw} words")
     if a_b is not None:
         _check("a_b", a_b, torch.int32, 2)
         if a_b.shape != a.shape:

@@ -21,7 +21,8 @@ per-bit xor-fold (``_h3_hash_block_xorfold``, ``bloom.py:70``) bit for bit;
 the plain versions hash with that xor-fold.  Both are lane-batched.
 The wrappers follow the rule of :mod:`.bloom`: the plain version for CPU
 tensors, the kernel for CUDA tensors (with a raise on a launch error and
-one count a launch), a raise on anything mixed, no fallback.  The shared
+one count a launch; a spec of more than 512 column masks launches once a
+pass), a raise on anything mixed, no fallback.  The shared
 library is built on first use (:mod:`repro_torch.kernels._build`).
 """
 
@@ -40,9 +41,10 @@ from repro_torch.core.signatures import (
 from repro_torch.kernels import _build
 from repro_torch.kernels.bloom.bloom import (
     _check,
-    _check_lanes,
-    _columns,
+    _check_insert_bank,
+    _check_smem,
     _on_cpu,
+    _passes,
     _stream,
 )
 
@@ -55,15 +57,11 @@ SOURCE = _build.CSRC / "bloom_onehot.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "bloom_insert_onehot_launch": [*[_P] * 7, *[_I] * 7, _P],
+    "bloom_insert_onehot_launch": [*[_P] * 7, *[_I] * 9, _P],
     "bloom_insert_onehot_attributes": [_P],
-    "bloom_query_onehot_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bloom_query_onehot_launch": [_P, _P, _P, _P, *[_I] * 7, _P],
     "bloom_query_onehot_attributes": [_P],
 }
-
-# A block keeps the packed signature (the insert) or packed image (the
-# query) in shared memory.
-MAX_SIG_BITS = 1 << 17
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,13 +76,7 @@ def _launch(name: str, *args) -> None:
 def _check_spec_addrs(spec: SignatureSpec, addrs: torch.Tensor) -> tuple[int, int]:
     if not isinstance(spec, SignatureSpec):
         raise TypeError(f"spec: expected a SignatureSpec, got {type(spec).__name__}")
-    if spec.sig_bits > MAX_SIG_BITS or spec.num_segments > 32:
-        raise ValueError(f"{spec}: the one-hot kernels take sig_bits <= "
-                         f"{MAX_SIG_BITS} and num_segments <= 32")
-    if not 1 <= spec.addr_bits <= 32:
-        raise ValueError(f"{spec}: addr_bits must be in [1, 32]")
     _check("addrs", addrs, torch.int32, 2)
-    _check_lanes(addrs.shape[0])
     return tuple(addrs.shape)
 
 
@@ -175,7 +167,8 @@ def bloom_insert_onehot(spec: SignatureSpec, sig: torch.Tensor | None,
     if _on_cpu(*inputs):
         return bloom_insert_onehot_plain(spec, sig, addrs, mask, addrs_b=addrs_b,
                                          mask_b=mask_b)
-    cols, log_seg = _columns(spec)
+    passes, log_seg = _passes(spec)
+    _check_insert_bank(spec.num_words, bitmap=False)
     pair = addrs_b is not None
     n_b = addrs_b.shape[1] if pair else 0
     shape = (1 + pair, lanes, spec.num_words)
@@ -188,11 +181,12 @@ def bloom_insert_onehot(spec: SignatureSpec, sig: torch.Tensor | None,
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        _launch("bloom_insert_onehot_launch", addrs.data_ptr(), ptr(mask), ptr(addrs_b),
-                ptr(mask_b), ptr(sig), cols.ctypes.data, out.data_ptr(), out.shape[0],
-                lanes, n, n_b,
-                spec.num_segments, log_seg, spec.num_words, _stream(addrs))
-        bloom_insert_onehot.launches += 1
+        for i, (cols, m0) in enumerate(passes):
+            _launch("bloom_insert_onehot_launch", addrs.data_ptr(), ptr(mask),
+                    ptr(addrs_b), ptr(mask_b), ptr(sig), cols.ctypes.data, out.data_ptr(),
+                    out.shape[0], lanes, n, n_b, cols.shape[0], log_seg, m0, int(i > 0),
+                    spec.num_words, _stream(addrs))
+            bloom_insert_onehot.launches += 1
     return (out[0], out[1]) if pair else out[0]
 
 
@@ -232,13 +226,15 @@ def bloom_query_onehot(spec: SignatureSpec, bits: torch.Tensor,
         raise ValueError(f"bits {tuple(bits.shape)}: want ({lanes}, {spec.sig_bits})")
     if _on_cpu(bits, addrs):
         return bloom_query_onehot_plain(spec, bits, addrs)
-    cols, log_seg = _columns(spec)
+    passes, log_seg = _passes(spec)
+    _check_smem(f"a {spec.sig_bits}-bit image", spec.num_words * 4)
     out = torch.empty((lanes, n), dtype=torch.bool, device=addrs.device)
     if lanes and n:
-        _launch("bloom_query_onehot_launch", bits.data_ptr(), addrs.data_ptr(),
-                cols.ctypes.data, out.data_ptr(), lanes, n, spec.num_segments,
-                log_seg, spec.sig_bits, _stream(addrs))
-        bloom_query_onehot.launches += 1
+        for i, (cols, m0) in enumerate(passes):  # a later pass ANDs into out
+            _launch("bloom_query_onehot_launch", bits.data_ptr(), addrs.data_ptr(),
+                    cols.ctypes.data, out.data_ptr(), lanes, n, cols.shape[0], log_seg,
+                    m0, int(i > 0), spec.sig_bits, _stream(addrs))
+            bloom_query_onehot.launches += 1
     return out
 
 

@@ -1,5 +1,6 @@
 """Synthetic input datasets shaped like the paper's (§6.1): a numpy copy of
-the parts of :mod:`repro.sim.graphs` the paper's workloads use.  Inputs are
+the parts of :mod:`repro.sim.graphs` the workloads use (the multi-tenant
+mix's shared-region layout included).  Inputs are
 generated locally from a seed (power-law graphs with the SNAP inputs'
 node/edge counts, the HTAP IMDB's exact table geometry); nothing is
 downloaded.
@@ -101,6 +102,64 @@ def layout_for_graph(g: Graph) -> GraphLayout:
         frontier_lines=-(-g.num_nodes // 64),
         edge_lines=-(-g.num_edges // per_line_e),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class MTLayout:
+    """Line layout of a PIM data region shared by two tenant applications
+    (the multi-tenant mix): private ``p_curr | p_next | frontier`` arrays
+    each, one shared CSR edge array.
+
+    Region order: [A.p_curr | A.p_next | A.frontier |
+                   B.p_curr | B.p_next | B.frontier | edges].
+    """
+
+    vertex_lines: int
+    frontier_lines: int
+    edge_lines: int
+
+    @property
+    def a_pc(self) -> int:
+        return 0
+
+    @property
+    def a_pn(self) -> int:
+        return self.vertex_lines
+
+    @property
+    def a_fr(self) -> int:
+        return 2 * self.vertex_lines
+
+    @property
+    def tenant_lines(self) -> int:
+        return 2 * self.vertex_lines + self.frontier_lines
+
+    @property
+    def b_pc(self) -> int:
+        return self.tenant_lines
+
+    @property
+    def b_pn(self) -> int:
+        return self.tenant_lines + self.vertex_lines
+
+    @property
+    def b_fr(self) -> int:
+        return self.tenant_lines + 2 * self.vertex_lines
+
+    @property
+    def edge_base(self) -> int:
+        return 2 * self.tenant_lines
+
+    @property
+    def total_lines(self) -> int:
+        return self.edge_base + self.edge_lines
+
+
+def mt_layout_for_graph(g: Graph) -> MTLayout:
+    one = layout_for_graph(g)
+    return MTLayout(vertex_lines=one.vertex_lines,
+                    frontier_lines=one.frontier_lines,
+                    edge_lines=one.edge_lines)
 
 
 @dataclasses.dataclass(frozen=True)

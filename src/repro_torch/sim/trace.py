@@ -1,22 +1,24 @@
-"""Workload traces (PyTorch port of :mod:`repro.sim.trace` for the paper's
-12 workloads, Fig. 7).
+"""Workload traces (PyTorch port of :mod:`repro.sim.trace`).
 
 A trace is a sequence of partial-kernel windows (<= 250 signature
 insertions per set, §5.4): per window the cache-line addresses touched by
 the PIM kernel and by the concurrently running processor threads, the
 instruction counts, and a per-kernel pre-write line set for the
 inter-kernel processor phase.  :func:`make_trace` synthesizes one on the
-device (:mod:`repro_torch.sim.synth`); :func:`trace_from_numpy` builds one
-from the fields of any other trace, e.g. one made by ``repro``, so both
-packages can simulate the very same input.
+device (:mod:`repro_torch.sim.synth`), or with ``backend="ref"`` through
+the sequential numpy reference (:mod:`repro_torch.sim._traceref`), the two
+bit-identical; :func:`trace_from_numpy` builds one from the fields of any
+other trace, e.g. one made by ``repro``, so both packages can simulate the
+very same input.
 
-Ported here: the Ligra graph apps, the HTAP IMDB, and the captured traces
-``capture/lazy_embed`` (recorded from the live LazySync protocol) and
-``capture/kv_serve`` (a paged-KV decode loop), both by
-:mod:`repro_torch.capture`.  The extended families (frontier, streaming,
-multi-tenant) and ``capture/moe_experts`` (which drives the MoE model zoo)
-come with later slices of the port and raise a ``ValueError`` naming that
-slice.
+Ported here: the Ligra graph apps and the HTAP IMDB (the paper's 12
+workloads, Fig. 7), the extended families (BFS/SSSP frontier kernels,
+streaming-ingest HTAP, the two-tenant mix: ``all_workloads(extended=True)``
+is the reference's 22), and the captured traces ``capture/lazy_embed``
+(recorded from the live LazySync protocol) and ``capture/kv_serve`` (a
+paged-KV decode loop), both by :mod:`repro_torch.capture`.
+``capture/moe_experts`` (which drives the MoE model zoo) comes with a later
+slice of the port and raises a ``ValueError`` naming that slice.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from repro_torch.sim.synth import APP_CPU_WRITES  # noqa: F401  (re-export)
 GRAPH_APPS = ("pagerank", "radii", "components")
 GRAPH_INPUTS = ("enron", "arxiv", "gnutella")
 HTAP_APPS = ("htap128", "htap192", "htap256")
+FRONTIER_APPS = ("bfs", "sssp")
+STREAM_APPS = ("htap_stream",)
+MT_APPS = ("mtmix",)
 
 # Recorded from live execution (repro_torch.capture), not synthesized.
 CAPTURE_APPS = ("capture/kv_serve", "capture/moe_experts",
@@ -41,20 +46,15 @@ CAPTURE_APPS = ("capture/kv_serve", "capture/moe_experts",
 PORTED_CAPTURE_APPS = ("capture/kv_serve", "capture/lazy_embed")
 
 # app -> needs a graph input?
-ALL_APPS = {**{a: True for a in GRAPH_APPS},
-            **{a: False for a in HTAP_APPS + PORTED_CAPTURE_APPS}}
+ALL_APPS = {**{a: True for a in GRAPH_APPS + FRONTIER_APPS + MT_APPS},
+            **{a: False for a in HTAP_APPS + STREAM_APPS + PORTED_CAPTURE_APPS}}
 
-EXTENDED_SLICE = ("the extended workload families (bfs, sssp, htap_stream, "
-                  "mtmix) come with a later port slice (ROADMAP queue A, "
-                  "'extended families')")
 MODEL_ZOO_SLICE = ("the capture that drives the MoE model zoo "
                    "(capture/moe_experts, which needs models/moe.py's routing) "
                    "comes with the MoE slice of the port (ROADMAP queue A11 / "
                    "A12)")
-_LATER_APPS = {"bfs": EXTENDED_SLICE, "sssp": EXTENDED_SLICE,
-               "htap_stream": EXTENDED_SLICE, "mtmix": EXTENDED_SLICE,
-               **{a: MODEL_ZOO_SLICE for a in CAPTURE_APPS
-                  if a not in PORTED_CAPTURE_APPS}}
+_LATER_APPS = {a: MODEL_ZOO_SLICE for a in CAPTURE_APPS
+               if a not in PORTED_CAPTURE_APPS}
 
 
 def is_known_app(app: str) -> bool:
@@ -147,8 +147,9 @@ def build_plan(app: str, graph_name: str | None = None, threads: int = 16,
                num_kernels: int = 24, windows_per_kernel: int = 3,
                seed: int = 0, scale: float | None = None,
                cpu_reuse: float | None = None):
-    """(plan, edges-or-None, display name) with the reference's per-family
-    defaults (scale 0.01 for the HTAP tables)."""
+    """(plan, edges-or-None, display name) for any synthesized family, with
+    the reference's per-family defaults (scale 0.01 for the table families,
+    streaming's higher ``cpu_reuse``)."""
     if app.startswith("capture/"):
         raise ValueError(
             f"{app!r} is a captured workload: it is recorded from live "
@@ -162,26 +163,40 @@ def build_plan(app: str, graph_name: str | None = None, threads: int = 16,
         raise ValueError(f"{app!r} is a table workload: graph_name must be "
                          f"None, got {graph_name!r}")
     if scale is None:
-        scale = 0.01 if app in HTAP_APPS else 1.0
+        scale = 0.01 if app in HTAP_APPS + STREAM_APPS else 1.0
     if cpu_reuse is None:
-        cpu_reuse = 6.0
-    if app in GRAPH_APPS:
-        plan, edges = synth.build_graph_plan(
-            app, graph_name, threads, num_kernels, windows_per_kernel, seed,
-            scale, cpu_reuse)
+        cpu_reuse = 8.0 if app in STREAM_APPS else 6.0
+    args = (threads, num_kernels, windows_per_kernel, seed, scale, cpu_reuse)
+    if ALL_APPS[app]:
+        build = (synth.build_graph_plan if app in GRAPH_APPS
+                 else synth.build_frontier_plan if app in FRONTIER_APPS
+                 else synth.build_mt_plan)
+        plan, edges = build(app, graph_name, *args)
         return plan, edges, f"{app}-{graph_name}"
-    plan = synth.build_htap_plan(app, threads, num_kernels, windows_per_kernel,
-                                 seed, scale, cpu_reuse)
-    return plan, None, app
+    build = synth.build_htap_plan if app in HTAP_APPS else synth.build_stream_plan
+    return build(app, *args), None, app
+
+
+BACKENDS = ("torch", "ref")
 
 
 def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
                seed: int = 0, num_kernels: int = 24,
                windows_per_kernel: int = 3, scale: float | None = None,
-               cpu_reuse: float | None = None, device=None) -> WindowTrace:
-    """Synthesize a paper workload, or record a captured one, on ``device``
-    (``None`` = the CUDA card; pass ``"cpu"`` for the CPU).  Bit-identical
-    with ``repro``'s ``make_trace`` for the same arguments."""
+               cpu_reuse: float | None = None, device=None,
+               backend: str = "torch") -> WindowTrace:
+    """Synthesize a workload of any family, or record a captured one, on
+    ``device`` (``None`` = the CUDA card; pass ``"cpu"`` for the CPU).
+    Bit-identical with ``repro``'s ``make_trace`` for the same arguments.
+
+    ``backend="torch"`` (the default; the port's name for the reference's
+    ``"jax"``) generates the trace as tensor ops on ``device``;
+    ``backend="ref"`` runs the sequential numpy reference
+    (:mod:`repro_torch.sim._traceref`) and moves its arrays to ``device``.
+    The two are bit-identical.  A captured workload is recorded the same
+    way under either backend."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (know {BACKENDS})")
     dev = resolve_device(device)
     if app.startswith("capture/"):
         if graph_name is not None:
@@ -196,7 +211,14 @@ def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
             cpu_reuse=cpu_reuse, device=dev)
     plan, edges, name = build_plan(app, graph_name, threads, num_kernels,
                                    windows_per_kernel, seed, scale, cpu_reuse)
-    arrays = synth.synthesize(plan, seed, edges, dev)
+    if backend == "ref":
+        from repro_torch.sim import _traceref
+
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            device=dev, dtype=_TENSOR_DTYPES[k])
+            for k, v in _traceref.synthesize_ref(plan, seed, edges).items()}
+    else:
+        arrays = synth.synthesize(plan, seed, edges, dev)
     return WindowTrace(name=name, threads=plan.threads,
                        num_lines=plan.total_lines,
                        cpu_priv_miss_rate=plan.cpu_priv_miss_rate,
@@ -205,40 +227,47 @@ def make_trace(app: str, graph_name: str | None = None, threads: int = 16,
 
 def make_graph_trace(app: str, graph_name: str, threads: int = 16, num_kernels: int = 24,
                      windows_per_kernel: int = 3, seed: int = 0, scale: float = 1.0,
-                     cpu_reuse: float = 6.0, device=None) -> WindowTrace:
+                     cpu_reuse: float = 6.0, device=None,
+                     backend: str = "torch") -> WindowTrace:
     """Trace for a Ligra graph app: :func:`make_trace` with the reference's
     defaults for this family (``device=None`` = the CUDA card)."""
     if app not in GRAPH_APPS:
         raise ValueError(f"{app!r} is not a graph app (know {GRAPH_APPS})")
     return make_trace(app, graph_name, threads=threads, seed=seed,
                       num_kernels=num_kernels, windows_per_kernel=windows_per_kernel,
-                      scale=scale, cpu_reuse=cpu_reuse, device=device)
+                      scale=scale, cpu_reuse=cpu_reuse, device=device,
+                      backend=backend)
 
 
 def make_htap_trace(app: str = "htap128", threads: int = 16, num_kernels: int = 24,
                     windows_per_kernel: int = 3, seed: int = 0, scale: float = 0.01,
-                    cpu_reuse: float = 6.0, device=None) -> WindowTrace:
+                    cpu_reuse: float = 6.0, device=None,
+                    backend: str = "torch") -> WindowTrace:
     """Trace for the HTAP IMDB (§6.1): :func:`make_trace` with the
     reference's defaults for this family (``device=None`` = the CUDA card)."""
     if app not in HTAP_APPS:
         raise ValueError(f"{app!r} is not an HTAP app (know {HTAP_APPS})")
     return make_trace(app, None, threads=threads, seed=seed, num_kernels=num_kernels,
                       windows_per_kernel=windows_per_kernel, scale=scale,
-                      cpu_reuse=cpu_reuse, device=device)
+                      cpu_reuse=cpu_reuse, device=device, backend=backend)
 
 
 def all_workloads(extended: bool = False,
                   captured: bool = False) -> list[tuple[str, str | None]]:
-    """The paper's 12 evaluated (app, input) pairs (Fig. 7).  The extended
-    families and the full captured set are not ported yet and raise a
-    ``ValueError`` (``capture/lazy_embed`` and ``capture/kv_serve`` are
-    ported: name them in a study's workloads)."""
-    if extended:
-        raise ValueError(f"all_workloads(extended=True): {EXTENDED_SLICE}")
+    """The paper's 12 evaluated (app, input) pairs (Fig. 7); with
+    ``extended=True`` also the extended families (the frontier kernels and
+    the two-tenant mix on every graph input, streaming-ingest HTAP), the
+    reference's 22.  The full captured set is not ported yet: ``captured=True``
+    raises a ``ValueError`` naming its slice (``capture/lazy_embed`` and
+    ``capture/kv_serve`` are ported: name them in a study's workloads)."""
     if captured:
         raise ValueError(f"all_workloads(captured=True): {MODEL_ZOO_SLICE}")
     out: list[tuple[str, str | None]] = [
         (a, g) for a in GRAPH_APPS for g in GRAPH_INPUTS
     ]
     out += [(a, None) for a in HTAP_APPS]
+    if extended:
+        out += [(a, g) for a in FRONTIER_APPS for g in GRAPH_INPUTS]
+        out += [(a, None) for a in STREAM_APPS]
+        out += [(a, g) for a in MT_APPS for g in GRAPH_INPUTS]
     return out

@@ -46,6 +46,7 @@ from repro_torch.core.signatures import (
     SignatureSpec,
     default_spec,
     pack_words,
+    popcount_per_word,
     unpack_words,
 )
 from repro_torch.kernels.bloom import bloom as K
@@ -211,26 +212,40 @@ def test_insert_pair_counts_one_launch(dev):
     assert K.launch_counts()["bloom_insert"] == 2
     with pytest.raises(ValueError):
         K.bloom_insert(spec, bitmap=words, bitmap_b=words.cpu(), num_lines=64)
-    with pytest.raises(ValueError, match="65,535"):
-        K.bloom_insert(spec, ids=ids.expand(65_536, 8).contiguous(),
-                       valid=valid.expand(65_536, 8).contiguous())
     assert K.launch_counts()["bloom_insert"] == 2
+    many_ids = ids.expand(65_536, 8).contiguous()  # past gridDim.y's 65,535
+    many_valid = valid.expand(65_536, 8).contiguous()
+    got = K.bloom_insert(spec, ids=many_ids, valid=many_valid)
+    assert K.launch_counts()["bloom_insert"] == 3
+    assert torch.equal(got, K.bloom_insert_plain(spec, ids=many_ids, valid=many_valid))
     K.reset_launch_counts()
+
+
+def _passes(spec) -> int:
+    """Launches a parity-form kernel takes for ``spec``: one a 512 masks."""
+    return len(K._passes(spec)[0])
 
 
 @pytest.mark.parametrize("sig_bits,num_segments", [(2048, 64), (2**17, 1)])
 def test_insert_spec_beyond_the_mask_cap_is_refused(dev, sig_bits, num_segments):
+    """Specs past the old mask cap are inserted on the card, equal to the
+    plain version, one launch a pass (one pass each)."""
     spec = SignatureSpec(sig_bits=sig_bits, num_segments=num_segments)
-    ids = torch.arange(8, dtype=torch.int32, device=dev)[None]
-    valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    g = _gen(dev, sig_bits)
+    ids = torch.randint(-2**31, 2**31 - 1, (2, 300), generator=g, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand((2, 300), generator=g, device=dev) < 0.8
     K.reset_launch_counts()
     K8.reset_launch_counts()
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.bloom_insert(spec, ids=ids, valid=valid)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K8.bloom_insert_onehot(spec, None, ids, valid)
-    assert K.launch_counts()["bloom_insert"] == 0
-    assert K8.launch_counts()["bloom_insert_onehot"] == 0
+    got = K.bloom_insert(spec, ids=ids, valid=valid)
+    assert torch.equal(got, K.bloom_insert_plain(spec, ids=ids, valid=valid))
+    got8 = K8.bloom_insert_onehot(spec, None, ids, valid)
+    assert torch.equal(got8, K8.bloom_insert_onehot_plain(spec, None, ids, valid))
+    assert _passes(spec) == 1
+    assert K.launch_counts()["bloom_insert"] == 1
+    assert K8.launch_counts()["bloom_insert_onehot"] == 1
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
 
 
 @pytest.mark.parametrize("module", ["bloom", "onehot"])
@@ -310,21 +325,25 @@ def test_query_pair_counts_one_launch(dev):
 
 @pytest.mark.parametrize("sig_bits,num_segments", [(2048, 64), (2**17, 1)])
 def test_query_spec_beyond_the_mask_cap_is_refused(dev, sig_bits, num_segments):
-    """A spec whose column masks overflow the kernels' 512-word struct is
-    refused on the card before a launch; no launch is counted."""
+    """Specs past the old mask cap are queried on the card, equal to the
+    plain version, one launch each (one pass)."""
     spec = SignatureSpec(sig_bits=sig_bits, num_segments=num_segments)
-    sig = torch.full((1, spec.num_words), -1, dtype=torch.int32, device=dev)
-    words = torch.full((1, 2), -1, dtype=torch.int32, device=dev)
-    bits = torch.ones((1, spec.sig_bits), dtype=torch.bool, device=dev)
-    addrs = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    sig = _words((2, spec.num_words), 1 - 0.5 / num_segments, dev, sig_bits)
+    words = _words((2, 40), 0.5, dev, 3)
+    bits = unpack_words(sig, spec.sig_bits).contiguous()
+    addrs = torch.randint(-2**31, 2**31 - 1, (2, 999), generator=_gen(dev, 4),
+                          device=dev, dtype=torch.int32)
     K.reset_launch_counts()
     K8.reset_launch_counts()
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.bloom_query(spec, sig, words, 40)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K8.bloom_query_onehot(spec, bits, addrs)
-    assert K.launch_counts()["bloom_query"] == 0
-    assert K8.launch_counts()["bloom_query_onehot"] == 0
+    got = K.bloom_query(spec, sig, words, 1270)
+    assert torch.equal(got, K.bloom_query_plain(spec, sig, words, 1270))
+    got8 = K8.bloom_query_onehot(spec, bits, addrs)
+    want8 = K8.bloom_query_onehot_plain(spec, bits, addrs)
+    assert torch.equal(got8, want8) and 0 < int(want8.sum()) < want8.numel()
+    assert K.launch_counts()["bloom_query"] == 1
+    assert K8.launch_counts()["bloom_query_onehot"] == 1
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
 
 
 @pytest.mark.parametrize("module", ["bloom", "onehot"])
@@ -567,6 +586,222 @@ def test_seed_engine_on_card_equals_cpu_and_packed(dev):
     for m in gpu:
         assert dataclasses.asdict(gpu[m]) == dataclasses.asdict(cpu[m]), m
         assert dataclasses.asdict(gpu[m]) == dataclasses.asdict(packed[m]), m
+    reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# Specs and lane counts past the kernels' old caps (ROADMAP §C3): more than
+# 32 segments, more than the 512 column masks of one launch (passes), more
+# address bits than a line id has, outputs larger than a block's shared
+# memory, and more than 65,535 lanes
+# ---------------------------------------------------------------------------
+
+C3_SPECS = [SignatureSpec(4096, 64), SignatureSpec(2048, 64),
+            SignatureSpec(4096, 128),            # 640 masks: two passes
+            SignatureSpec(2**16, 64),            # 640 masks of 10 bits: two passes
+            SignatureSpec(2**18, 2),             # 17-bit segments; a 16-register bank of 512 KB
+            SignatureSpec(4096, 64, addr_bits=48)]
+
+
+def _c3_id(s):
+    return f"{s.sig_bits}m{s.num_segments}a{s.addr_bits}"
+
+
+def _member_density(spec):
+    """A signature density at which about half the addresses are members."""
+    return 1 - 0.5 / spec.num_segments
+
+
+@pytest.mark.parametrize("spec", C3_SPECS, ids=_c3_id)
+def test_c3_hash_and_detect(dev, spec):
+    """B1 and B5 at specs past their old cap, against the plain versions."""
+    g = _gen(dev, spec.num_segments)
+    a = torch.randint(-2**31, 2**31 - 1, (4097,), generator=g, device=dev,
+                      dtype=torch.int32)
+    assert torch.equal(K.h3_hash(spec, a), K.h3_hash_plain(spec, a))
+    sigs = _words((4, spec.num_words), _member_density(spec), dev, 5)
+    want = K.bloom_detect_conflicts_plain(spec, sigs, a)
+    assert torch.equal(K.bloom_detect_conflicts(spec, sigs, a), want)
+    assert int(want.min()) < int(want.max())
+
+
+@pytest.mark.parametrize("spec", C3_SPECS, ids=_c3_id)
+@pytest.mark.parametrize("regs", [1, 16])
+def test_c3_insert(dev, spec, regs):
+    """B2's id and bitmap pairs at specs past the old cap, into poisoned
+    outputs, one launch a pass."""
+    g = _gen(dev, spec.sig_bits + regs)
+    ids = torch.randint(-2**31, 2**31 - 1, (3, 256), generator=g, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand((3, 256), generator=g, device=dev) < 0.8
+    words = _words((3, 205), 0.01, dev, regs)
+    words_b = _words((3, 205), 0.002, dev, regs + 1)
+    K.reset_launch_counts()
+    want = K.bloom_insert_plain(spec, ids=ids, valid=valid, ids_b=ids[:, :100].contiguous(),
+                                valid_b=valid[:, 50:150].contiguous(), num_regs=regs)
+    _poison((2, 3, regs, spec.num_words), dev)
+    got = K.bloom_insert(spec, ids=ids, valid=valid, ids_b=ids[:, :100].contiguous(),
+                         valid_b=valid[:, 50:150].contiguous(), num_regs=regs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want = K.bloom_insert_plain(spec, bitmap=words, bitmap_b=words_b, num_lines=6550,
+                                num_regs=regs)
+    _poison((2, 3, regs, spec.num_words), dev)
+    got = K.bloom_insert(spec, bitmap=words, bitmap_b=words_b, num_lines=6550, num_regs=regs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert K.launch_counts()["bloom_insert"] == 2 * _passes(spec)
+    K.reset_launch_counts()
+
+
+@pytest.mark.parametrize("spec", C3_SPECS, ids=_c3_id)
+def test_c3_query_and_intersect(dev, spec):
+    """B3 (one bitmap and two) and B4 (per row and pair-and-any) at specs
+    past the old cap; B3 one launch a pass, B4 one launch."""
+    sig = _words((3, spec.num_words), _member_density(spec), dev, 9)
+    words = _words((3, 205), 0.4, dev, 10)
+    words_b = _words((3, 205), 0.2, dev, 11)
+    K.reset_launch_counts()
+    want = K.bloom_query_plain(spec, sig, words, 6550, words_b)
+    got = K.bloom_query(spec, sig, words, 6550, words_b=words_b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 0 < int(popcount_per_word(want[0]).sum()) < int(popcount_per_word(words).sum())
+    assert torch.equal(K.bloom_query(spec, sig, words, 6550),
+                       K.bloom_query_plain(spec, sig, words, 6550))
+    assert K.launch_counts()["bloom_query"] == 2 * _passes(spec)
+    m = spec.num_segments
+    # a density at which a & b (b at 0.5) meets every segment in about half
+    # the rows: each segment empty with probability 1 - 0.5 ** (1 / M)
+    empty = 1 - 0.5 ** (1 / m)
+    a = _words((3 * 16, spec.num_words), 2 * (1 - empty ** (1 / spec.seg_bits)), dev, 12)
+    a_b = _words((3 * 16, spec.num_words), 0.3, dev, 13)
+    b = _words((3, spec.num_words), 0.5, dev, 14)
+    rows = K.bloom_intersect(a, b, m)
+    assert torch.equal(rows, K.bloom_intersect_plain(a, b, m))
+    assert 0 < int(rows.sum()) < rows.numel()
+    pair = K.bloom_intersect(a, b, m, a_b=a_b)
+    assert torch.equal(pair, K.bloom_intersect_plain(a, b, m, a_b))
+    assert K.launch_counts()["bloom_intersect"] == 2
+    K.reset_launch_counts()
+
+
+@pytest.mark.parametrize("spec", C3_SPECS, ids=_c3_id)
+def test_c3_onehot(dev, spec):
+    """B8a (a pair with an incoming signature) and B8b at specs past their
+    old caps, one launch a pass each."""
+    g = _gen(dev, spec.sig_bits + 1)
+    addrs = torch.randint(-2**31, 2**31 - 1, (2, 300), generator=g, device=dev,
+                          dtype=torch.int32)
+    mask = torch.rand((2, 300), generator=g, device=dev) < 0.5
+    sig = _words((2, spec.num_words), 0.01, dev, 15)
+    K8.reset_launch_counts()
+    want = K8.bloom_insert_onehot_plain(spec, sig, addrs, mask, addrs_b=addrs[:, :7].contiguous())
+    got = K8.bloom_insert_onehot(spec, sig, addrs, mask, addrs_b=addrs[:, :7].contiguous())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    bits = unpack_words(_words((2, spec.num_words), _member_density(spec), dev, 16),
+                        spec.sig_bits).contiguous()
+    want = K8.bloom_query_onehot_plain(spec, bits, addrs)
+    assert torch.equal(K8.bloom_query_onehot(spec, bits, addrs), want)
+    assert 0 < int(want.sum()) < want.numel()
+    assert K8.launch_counts() == {"bloom_insert_onehot": _passes(spec),
+                                  "bloom_query_onehot": _passes(spec)}
+    K8.reset_launch_counts()
+
+
+LANES_PAST_GRID = 70_000
+
+
+@pytest.mark.parametrize("kernel", ["query", "query_pair", "insert_ids", "insert_bitmap",
+                                    "insert_onehot", "query_onehot", "intersect_pair"])
+def test_lanes_past_the_grid_limit(dev, kernel):
+    """70,000 lanes of a small bitmap or list (past gridDim.y's 65,535):
+    one launch, equal to the plain version, every lane its own."""
+    spec = default_spec()
+    lanes = LANES_PAST_GRID
+    g = _gen(dev, 70)
+    words = _words((lanes, 2), 0.3, dev, 71)
+    ids = torch.randint(-2**31, 2**31 - 1, (lanes, 8), generator=g, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand((lanes, 8), generator=g, device=dev) < 0.7
+    sig = _words((lanes, spec.num_words), 0.8, dev, 72)
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+    if kernel == "query":
+        got, want = K.bloom_query(spec, sig, words, 60), K.bloom_query_plain(spec, sig, words, 60)
+    elif kernel == "query_pair":
+        got = torch.stack(K.bloom_query(spec, sig, words, 60, words_b=words.flip(0)))
+        want = torch.stack(K.bloom_query_plain(spec, sig, words, 60, words.flip(0)))
+    elif kernel == "insert_ids":
+        got = K.bloom_insert(spec, ids=ids, valid=valid)
+        want = K.bloom_insert_plain(spec, ids=ids, valid=valid)
+    elif kernel == "insert_bitmap":
+        got = torch.stack(K.bloom_insert(spec, bitmap=words, bitmap_b=words.flip(0),
+                                         num_lines=60, num_regs=4))
+        want = torch.stack(K.bloom_insert_plain(spec, bitmap=words, bitmap_b=words.flip(0),
+                                                num_lines=60, num_regs=4))
+    elif kernel == "insert_onehot":
+        got = K8.bloom_insert_onehot(spec, sig, ids, valid)
+        want = K8.bloom_insert_onehot_plain(spec, sig, ids, valid)
+    elif kernel == "query_onehot":
+        bits = unpack_words(sig, spec.sig_bits).contiguous()
+        got = K8.bloom_query_onehot(spec, bits, ids)
+        want = K8.bloom_query_onehot_plain(spec, bits, ids)
+    else:
+        bank = _words((lanes * 2, spec.num_words), 0.002, dev, 73)
+        got = K.bloom_intersect(bank, sig, spec.num_segments, a_b=bank.flip(0))
+        want = K.bloom_intersect_plain(bank, sig, spec.num_segments, bank.flip(0))
+    assert torch.equal(got, want)
+    assert bool((want != want[-1:]).any())  # the lanes' answers differ
+    assert sum(K.launch_counts().values()) + sum(K8.launch_counts().values()) == 1
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+
+
+def test_paper_geometry_launches_once_a_call(dev):
+    """The paper's spec keeps its fixed-geometry builds in one launch a
+    call (one pass) on every Bloom kernel."""
+    spec = default_spec()
+    assert _passes(spec) == 1 and K._passes(spec)[0][0][1] == 0
+    ids = torch.arange(64, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones_like(ids, dtype=torch.bool)
+    words = _words((1, 4), 0.5, dev, 1)
+    sig = _words((1, spec.num_words), 0.5, dev, 2)
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+    K.h3_hash(spec, ids[0])
+    K.bloom_insert(spec, ids=ids, valid=valid, ids_b=ids, valid_b=valid)
+    K.bloom_insert(spec, bitmap=words, bitmap_b=words, num_lines=128, num_regs=16)
+    K.bloom_query(spec, sig, words, 128, words_b=words)
+    K.bloom_intersect(sig.expand(16, -1).contiguous(), sig, 4, a_b=sig.expand(16, -1).contiguous())
+    K.bloom_detect_conflicts(spec, sig, ids[0])
+    K8.bloom_insert_onehot(spec, sig, ids, addrs_b=ids)
+    K8.bloom_query_onehot(spec, unpack_words(sig, spec.sig_bits).contiguous(), ids)
+    assert K.launch_counts() == {"h3_hash": 1, "bloom_insert": 2, "bloom_query": 1,
+                                 "bloom_intersect": 1, "bloom_detect_conflicts": 1}
+    assert K8.launch_counts() == {"bloom_insert_onehot": 1, "bloom_query_onehot": 1}
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+
+
+@pytest.mark.parametrize("sig_bits", [4096, 2048])
+def test_many_segments_study_on_card_equals_cpu(dev, sig_bits):
+    """The M = 64 Study of tests/test_torch_signature_caps.py on the card:
+    every field of 2 workloads x 6 mechanisms equal to the CPU run, on
+    both engines, through the kernels."""
+    from repro_torch.api import Study, workload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    spec = SignatureSpec(sig_bits=sig_bits, num_segments=64)
+    wl = [workload("htap128", num_kernels=4, windows_per_kernel=2),
+          workload("pagerank", "arxiv", num_kernels=4, windows_per_kernel=2)]
+    cpu = Study(wl, spec=spec, device="cpu").run(engine="sequential")
+    for engine in ("batch", "sequential"):
+        reset_launch_counts()
+        gpu = Study(wl, spec=spec, device=dev).run(engine=engine)
+        counts = launch_counts()
+        for name in ("h3_hash", "bloom_insert", "bloom_query", "bloom_intersect"):
+            assert counts[name] > 0, (engine, name)
+        for a, b in zip(gpu.points, cpu.points):
+            for m in a.results:
+                assert dataclasses.asdict(a.results[m]) == dataclasses.asdict(b.results[m])
     reset_launch_counts()
 
 

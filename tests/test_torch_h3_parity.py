@@ -1,7 +1,8 @@
 """The parity form of H3 that the redesigned ``bloom_query`` (B3) and
 ``bloom_query_onehot`` (B8b) kernels hash with, on the CPU: its plain
 version against the byte-sliced tables, the xor-fold and the reference's
-hash; the column-mask cap of both wrappers; ``members_pair`` against two
+hash; specs past the kernels' old column-mask cap, taken in passes through
+a stand-in library; ``members_pair`` against two
 ``members`` calls and against the reference's one gather a signature; the
 LazyPIM window's two query launches; and the build digest that keys a
 kernel library by its headers too.  Integer results, so every comparison
@@ -9,6 +10,7 @@ is exact."""
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import jax
@@ -84,30 +86,117 @@ def test_columns_transpose_the_h3_matrix():
                 assert (int(cols[m, k]) >> j) & 1 == (int(q[m, j]) >> k) & 1
 
 
+def _view(ptr: int, dtype, shape) -> np.ndarray:
+    """A writable numpy view of ``shape`` elements at host address ``ptr``."""
+    count = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    return np.frombuffer((ctypes.c_char * count).from_address(ptr), dtype=dtype).reshape(
+        shape)
+
+
+def _parity_positions(cols: np.ndarray, m0: int, log_seg: int, a: np.ndarray) -> np.ndarray:
+    """(N, M) positions of addresses ``a`` under one pass's column masks:
+    ((m0 + m) << log_seg) | h, bit k of h the parity of a & cols[m, k]."""
+    x = a.astype(np.uint64)[:, None, None] & cols.astype(np.uint64)[None]
+    for shift in (16, 8, 4, 2, 1):
+        x ^= x >> np.uint64(shift)
+    h = ((x & np.uint64(1)) << np.arange(log_seg, dtype=np.uint64)).sum(-1)
+    m = np.arange(m0, m0 + cols.shape[0], dtype=np.uint64)
+    return (m << np.uint64(log_seg)) | h
+
+
+def _all_set(sig_row: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    return ((sig_row[pos >> np.uint64(5)] >> (pos & np.uint64(31)).astype(np.uint32))
+            & 1).astype(bool).all(-1)
+
+
+class _ParityLib:
+    """Stands in for the built libraries' two query launchers: runs one
+    pass of the parity-form membership in numpy on the host memory the
+    launch's pointers name (CPU tensors taken as CUDA ones), so the result
+    checks the passes the wrapper drives.  Records every launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def bloom_query_launch(self, sig, words_a, words_b, columns, out_a, out_b, lanes,
+                           nwl, num_lines, m, log_seg, m0, nw, stream):
+        self.calls.append(("bloom_query_launch", m, log_seg, m0))
+        cols = _view(columns, np.uint32, (m, log_seg))
+        sigs = _view(sig, np.uint32, (lanes, nw))
+        srcs = [_view(p, np.uint32, (lanes, nwl)) for p in (words_a, words_b) if p]
+        outs = [_view(p, np.uint32, (lanes, nwl)) for p in (out_a, out_b) if p]
+        for lane in range(lanes):
+            union = np.bitwise_or.reduce([w[lane] for w in srcs])
+            bits = np.unpackbits(union.view(np.uint8), bitorder="little")[:num_lines]
+            lines = np.nonzero(bits)[0].astype(np.uint32)
+            hit = np.zeros(nwl * 32, bool)
+            hit[lines[_all_set(sigs[lane], _parity_positions(cols, m0, log_seg, lines))]] = 1
+            packed = np.packbits(hit, bitorder="little").view(np.uint32)
+            for src, out in zip(srcs, outs):
+                out[lane] = src[lane] & packed
+        return 0
+
+    def bloom_query_onehot_launch(self, bits, addrs, columns, out, lanes, n, m, log_seg,
+                                  m0, and_out, sig_bits, stream):
+        self.calls.append(("bloom_query_onehot_launch", m, log_seg, m0, and_out))
+        cols = _view(columns, np.uint32, (m, log_seg))
+        image = _view(bits, np.uint8, (lanes, sig_bits)).astype(bool)
+        a = _view(addrs, np.uint32, (lanes, n))
+        o = _view(out, np.uint8, (lanes, n))
+        for lane in range(lanes):
+            pos = _parity_positions(cols, m0, log_seg, a[lane]).astype(np.int64)
+            member = image[lane][pos].all(-1)
+            o[lane] = (o[lane].astype(bool) & member) if and_out else member
+        return 0
+
+
 @pytest.mark.parametrize("sig_bits,num_segments", [(2048, 64), (2**17, 1)])
 def test_spec_beyond_the_mask_cap_is_refused(monkeypatch, sig_bits, num_segments):
-    """More than 32 segments, or segments of more than 2^16 bits, would
-    overflow the kernels' 512-word mask struct: on the card both query
-    wrappers refuse them before any launch, while the plain versions on
-    the CPU take them (B8b keeps its own num_segments <= 32 refusal)."""
-    spec = S.SignatureSpec(sig_bits=sig_bits, num_segments=num_segments)
-    sig = torch.full((1, spec.num_words), -1, dtype=torch.int32)
-    words = torch.full((1, 2), -1, dtype=torch.int32)
-    bits = torch.ones((1, spec.sig_bits), dtype=torch.bool)
-    addrs = torch.arange(4, dtype=torch.int32)[None]
-    assert torch.equal(K.bloom_query(spec, sig, words, 40),
-                       K.bloom_query_plain(spec, sig, words, 40))
-    if num_segments <= 32:
-        assert K8.bloom_query_onehot(spec, bits, addrs).all()
-    launched = []
-    for mod in (K, K8):  # the tensors taken as CUDA tensors
-        monkeypatch.setattr(mod, "_on_cpu", lambda *ts: False)
-        monkeypatch.setattr(mod, "_launch", lambda *a: launched.append(a))
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.bloom_query(spec, sig, words, 40)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K8.bloom_query_onehot(spec, bits, addrs)
-    assert not launched
+    """Specs past the kernels' old caps (more than 32 segments; segments of
+    more than 2^16 bits) are taken on the card, as repro takes them: each
+    query wrapper hashes a spec in passes of at most 512 column masks, one
+    launch a pass, and gives its plain version's result.  The spec itself
+    fits one pass; the spec with twice the segments of twice the bits
+    ((4096, 128): 640 masks) takes two, the second from segment 102."""
+    lib = _ParityLib()
+    for spec in (S.SignatureSpec(sig_bits=sig_bits, num_segments=num_segments),
+                 S.SignatureSpec(sig_bits=2 * sig_bits, num_segments=2 * num_segments)):
+        log_seg = spec.seg_bits.bit_length() - 1
+        per = 512 // log_seg
+        want_passes = [(min(per, spec.num_segments - m0), log_seg, m0)
+                       for m0 in range(0, spec.num_segments, per)]
+        g = torch.Generator().manual_seed(sig_bits + num_segments)
+        # dense enough that about half the addresses are members at any M
+        sig = torch.rand((2, spec.num_words, 32), generator=g) < 1 - 0.5 / spec.num_segments
+        sig = S.pack_words(sig.reshape(2, -1))
+        words = S.pack_words(torch.rand((2, 96), generator=g) < 0.5)
+        words_b = S.pack_words(torch.rand((2, 96), generator=g) < 0.5)
+        bits = S.unpack_words(sig, spec.sig_bits).contiguous()
+        addrs = torch.randint(-2**31, 2**31 - 1, (2, 300), generator=g, dtype=torch.int32)
+        plain = (K.bloom_query_plain(spec, sig, words, 90),
+                 K.bloom_query_plain(spec, sig, words, 90, words_b),
+                 K8.bloom_query_onehot_plain(spec, bits, addrs))
+        assert 0 < int(plain[2].sum()) < plain[2].numel()  # members vary
+        with monkeypatch.context() as mp:
+            for mod in (K, K8):  # the tensors taken as CUDA tensors
+                mp.setattr(mod, "_on_cpu", lambda *ts: False)
+                mp.setattr(mod, "_lib", lambda: lib)
+                mp.setattr(mod, "_stream", lambda t: 0)
+            K.reset_launch_counts()
+            K8.reset_launch_counts()
+            lib.calls.clear()
+            assert torch.equal(K.bloom_query(spec, sig, words, 90), plain[0])
+            got = K.bloom_query(spec, sig, words, 90, words_b=words_b)
+            assert torch.equal(got[0], plain[1][0]) and torch.equal(got[1], plain[1][1])
+            assert torch.equal(K8.bloom_query_onehot(spec, bits, addrs), plain[2])
+        q = [c[1:] for c in lib.calls if c[0] == "bloom_query_launch"]
+        assert q == want_passes * 2
+        onehot = [c[1:] for c in lib.calls if c[0] == "bloom_query_onehot_launch"]
+        assert onehot == [(*p, int(i > 0)) for i, p in enumerate(want_passes)]
+        assert K.launch_counts()["bloom_query"] == 2 * len(want_passes)
+        assert K8.launch_counts()["bloom_query_onehot"] == len(want_passes)
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
 
 
 def test_largest_spec_under_the_cap_is_taken():

@@ -2,8 +2,9 @@
 plain versions against ``repro``'s ``_h3_hash_block`` and
 ``bloom_detect_conflicts_pallas`` (interpret mode); the packed byte tables
 both kernels hash with, in their plain PyTorch arithmetic, against the
-byte-sliced tables; the kernels' spec cap and B5's route, checked before
-any launch; and the kernel path through a stand-in library that runs the
+byte-sliced tables; specs past the kernels' old cap (64 segments, 40 to
+72 address bits, of which a 32-bit line id meets only the first 32) and
+B5's route; and the kernel path through a stand-in library that runs the
 packed-table arithmetic on the launch's own pointers, which counts one
 ``h3_hash`` launch a ``prepare`` and one ``h3_hash`` and one
 ``bloom_detect_conflicts`` launch a LazySync step.  Integer results, so
@@ -241,23 +242,49 @@ def test_kernel_path_passes_what_the_packed_arithmetic_needs(monkeypatch, geomet
 
 @pytest.mark.parametrize("sig_bits,num_segments,addr_bits", [(2048, 64, 32), (2048, 4, 40)])
 def test_spec_beyond_the_cap_is_refused(monkeypatch, sig_bits, num_segments, addr_bits):
-    """More than 32 segments, or addresses of more than 4 byte slices, are
-    past the packed-table kernels' cap: on the card both wrappers refuse
-    them before any launch, with the message of bloom_insert and
-    bloom_query; the plain versions on the CPU take them."""
+    """More than 32 segments, or addresses of more than 4 byte slices, were
+    past the packed-table kernels' old cap; both wrappers now launch them
+    and give the plain result.  M = 64 takes several words an entry; a spec
+    of 40 address bits launches with 4 of its 5 byte slices (a line id's
+    fifth byte is 0, whose entry is 0), which the plain version, hashing
+    all 5, agrees with."""
     spec = S.SignatureSpec(sig_bits, num_segments, addr_bits)
     a = _t(_addrs(64, seed=3))
     sigs = torch.full((2, spec.num_words), -1, dtype=torch.int32)
-    assert K.h3_hash(spec, a).shape == (64, num_segments)
-    assert torch.equal(K.bloom_detect_conflicts(spec, sigs, a), torch.full((64,), 2,
-                                                                        dtype=torch.int32))
+    sigs[1, ::3] = 0
+    want_pos = K.h3_hash(spec, a)
+    want_hits = K.bloom_detect_conflicts(spec, sigs, a)
+    assert want_pos.shape == (64, num_segments) and 0 < int(want_hits.sum()) < 128
     lib = _PackedLib()
     _on_card(monkeypatch, lib)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.h3_hash(spec, a)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.bloom_detect_conflicts(spec, sigs, a)
-    assert not lib.calls
+    assert torch.equal(K.h3_hash(spec, a), want_pos)
+    assert torch.equal(K.bloom_detect_conflicts(spec, sigs, a), want_hits)
+    assert lib.calls[0][2:5] == (4, num_segments, spec.seg_bits.bit_length() - 1)
+    assert lib.calls[1][4:6] == (4, num_segments)
+    assert spec.num_byte_slices == (5 if addr_bits == 40 else 4)
+
+
+@pytest.mark.parametrize("addr_bits", [33, 40, 64, 72])
+def test_address_bits_past_32_meet_no_set_bit(addr_bits):
+    """H3 rows past bit 31 never meet a set bit of a 32-bit line id: for
+    specs of more address bits, the byte-sliced tables over every slice,
+    the packed tables read over their first 4 slices (what the kernels
+    read), the parity form, the xor-fold and repro's hash agree."""
+    spec, r_spec = _specs(2048, 4, addr_bits)
+    a = _addrs(3000, seed=addr_bits)
+    t = _t(a)
+    want = np.asarray(RS.hash_positions(r_spec, jnp.asarray(a)))
+    tables = S.hash_with_tables(t, S.tables_tensor(spec, torch.device("cpu")))
+    np.testing.assert_array_equal(tables.numpy().view(np.uint32), want)
+    assert torch.equal(S.hash_positions_packed(spec, t), tables)
+    assert torch.equal(S.hash_positions_parity(spec, t), tables)
+    assert torch.equal(S.hash_positions_xorfold(spec, t), tables)
+    ptab = S.packed_tables(spec)
+    assert ptab.shape[0] == spec.num_byte_slices > 4
+    assert not ptab[4:, 0].any()  # byte 0 of every slice past the fourth hashes to 0
+    s4 = _PackedLib._positions(t.data_ptr(), S.packed_tables_tensor(
+        spec, torch.device("cpu")).data_ptr(), t.shape[0], 4, 4, 9)
+    np.testing.assert_array_equal(s4.astype(np.uint32), want)
 
 
 def test_largest_specs_under_the_cap_are_taken(monkeypatch):

@@ -58,3 +58,33 @@ def test_chip_smoke_fails_without_a_card():
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
     assert "no CUDA device" in out.stderr
+
+
+_REF_PROBE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import dataclasses, torch
+from repro_torch.sim import _traceref
+from repro_torch.sim.trace import make_trace
+for app, g in (("mtmix", "arxiv"), ("htap_stream", None)):
+    kw = dict(num_kernels=2, device="cpu")
+    a, b = make_trace(app, g, backend="ref", **kw), make_trace(app, g, **kw)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y, f.name
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+            and sys.modules[m] is not None]
+print("ok")
+"""
+
+
+def test_trace_reference_runs_without_jax_or_repro():
+    """The port's numpy trace reference (``sim/_traceref.py``) has its own
+    Threefry: with ``jax`` and ``repro`` blocked, ``backend="ref"`` still
+    regenerates the tensor path's traces."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _REF_PROBE], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

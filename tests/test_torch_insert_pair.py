@@ -7,11 +7,13 @@ specs and several bitmap densities, and the Pallas kernel
 ``bloom_insert_pallas_onehot`` in interpret mode.  Then the LazyPIM window's
 two ``bloom_insert`` calls (one for the images, one for the banks) and the
 seed window's one B8a call, in both commit modes; and the wrappers' kernel
-path through a stand-in library: one count a pair launch, the mask cap and
-the lane cap.  Integer results, so every comparison is exact."""
+path through stand-in libraries: one count a pair launch, specs past the
+old column-mask cap inserted in passes, and more than 65,535 lanes in one
+launch.  Integer results, so every comparison is exact."""
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -343,43 +345,164 @@ def test_pair_launch_counts_one(monkeypatch, rc):
     K8.reset_launch_counts()
 
 
+def _view(ptr: int, dtype, shape) -> np.ndarray:
+    """A writable numpy view of ``shape`` elements at host address ``ptr``."""
+    count = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    return np.frombuffer((ctypes.c_char * count).from_address(ptr), dtype=dtype).reshape(
+        shape)
+
+
+def _parity_positions(cols: np.ndarray, m0: int, log_seg: int, a: np.ndarray) -> np.ndarray:
+    """(N, M) positions of addresses ``a`` under one pass's column masks."""
+    x = a.astype(np.uint64)[:, None, None] & cols.astype(np.uint64)[None]
+    for shift in (16, 8, 4, 2, 1):
+        x ^= x >> np.uint64(shift)
+    h = ((x & np.uint64(1)) << np.arange(log_seg, dtype=np.uint64)).sum(-1)
+    m = np.arange(m0, m0 + cols.shape[0], dtype=np.uint64)
+    return (m << np.uint64(log_seg)) | h
+
+
+class _InsertLib:
+    """Stands in for the built libraries' insert launchers: runs one pass
+    of the parity-form insert in numpy on the host memory the launch's
+    pointers name (CPU tensors taken as CUDA ones) -- each item's positions
+    ORed into register item % R, the incoming signature and, past the first
+    pass, the words out holds ORed in -- so the result checks the passes
+    the wrapper drives.  Records every launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    @staticmethod
+    def _store(out, items, cols, m0, log_seg, sig, or_out):
+        """out (R, NW) of one (list, lane) from its items (uint32)."""
+        regs, nw = out.shape
+        bank = np.zeros((regs, nw * 32), bool)
+        pos = _parity_positions(cols, m0, log_seg, items).astype(np.int64)
+        bank[(items % regs).astype(np.int64)[:, None], pos] = True
+        words = np.packbits(bank, axis=1, bitorder="little").view(np.uint32)
+        if sig is not None:
+            words = words | sig
+        out[:] = words | (out if or_out else 0)
+
+    def bloom_insert_ids_launch(self, ids_a, valid_a, ids_b, valid_b, columns, out, k,
+                                lanes, a_a, a_b, m, log_seg, m0, or_out, regs, nw, stream):
+        self.calls.append(("bloom_insert_ids_launch", k, lanes, m, log_seg, m0, or_out))
+        cols = _view(columns, np.uint32, (m, log_seg))
+        o = _view(out, np.uint32, (k, lanes, regs, nw))
+        for lst, (ids, valid, width) in enumerate(((ids_a, valid_a, a_a),
+                                                   (ids_b, valid_b, a_b))[:k]):
+            a = _view(ids, np.uint32, (lanes, width))
+            v = _view(valid, np.uint8, (lanes, width)).astype(bool)
+            for lane in range(lanes):
+                self._store(o[lst, lane], a[lane][v[lane]], cols, m0, log_seg, None, or_out)
+        return 0
+
+    def bloom_insert_bitmap_launch(self, words_a, words_b, columns, out, k, lanes, nwl,
+                                   num_lines, m, log_seg, m0, or_out, regs, nw, stream):
+        self.calls.append(("bloom_insert_bitmap_launch", k, lanes, m, log_seg, m0, or_out))
+        cols = _view(columns, np.uint32, (m, log_seg))
+        o = _view(out, np.uint32, (k, lanes, regs, nw))
+        for lst, ptr in enumerate((words_a, words_b)[:k]):
+            w = _view(ptr, np.uint32, (lanes, nwl))
+            for lane in range(lanes):
+                bits = np.unpackbits(w[lane].view(np.uint8), bitorder="little")[:num_lines]
+                lines = np.nonzero(bits)[0].astype(np.uint32)
+                self._store(o[lst, lane], lines, cols, m0, log_seg, None, or_out)
+        return 0
+
+    def bloom_insert_onehot_launch(self, addrs_a, mask_a, addrs_b, mask_b, sig, columns,
+                                   out, k, lanes, n_a, n_b, m, log_seg, m0, or_out, nw,
+                                   stream):
+        self.calls.append(("bloom_insert_onehot_launch", k, lanes, m, log_seg, m0, or_out))
+        cols = _view(columns, np.uint32, (m, log_seg))
+        o = _view(out, np.uint32, (k, lanes, 1, nw))
+        s = None if not sig else _view(sig, np.uint32, (lanes, nw))
+        for lst, (ptr, mask, n) in enumerate(((addrs_a, mask_a, n_a),
+                                              (addrs_b, mask_b, n_b))[:k]):
+            a = _view(ptr, np.uint32, (lanes, n))
+            keep = (np.ones((lanes, n), bool) if not mask
+                    else _view(mask, np.uint8, (lanes, n)).astype(bool))
+            for lane in range(lanes):
+                self._store(o[lst, lane], a[lane][keep[lane]], cols, m0, log_seg,
+                            None if s is None else s[lane], or_out)
+        return 0
+
+
 @pytest.mark.parametrize("sig_bits,num_segments", [(2048, 64), (2**17, 1)])
 def test_insert_spec_beyond_the_mask_cap_is_refused(monkeypatch, sig_bits, num_segments):
-    """A spec whose column masks overflow the kernels' 512-word struct is
-    refused on the card before a launch, with bloom_query's message; the
-    plain versions on the CPU take it."""
-    spec = S.SignatureSpec(sig_bits=sig_bits, num_segments=num_segments)
-    ids = torch.arange(8, dtype=torch.int32)[None]
-    valid = torch.ones((1, 8), dtype=torch.bool)
-    words = torch.full((1, 2), -1, dtype=torch.int32)
-    plain = K.bloom_insert(spec, ids=ids, valid=valid)
-    assert plain.shape == (1, 1, spec.num_words) and plain.any()
-    assert K.bloom_insert(spec, bitmap=words, num_lines=40).any()
-    fake = _FakeLib()
-    _on_card(monkeypatch, K, fake)
-    _on_card(monkeypatch, K8, fake)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.bloom_insert(spec, ids=ids, valid=valid)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K.bloom_insert(spec, bitmap=words, bitmap_b=words, num_lines=40)
-    with pytest.raises(ValueError, match="num_segments <= 32"):
-        K8.bloom_insert_onehot(spec, None, ids, valid)
-    assert not fake.calls
+    """Specs past the kernels' old caps are taken on the card: every insert
+    wrapper (id pair, bitmap pair in bank mode, B8a with an incoming
+    signature) inserts a spec in passes of at most 512 column masks, one
+    launch a pass, the later passes ORing into the words the earlier ones
+    stored, and gives its plain version's result.  The spec fits one pass;
+    the spec with twice the segments of twice the bits takes two when it
+    has 640 masks."""
+    lib = _InsertLib()
+    for spec in (S.SignatureSpec(sig_bits=sig_bits, num_segments=num_segments),
+                 S.SignatureSpec(sig_bits=2 * sig_bits, num_segments=2 * num_segments)):
+        log_seg = spec.seg_bits.bit_length() - 1
+        per = 512 // log_seg
+        passes = [(min(per, spec.num_segments - m0), log_seg, m0, int(m0 > 0))
+                  for m0 in range(0, spec.num_segments, per)]
+        g = torch.Generator().manual_seed(sig_bits)
+        ids = torch.randint(-2**31, 2**31 - 1, (2, 40), generator=g, dtype=torch.int32)
+        valid = torch.rand((2, 40), generator=g) < 0.7
+        ids_b, valid_b = ids[:, :25].contiguous(), valid[:, 5:30].contiguous()
+        words = S.pack_words(torch.rand((2, 70), generator=g) < 0.3)
+        words_b = S.pack_words(torch.rand((2, 70), generator=g) < 0.3)
+        sig = S.pack_words(torch.rand((2, spec.sig_bits), generator=g) < 0.01)
+        calls = (
+            lambda: K.bloom_insert(spec, ids=ids, valid=valid, ids_b=ids_b, valid_b=valid_b),
+            lambda: K.bloom_insert(spec, bitmap=words, bitmap_b=words_b, num_lines=70,
+                                   num_regs=16),
+            lambda: K8.bloom_insert_onehot(spec, sig, ids, valid, addrs_b=ids_b,
+                                           mask_b=valid_b),
+        )
+        plain = [call() for call in calls]
+        assert all(p[0].any() for p in plain)
+        with monkeypatch.context() as mp:
+            for mod in (K, K8):  # the tensors taken as CUDA tensors
+                mp.setattr(mod, "_on_cpu", lambda *ts: False)
+                mp.setattr(mod, "_lib", lambda: lib)
+                mp.setattr(mod, "_stream", lambda t: 0)
+            K.reset_launch_counts()
+            K8.reset_launch_counts()
+            lib.calls.clear()
+            for call, want in zip(calls, plain):
+                got = call()
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        names = ("bloom_insert_ids_launch", "bloom_insert_bitmap_launch",
+                 "bloom_insert_onehot_launch")
+        assert [c[0] for c in lib.calls] == [n for n in names for _ in passes]
+        assert [c[3:] for c in lib.calls] == passes * 3
+        assert all(c[1:3] == (2, 2) for c in lib.calls)  # two lists, two lanes
+        assert K.launch_counts()["bloom_insert"] == 2 * len(passes)
+        assert K8.launch_counts()["bloom_insert_onehot"] == len(passes)
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
 
 
 def test_insert_lane_cap_is_checked(monkeypatch):
-    """Lanes sit on gridDim.y, which CUDA caps at 65,535: more raise before
-    a launch."""
+    """Lanes sit on gridDim.y, which CUDA caps at 65,535; past it the
+    kernels walk the lanes in a loop, so 65,536 lanes are one launch with
+    the full lane count, as the plain version takes them."""
     spec = S.default_spec()
     fake = _FakeLib()
     _on_card(monkeypatch, K, fake)
     _on_card(monkeypatch, K8, fake)
     ids = torch.zeros((65_536, 1), dtype=torch.int32)
     valid = torch.ones((65_536, 1), dtype=torch.bool)
-    with pytest.raises(ValueError, match="65,535"):
-        K.bloom_insert(spec, ids=ids, valid=valid)
-    with pytest.raises(ValueError, match="65,535"):
-        K.bloom_insert(spec, bitmap=ids, num_lines=32)
-    with pytest.raises(ValueError, match="65,535"):
-        K8.bloom_insert_onehot(spec, None, ids)
-    assert not fake.calls
+    K.reset_launch_counts()
+    K8.reset_launch_counts()
+    assert K.bloom_insert(spec, ids=ids, valid=valid).shape == (65_536, 1, spec.num_words)
+    K.bloom_insert(spec, bitmap=ids, num_lines=32)
+    K8.bloom_insert_onehot(spec, None, ids)
+    lanes_at = {"bloom_insert_ids_launch": 7, "bloom_insert_bitmap_launch": 5,
+                "bloom_insert_onehot_launch": 8}  # the lane count's argument
+    assert [(name, args[lanes_at[name]]) for name, args in fake.calls] == \
+        [(name, 65_536) for name in lanes_at]
+    assert K.launch_counts()["bloom_insert"] == 2
+    assert K8.launch_counts()["bloom_insert_onehot"] == 1
+    K.reset_launch_counts()
+    K8.reset_launch_counts()

@@ -86,14 +86,14 @@ def test_trace_builders_equal_reference(traces, kind):
 
 @pytest.mark.parametrize("fn", ["make_graph_trace", "make_htap_trace"])
 def test_trace_builders_keep_reference_defaults(fn):
-    """The reference's parameters and defaults; ``backend=`` is the
-    reference's numpy path (queued with the extended families, ROADMAP A14)
-    and ``device=`` the port's."""
-    want = {k: p.default for k, p in inspect.signature(getattr(RT, fn)).parameters.items()
-            if k != "backend"}
+    """The reference's parameters and defaults, ``backend=`` included (the
+    port's ``"torch"`` default names its tensor path, the reference's
+    ``"jax"``); ``device=`` is the port's."""
+    want = {k: p.default for k, p in inspect.signature(getattr(RT, fn)).parameters.items()}
     got = {k: p.default for k, p in inspect.signature(getattr(TT, fn)).parameters.items()
            if k != "device"}
-    assert got == want
+    assert want["backend"] == "jax" and got["backend"] == "torch"
+    assert got == {**want, "backend": "torch"}
     assert inspect.signature(getattr(TT, fn)).parameters["device"].default is None
 
 

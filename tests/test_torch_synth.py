@@ -1,6 +1,8 @@
 """Trace synthesis of repro_torch held against repro's on the CPU: the same
 Threefry bits, the same stream keys, and the same trace for each of the
-paper's 12 workloads, field by field."""
+paper's 12 workloads and for the extended families, field by field
+(``tests/test_torch_synth_extended.py`` has the extended families in
+full)."""
 
 from __future__ import annotations
 
@@ -95,17 +97,26 @@ def test_trace_from_numpy_carries_a_reference_trace():
 
 
 def test_all_workloads_is_the_paper_set():
+    """The paper's 12 by default, repro's 22 with ``extended=True``; the
+    captured set still names its slice."""
     assert all_workloads() == r_all_workloads()
-    for kw in (dict(extended=True), dict(captured=True)):
-        with pytest.raises(ValueError, match="slice"):
-            all_workloads(**kw)
+    assert all_workloads(extended=True) == r_all_workloads(extended=True)
+    with pytest.raises(ValueError, match="slice"):
+        all_workloads(captured=True)
 
 
 @pytest.mark.parametrize("app,graph", [("bfs", "arxiv"), ("htap_stream", None),
                                        ("mtmix", "enron"), ("capture/moe_experts", None)])
 def test_later_families_name_their_slice(app, graph):
-    with pytest.raises(ValueError, match="slice"):
-        make_trace(app, graph, device="cpu")
+    """The extended families are ported and equal repro's traces;
+    ``capture/moe_experts`` still names the slice it comes with."""
+    if app.startswith("capture/"):
+        with pytest.raises(ValueError, match="slice"):
+            make_trace(app, graph, device="cpu")
+        return
+    kw = dict(num_kernels=4, scale=0.002 if graph is None else 0.5)
+    _assert_same_trace(r_make_trace(app, graph, **kw),
+                       make_trace(app, graph, device="cpu", **kw))
 
 
 def test_make_trace_defaults_to_cuda():
