@@ -80,6 +80,25 @@ Phases, in order; any failure exits non-zero before the final line:
    two launches a call) and B4 / B1 at its 128 segments; the bitmap
    kernels (B2 in both forms, B3, B8a, B8b) at 70,000 lanes, one launch
    each; every result equal to its plain version;
+5c. study service — the resident study service (``repro_torch.serve``) on
+   the card: the Fig. 7 fleet as one JSON request (3 buckets: served by the
+   batch engine, uncoalesced), every field equal to phase 4's results; a
+   burst of 16 paper-scale requests (one of the 12 workloads each, all six
+   mechanisms, ``offchip_bw_gbs`` 32 and 64: 2 lanes) served coalesced with
+   the adaptive policy and then one at a time, every answer equal to its
+   spec's direct ``Study.run()`` on every field (dispatch widths, audited
+   lanes, p50 / p99 latency and studies/s of both legs printed); the
+   reference's chaos storm (``make_storm``, seed 0, rate 0.3, every fault
+   class, 170 requests on the reference chaos tests' two small specs, a
+   virtual clock) served one at a time (a crash through
+   ``restart_server``) and coalesced, every rid resolved as ROADMAP's
+   contract table says, none lost, every served answer equal to the
+   fault-free run; ``python -m repro_torch.launch.serve --study ...
+   --cache-dir ...`` twice in fresh processes, the second warmed from the
+   first one's manifest and then building and binding nothing.  Every
+   LazyPIM window any leg walked (counted by wrapping the engine's window
+   loop) asks two ``bloom_query``, two ``bloom_insert`` and one
+   ``bloom_intersect`` launch;
 6. seed path — the seed reference engine ``run_all_bool`` over the same 12
    workloads at full scale (default ``SignatureSpec`` and ``HWParams``),
    one trace at a time, counted and tapped: every ``bloom_insert_onehot``
@@ -178,7 +197,7 @@ Phases, in order; any failure exits non-zero before the final line:
    rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
    the general route's own path;
 18. the ``kernels`` JSON line (ten kernels, launches by path including the
-   extended fleet's and the M = 64 Study's: B7 once a route, as
+   extended fleet's, the M = 64 Study's and the study service's legs: B7 once a route, as
    ``flash_attention_general`` — its forced bf16 timing, the float32 one as
    ``float32`` — and ``flash_attention_sm90``; the seven redesigned Bloom
    kernels also carry the launch floor, ``h3_hash`` (timed at 262,144
@@ -203,9 +222,11 @@ import gc
 import importlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -945,6 +966,307 @@ def extended_fleet_path(paper_sequential, card: str) -> tuple[dict, dict]:
           f"the CPU run ({cpu_wall:.2f} s) on every field", flush=True)
     walls["cpu_new10_sequential"] = cpu_wall
     return counts, walls
+
+
+# The study service (repro_torch.serve): a burst of paper-scale requests,
+# each one of the 12 workloads at default scale with every mechanism on two
+# hw points (2 lanes in one bucket); a chaos storm on the reference chaos
+# tests' two small specs (tests/test_serve_chaos.py:32-39).  Seed 0 at
+# fault rate 0.3 over every fault class draws each class and variant by
+# rid 169 (the first NaN poison_result), so the storm has 170 requests;
+# its coalesced leg caps a group at 8 lanes, so a poison bisects in 3 steps.
+SERVE_BURST = 16
+SERVE_BURST_HW = {"offchip_bw_gbs": [32.0, 64.0]}
+STORM_SEED, STORM_RATE, STORM_REQUESTS, STORM_BATCH_LANES = 0, 0.3, 170, 8
+_STORM_SMALL = dict(num_kernels=3, windows_per_kernel=2)
+STORM_BASE_SPECS = [
+    {"workloads": [{"app": "pagerank", "graph": "arxiv", "scale": 0.4, **_STORM_SMALL}],
+     "mechanisms": ["cpu", "lazypim"], "threads": 16},
+    {"workloads": [{"app": "htap128", "scale": 0.004, **_STORM_SMALL}],
+     "mechanisms": ["cpu", "lazypim"], "threads": 16},
+]
+SERVE_TIMEOUT_S = 300  # each fresh-process serve of the warm-restart check
+
+
+class WindowTap:
+    """Counts the LazyPIM windows every dispatch walks — the engine's
+    ``_lazypim_acc`` wrapped while the tap is open — so the Bloom launches
+    of any path (coalesced, bisected, audited, degraded) can be held to
+    their counts a window."""
+
+    def __init__(self):
+        self.engine = importlib.import_module("repro_torch.sim.engine")
+        self.inner, self.windows = self.engine._lazypim_acc, 0
+
+    def __enter__(self):
+        def counted(stt, shw, scfg):
+            self.windows += stt.num_windows
+            return self.inner(stt, shw, scfg)
+        self.engine._lazypim_acc = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._lazypim_acc = self.inner
+
+
+def check_window_launches(label: str, counts: dict, windows: int) -> None:
+    """Two ``bloom_query``, two ``bloom_insert`` and one ``bloom_intersect``
+    launches a LazyPIM window walked."""
+    check(windows > 0, f"{label}: no LazyPIM window walked")
+    for name, per in (("bloom_query", QUERIES_PER_WINDOW),
+                      ("bloom_insert", INSERTS_PER_WINDOW),
+                      ("bloom_intersect", INTERSECTS_PER_WINDOW)):
+        check(counts[name] == per * windows,
+              f"{label}: {counts[name]} {name} launches, want {per} a window over "
+              f"{windows} LazyPIM windows")
+
+
+def _serve_leg(label: str, server, specs: list) -> tuple[list, dict, int, float]:
+    """Submit every spec, drain, and return (responses in rid order, launch
+    counts, LazyPIM windows walked, wall seconds); counts set to 0 just
+    before."""
+    import torch
+
+    from repro_torch import kernels as KS
+
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    with WindowTap() as tap:
+        t0 = time.perf_counter()
+        for spec in specs:
+            out = server.submit(spec)
+            check(isinstance(out, int), f"{label}: refused at admission: {out}")
+        resps = server.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_window_launches(label, counts, tap.windows)
+    return sorted(resps, key=lambda r: r.rid), counts, tap.windows, wall
+
+
+def _storm_expected(monkey, rid: int, coalesce: bool) -> tuple[str, ...]:
+    """The statuses ROADMAP's contract table allows request ``rid`` of the
+    storm: admission classes reject on both legs; the one-at-a-time leg
+    resolves the runtime classes (transient -> ok after a retry, persistent
+    -> ok_degraded, hang -> timeout, crash -> ok after a restart); the
+    coalesced leg the poison classes (poison_lane and NaN -> quarantined,
+    finite -> served by the audit's degrade).  A class the leg's dispatch
+    boundary does not inject is served like a fault-free request."""
+    kind = monkey.fault_for(rid)
+    if kind == "malformed_spec":
+        return ("rejected_malformed",)
+    if kind == "oversized":
+        return ("rejected_oversized",)
+    if not coalesce and kind == "engine_exception":
+        return ("ok",) if monkey.is_transient(rid) else ("ok_degraded",)
+    if not coalesce and kind == "hang":
+        return ("timeout",)
+    if coalesce and (kind == "poison_lane"
+                     or (kind == "poison_result" and monkey.variant(rid, 2) == 0)):
+        return ("quarantined",)
+    return ("ok",) if not coalesce else ("ok", "ok_degraded")
+
+
+def storm_phase(card: str) -> tuple[dict, dict]:
+    """The reference's ``make_storm`` (seed 0, rate 0.3, every fault class)
+    on the card, on a virtual clock, served twice: one request at a time
+    (the runtime classes fire; a crash goes through ``restart_server``)
+    and coalesced (the poison classes fire).  Every rid resolves as the
+    contract table says, none is lost, and every served answer equals the
+    fault-free run."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.serve import (ALL_FAULT_CLASSES, ChaosConfig, ChaosMonkey,
+                                   ServeConfig, StudyServer, VirtualClock, build_study,
+                                   make_storm, restart_server)
+
+    phase(f"study service: chaos storm ({STORM_REQUESTS} requests, seed {STORM_SEED}, "
+          f"rate {STORM_RATE}, every fault class)")
+    want = [build_study(s).run("sequential").to_rows() for s in STORM_BASE_SPECS]
+    chaos_cfg = ChaosConfig(seed=STORM_SEED, fault_rate=STORM_RATE,
+                            classes=ALL_FAULT_CLASSES, hang_s=60.0)
+    # the oracle: the restart exempts the rids it replays from the serving
+    # monkey's draws, never from this one's
+    oracle = ChaosMonkey(chaos_cfg)
+    storm = make_storm(oracle, STORM_REQUESTS, STORM_BASE_SPECS)
+    out, walls = {}, {}
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    with WindowTap() as tap, tempfile.TemporaryDirectory() as tmp:
+        for coalesce in (False, True):
+            leg = "coalesced" if coalesce else "one at a time"
+            clock = VirtualClock()
+            monkey = ChaosMonkey(chaos_cfg, clock=clock)
+            cfg = ServeConfig(default_deadline_s=1e9, heartbeat_timeout_s=20.0,
+                              backoff_base_s=0.01, max_queue=STORM_REQUESTS, max_lanes=64,
+                              coalesce=coalesce, max_batch_lanes=STORM_BATCH_LANES,
+                              cache_dir=str(pathlib.Path(tmp) / leg.replace(" ", "_")))
+            server, final, restarts = StudyServer(cfg, clock=clock, chaos=monkey), {}, 0
+            t0 = time.perf_counter()
+
+            def collect(resps):
+                for r in resps:
+                    final[r.rid] = r
+
+            # one at a time: submit, drain; coalesced: the whole storm queued
+            for batch in ([[s] for s in storm] if not coalesce else [storm]):
+                for spec in batch:
+                    r = server.submit(spec)
+                    if not isinstance(r, int):
+                        collect([r])
+                collect(server.drain())
+                while server.crashed:
+                    restarts += 1
+                    check(restarts <= STORM_REQUESTS, f"storm/{leg}: restarts do not converge")
+                    server, replayed = restart_server(cfg, clock=clock, chaos=monkey)
+                    check(all(r.restarted for r in replayed), f"storm/{leg}: replay unmarked")
+                    collect(replayed)
+                    collect(server.drain())
+            torch.cuda.synchronize()
+            walls[leg] = time.perf_counter() - t0
+            check(sorted(final) == list(range(STORM_REQUESTS)),
+                  f"storm/{leg}: rids lost: {sorted(set(range(STORM_REQUESTS)) - set(final))}")
+            by_class: dict[str, dict[str, int]] = {}
+            for rid, r in final.items():
+                kind = oracle.fault_for(rid)
+                if kind == "engine_exception":
+                    kind += ":transient" if oracle.is_transient(rid) else ":persistent"
+                if kind == "poison_result":
+                    kind += ":nan" if oracle.variant(rid, 2) == 0 else ":finite"
+                allowed = _storm_expected(oracle, rid, coalesce)
+                check(r.status in allowed,
+                      f"storm/{leg}: rid {rid} ({kind}) {r.status}, want {allowed}: {r.error}")
+                if kind == "crash" and not coalesce:
+                    check(r.restarted, f"storm/{leg}: crashed rid {rid} not restarted")
+                if r.status in ("ok", "ok_degraded"):
+                    check(r.results.to_rows() == want[rid % len(want)],
+                          f"storm/{leg}: rid {rid} ({kind}) differs from the fault-free run")
+                cls = by_class.setdefault(kind or "none", {})
+                cls[r.status] = cls.get(r.status, 0) + 1
+            out[leg] = {"by_class": by_class, "restarts": restarts,
+                        "quarantined": len(server.quarantine),
+                        "virtual_s": clock.now(), "wall_s": walls[leg]}
+            print(f"storm, {leg}: {STORM_REQUESTS} rids resolved in {walls[leg]:.2f} s wall "
+                  f"({clock.now():.1f} virtual s) on {card}; {restarts} restarts; "
+                  f"by fault class: {json.dumps(by_class, sort_keys=True)}", flush=True)
+    counts = launch_counts()
+    check_window_launches("storm", counts, tap.windows)
+    for kind in ("malformed_spec", "oversized", "engine_exception:transient",
+                 "engine_exception:persistent", "hang", "crash", "poison_lane",
+                 "poison_result:nan", "poison_result:finite"):
+        check(kind in out["coalesced"]["by_class"], f"storm: fault class {kind} never drawn")
+    return out, counts
+
+
+def warm_restart_phase(specs: list, card: str) -> dict:
+    """``python -m repro_torch.launch.serve --study ... --cache-dir ...``
+    twice, each a fresh process: the second warms from the first one's
+    manifest and must then answer the repeat study with no nvcc build and
+    no new library bind."""
+    phase("study service: warm restart in a fresh process (twice)")
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = pathlib.Path(tmp) / "specs.json"
+        spec_path.write_text(json.dumps(specs))
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        for i in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve", "--study", str(spec_path),
+                 "--cache-dir", str(pathlib.Path(tmp) / "cache"), "--coalesce"],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=SERVE_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"serve --study run {i + 1}: rc {proc.returncode}\n"
+                  f"{proc.stderr[-2000:]}")
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])["serve_study"]
+            check(summary["statuses"] == {"ok": len(specs)},
+                  f"serve --study run {i + 1}: {summary['statuses']}")
+            bb = summary["builds_binds"]
+            after = {k: bb["at_end"][k] - bb["after_warm"][k] for k in ("builds", "binds")}
+            print(f"serve --study run {i + 1} (fresh process, {wall:.2f} s wall): "
+                  f"{summary['warmed_entries']} manifest entries replayed in "
+                  f"{summary['warm_wall_s']:.3f} s; first request {summary['first_latency_s']:.3f} "
+                  f"s; builds / binds at start {bb['at_start']}, after the warm replay "
+                  f"{bb['after_warm']}, new after it {after}; on {card}", flush=True)
+            runs.append({**summary, "process_wall_s": wall, "new_after_warm": after})
+    check(runs[0]["warmed_entries"] == 0, "the first process found a manifest")
+    check(runs[1]["warmed_entries"] > 0, "the second process warmed nothing")
+    check(runs[1]["new_after_warm"] == {"builds": 0, "binds": 0},
+          f"the warmed process built or bound after its warm replay: "
+          f"{runs[1]['new_after_warm']}")
+    return {"first": runs[0], "second": runs[1]}
+
+
+def study_service_path(paper_points, card: str) -> tuple[dict, dict]:
+    """The resident study service on the card (``repro_torch.serve``,
+    ``device=None``): the Fig. 7 fleet as one request, held to the main
+    path's direct run; a burst of 16 paper-scale requests served coalesced
+    (adaptive) and one at a time, every answer held to its spec's direct
+    ``Study.run()``; the chaos storm; the warm restart in fresh processes.
+    Every LazyPIM window walked asks two ``bloom_query``, two
+    ``bloom_insert`` and one ``bloom_intersect``.  Returns (summary, launch
+    counts by leg)."""
+    from repro_torch.api import MECHANISMS, all_workloads
+    from repro_torch.serve import ServeConfig, StudyServer, build_study
+
+    counts, summary = {}, {}
+    phase("study service: the Fig. 7 fleet as one request")
+    fig7 = {"workloads": [list(w) for w in all_workloads()], "mechanisms": list(MECHANISMS)}
+    server = StudyServer(ServeConfig(coalesce=True))
+    (resp,), counts["serve_fig7"], windows, wall = _serve_leg("served Fig. 7", server, [fig7])
+    check(resp.status == "ok" and resp.engine == "batch",
+          f"served Fig. 7: {resp.status} on {resp.engine} ({resp.error})")
+    exact_points(resp.results.points, paper_points, "served Fig. 7 vs the main path")
+    print(f"Fig. 7 request: ok on the batch engine (3 buckets: not coalescible) in "
+          f"{wall:.2f} s wall on {card}; {windows} LazyPIM windows; every field of 12 x 6 "
+          f"results equals the main path's; launches {counts['serve_fig7']}", flush=True)
+    summary["fig7_wall_s"] = wall
+
+    phase(f"study service: a burst of {SERVE_BURST} paper-scale requests")
+    paper = all_workloads()
+    burst = [{"workloads": [list(paper[i % len(paper)])], "mechanisms": list(MECHANISMS),
+              "threads": 16, "hw_grid": SERVE_BURST_HW} for i in range(SERVE_BURST)]
+    legs = {}
+    for name, cfg in (("coalesced", ServeConfig(coalesce=True, adaptive=True)),
+                      ("one_at_a_time", ServeConfig())):
+        server = StudyServer(cfg)
+        resps, counts[f"serve_burst_{name}"], windows, wall = _serve_leg(
+            f"burst/{name}", server, burst)
+        check([r.status for r in resps] == ["ok"] * SERVE_BURST,
+              f"burst/{name}: {[(r.rid, r.status, r.error) for r in resps]}")
+        lat = server.telemetry.latency_percentiles()["ok"]
+        legs[name] = dict(resps=resps, wall_s=wall, studies_per_s=SERVE_BURST / wall,
+                          p50_s=lat["p50_s"], p99_s=lat["p99_s"], windows=windows,
+                          engines=sorted({r.engine for r in resps}),
+                          dispatch_widths=list(server.telemetry.dispatch_widths),
+                          coalesced_dispatches=server.stats["coalesced_dispatches"],
+                          audit_lanes=server.stats["audit_lanes"],
+                          launches={k: counts[f"serve_burst_{name}"][k] for k in FIG7_KERNELS})
+    check(legs["coalesced"]["engines"] == ["coalesced"], f"burst: {legs['coalesced']['engines']}")
+    check(legs["one_at_a_time"]["engines"] == ["batch"], f"burst: {legs['one_at_a_time']['engines']}")
+    t0 = time.perf_counter()
+    direct = {}
+    for i, spec in enumerate(burst[:len(paper)]):
+        direct[i] = build_study(spec).run()
+    direct_wall = time.perf_counter() - t0
+    for name, leg in legs.items():
+        for r in leg.pop("resps"):
+            exact_points(r.results.points, direct[r.rid % len(paper)].points,
+                         f"burst/{name}/rid {r.rid} vs its spec's direct run")
+        print(f"burst, {name}: {SERVE_BURST} studies in {leg['wall_s']:.2f} s wall "
+              f"({leg['studies_per_s']:.3f} studies/s), latency p50 {leg['p50_s']:.3f} s, "
+              f"p99 {leg['p99_s']:.3f} s; {leg['coalesced_dispatches']} coalesced dispatches "
+              f"of widths {leg['dispatch_widths']}, {leg['audit_lanes']} audited lanes; "
+              f"{leg['windows']} LazyPIM windows; Bloom launches {leg['launches']}; on {card}",
+              flush=True)
+    print(f"every answer of both legs equals its spec's direct Study.run() on every field "
+          f"({len(direct)} direct runs, {direct_wall:.2f} s on {card})", flush=True)
+    summary["burst"] = legs
+    summary["burst_direct_wall_s"] = direct_wall
+    summary["storm"], counts["serve_storm"] = storm_phase(card)
+    summary["warm_restart"] = warm_restart_phase(burst[:2], card)
+    return summary, counts
 
 
 C3_SPEC_BITS = (4096, 2048)  # the M = 64 Study's specs
@@ -2385,6 +2707,7 @@ def main() -> int:
         counts, walls, sequential = main_path(K)
         profile = main_path_profile(walls["batch"])
         fig7x_counts, fig7x_walls = extended_fleet_path(sequential, card)
+        service_summary, service_counts = study_service_path(sequential.points, card)
         caps_counts = signature_caps_phase(K, importlib.import_module(
             "repro_torch.kernels.bloom.onehot"))
         seed_counts, seed, seed_tap = seed_path(sequential)
@@ -2423,6 +2746,7 @@ def main() -> int:
     by_path = {"fig7_batch": counts["batch"], "fig7_sequential": counts["sequential"],
                "fig7x_batch": fig7x_counts["batch"],
                "fig7x_sequential": fig7x_counts["sequential"],
+               **service_counts,
                **{f"m64_study_{k}": c for k, c in caps_counts.items()},
                "seed_fig7": seed_counts,
                "capture_batch": cap_counts["batch"],
@@ -2439,7 +2763,8 @@ def main() -> int:
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **stats[name]) for name in TPU_KERNEL]
     print(json.dumps({"profile": profile, "fig7_wall_s": walls,
-                      "fig7x_wall_s": fig7x_walls, "seed_fig7": seed,
+                      "fig7x_wall_s": fig7x_walls, "study_service": service_summary,
+                      "seed_fig7": seed,
                       "signatures": signatures,
                       "capture_wall_s": cap_walls, "lazysync": lazy,
                       "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,

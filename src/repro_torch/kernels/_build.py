@@ -6,7 +6,10 @@ checkout (content-addressed by the source, the ``csrc/*.cuh`` headers
 and the flags), and is bound with ``ctypes``.  Nothing is built or loaded
 at import: the first call of a kernel builds its library, and
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
-all started together.
+all started together.  The builds persist across processes; what each
+process pays again is the bind and the loads of the kernel modules on
+their first launches.  :func:`build_counts` counts the ``nvcc`` processes
+started and the libraries bound in this process.
 """
 
 from __future__ import annotations
@@ -24,6 +27,13 @@ BUILD_DIR = CSRC.parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 600
+_COUNTS = {"builds": 0, "binds": 0}
+
+
+def build_counts() -> dict[str, int]:
+    """``{"builds": nvcc processes started, "binds": libraries bound}`` in
+    this process so far (each kernel module binds its library once)."""
+    return dict(_COUNTS)
 
 
 def nvcc() -> str:
@@ -48,6 +58,13 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
+def all_built(sources: list[pathlib.Path] | None = None) -> bool:
+    """True iff ``BUILD_DIR`` holds the current build of every source of
+    ``sources`` (default: every ``csrc/*.cu``)."""
+    sources = sorted(CSRC.glob("*.cu")) if sources is None else list(sources)
+    return all(library_path(s).exists() for s in sources)
+
+
 def build_all(sources: list[pathlib.Path] | None = None) -> dict[str, pathlib.Path]:
     """Build every missing library of ``sources`` (default: every
     ``csrc/*.cu``), one ``nvcc`` each, started together; returns
@@ -66,6 +83,7 @@ def build_all(sources: list[pathlib.Path] | None = None) -> dict[str, pathlib.Pa
             proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)
+            _COUNTS["builds"] += 1
             jobs.append((src, tmp, proc))
         for src, tmp, proc in jobs:
             try:
@@ -93,6 +111,7 @@ def bind(source: pathlib.Path, signatures: dict[str, list]) -> ctypes.CDLL:
     and streams, ``c_int`` for ints) and its ``int`` return, the launch's
     ``cudaError_t``."""
     lib = ctypes.CDLL(str(build_all([source])[source.stem]))
+    _COUNTS["binds"] += 1
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

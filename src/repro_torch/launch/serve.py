@@ -1,5 +1,6 @@
-"""Batched serving loop, PyTorch port of the token-serving half of
-:mod:`repro.launch.serve`: a continuous-batching loop over a request queue.
+"""Batched serving loop, PyTorch port of :mod:`repro.launch.serve`: a
+continuous-batching loop over a request queue, and the resident study
+service.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --smoke \\
         --requests 8 --max-new 32 [--device cpu]
@@ -12,18 +13,31 @@ by all slots, so a refilled slot continues at the previous request's
 position and attends to its cache entries — the reference's behaviour,
 mirrored and not fixed (ROADMAP §C).
 
-``--study`` (the resident study service, :mod:`repro.serve`) comes with the
-serve slice of the port (ROADMAP A10) and raises, as does any of the
-options that only modify it (``--cache-dir``, ``--deadline-s``,
-``--max-queue``, ``--chaos-rate``, ``--coalesce``, ``--adaptive``) set
-away from its default, so that none is taken for having had an effect.  ``--device`` (default:
-the CUDA card) is the port's addition; the reference runs where JAX does.
+``--study`` switches to the resident *study* service
+(:mod:`repro_torch.serve`): read a JSON file holding one study-request spec
+(or a list of them), answer each through the hardened request loop —
+retries, degradation, coalescing, crash-safe restart — and print one status
+line per request and the totals, as the reference does::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --study specs.json \\
+        --cache-dir .serve_cache [--coalesce] [--adaptive] [--chaos-rate 0.1]
+
+With ``--cache-dir`` the server journals admitted requests and keeps the
+warm manifest there, so a re-launch replays every recorded dispatch once at
+start (:mod:`repro_torch.serve.warm`: the libraries built and bound, each
+kernel loaded) and answers repeat studies with no ``nvcc`` build and no new
+library bind.  Last, the service prints one JSON line: the counts, the warm
+replay and the builds and binds of this process (the port's addition).
+``--device`` (default: the CUDA card) is the port's addition too; the
+reference runs where JAX does.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import pathlib
 import time
 
 import numpy as np
@@ -32,14 +46,6 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-
-SERVE_SLICE = ("the resident study service (--study, repro.serve) comes with "
-               "the serve slice of the port (ROADMAP A10)")
-# options of the study service, with their defaults (main() parses them for
-# flag parity with the reference; serve() refuses any other value)
-STUDY_OPTIONS = {"study": None, "cache_dir": None, "deadline_s": 300.0, "max_queue": 64,
-                 "chaos_rate": 0.0, "coalesce": False, "adaptive": False}
-
 
 @dataclasses.dataclass
 class Request:
@@ -68,10 +74,6 @@ def serve(args, params: dict | None = None) -> list[Request]:
     ``params_from_jax``) replaces the loop's own seeded init, which draws
     from ``torch.Generator(device).manual_seed(0)`` where the reference
     draws from ``jax.random.key(0)``."""
-    set_ = ["--" + k.replace("_", "-") for k, d in STUDY_OPTIONS.items()
-            if getattr(args, k, d) != d]
-    if set_:
-        raise ValueError(f"{', '.join(set_)}: {SERVE_SLICE}")
     dev = resolve_device(getattr(args, "device", None))
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.encoder_layers != 0 or cfg.frontend is not None:
@@ -134,6 +136,73 @@ def serve(args, params: dict | None = None) -> list[Request]:
     return served
 
 
+def serve_study(args) -> list:
+    """The resident study service: answer the request specs in
+    ``args.study`` (a JSON file holding one spec dict or a list of them)
+    through the hardened loop on ``args.device`` (``None``: the CUDA card),
+    restarting from the warm manifest if the worker crashes.  Returns the
+    terminal responses in rid order."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (ChaosConfig, ChaosMonkey, ServeConfig,
+                                   StudyServer, restart_server)
+
+    specs = json.loads(pathlib.Path(args.study).read_text())
+    if isinstance(specs, dict):
+        specs = [specs]
+    cfg = ServeConfig(default_deadline_s=args.deadline_s,
+                      max_queue=args.max_queue, cache_dir=args.cache_dir,
+                      seed=args.seed,
+                      coalesce=args.coalesce or args.adaptive,
+                      adaptive=args.adaptive,
+                      device=getattr(args, "device", None))
+    chaos = None
+    if args.chaos_rate > 0:
+        chaos = ChaosMonkey(ChaosConfig(seed=args.seed,
+                                        fault_rate=args.chaos_rate))
+    builds_at_start = _build.build_counts()
+    server = StudyServer(cfg, chaos=chaos)
+    warmed = {"entries": server.stats["warmed_entries"],
+              "wall_s": server.warm.warm_wall_s if server.warm else 0.0,
+              "builds": _build.build_counts()}
+    if chaos is not None:
+        chaos.clock = server.clock
+    final = {}
+    for spec in specs:
+        out = server.submit(spec)
+        if not isinstance(out, int):
+            final[out.rid] = out
+    for r in server.drain():
+        final[r.rid] = r
+    restarts = 0
+    while server.crashed:
+        print("worker crashed — restarting from the warm manifest")
+        restarts += 1
+        server, replayed = restart_server(cfg, chaos=chaos)
+        for r in [*replayed, *server.drain()]:
+            final[r.rid] = r
+    for rid in sorted(final):
+        r = final[rid]
+        extra = f" ({r.error})" if r.error else ""
+        print(f"req {rid}: {r.status} engine={r.engine} "
+              f"attempts={r.attempts} {r.latency_s * 1e3:.0f} ms{extra}")
+    counts: dict[str, int] = {}
+    for r in final.values():
+        counts[r.status] = counts.get(r.status, 0) + 1
+    print(f"served {len(final)} requests: {counts}")
+    if cfg.adaptive:
+        t = server.telemetry.summary()
+        print(f"policy: formation_holds={t['formation_holds']} "
+              f"decisions={t['decisions']}")
+    print(json.dumps({"serve_study": {
+        "device": str(server.device), "requests": len(final), "statuses": counts,
+        "restarts": restarts, "warmed_entries": warmed["entries"],
+        "warm_wall_s": warmed["wall_s"],
+        "first_latency_s": final[min(final)].latency_s if final else None,
+        "builds_binds": {"at_start": builds_at_start, "after_warm": warmed["builds"],
+                         "at_end": _build.build_counts()}}}))
+    return [final[rid] for rid in sorted(final)]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
@@ -148,20 +217,27 @@ def main():
                          "plain PyTorch path)")
     ap.add_argument("--study", default=None, metavar="SPECS_JSON",
                     help="serve study requests from this JSON file instead "
-                         "of running the token-serving loop (not ported: "
-                         "raises)")
+                         "of running the token-serving loop")
     ap.add_argument("--cache-dir", default=None,
-                    help="journal + persistent compile cache + warm "
-                         "manifest directory (with --study)")
+                    help="journal + warm manifest directory (enables "
+                         "crash-safe restart and the warm replay at start)")
     ap.add_argument("--deadline-s", type=float, default=300.0)
     ap.add_argument("--max-queue", type=int, default=64)
     ap.add_argument("--chaos-rate", type=float, default=0.0,
-                    help="inject this fraction of chaos faults (with --study)")
+                    help="inject this fraction of chaos faults (testing)")
     ap.add_argument("--coalesce", action="store_true",
-                    help="coalesce compatible queued studies (with --study)")
+                    help="coalesce compatible queued studies into shared "
+                         "blessed-width batched dispatches (bit-exact; "
+                         "poison requests are bisected out and quarantined)")
     ap.add_argument("--adaptive", action="store_true",
-                    help="adaptive coalescing policy (with --study)")
+                    help="adaptive coalescing policy (implies --coalesce): "
+                         "slack-aware formation window under light load, "
+                         "slack-driven batch width, repeat-offender group "
+                         "keys routed to the sequential engine")
     args = ap.parse_args()
+    if args.study:
+        serve_study(args)
+        return
     served = serve(args)
     if len(served) != args.requests:
         raise SystemExit(f"served {len(served)} of {args.requests} requests")

@@ -2,18 +2,29 @@
 :mod:`repro.sim.mesh` this slice needs).
 
 Every batched engine folds its cross-product onto one stacked lane axis;
-the reference can shard that axis over a 1-D device mesh.  This slice of
-the port runs on one device: ``devices`` must be 1 (or ``None``, meaning
-one), and a larger count raises a ``ValueError`` naming the slice that
-brings the multi-GPU lane mesh.  :func:`devices_for` and
+the reference can shard that axis over a 1-D device mesh.  The port runs
+on one device: ``devices`` must be 1 (or ``None``, meaning one), and a
+larger count raises a ``ValueError`` naming the slice that brings the
+multi-GPU lane mesh.  :func:`devices_for` and
 :func:`mesh_lane_width` are the reference's routing arithmetic, so
 ``Study.plan()`` reports the same per-bucket routing.
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.device import resolve_device
+
 MESH_SLICE = ("the multi-GPU lane mesh comes with the mesh slice of the port "
               "(ROADMAP queue A9); this slice runs on one device")
+
+
+def available_devices(device=None) -> int:
+    """The visible device count of ``device``'s type (``None``: the CUDA
+    card): every visible CUDA device, or 1 for the CPU."""
+    dev = resolve_device(device)
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
 def resolve_devices(devices: int | None = None) -> int:

@@ -533,6 +533,31 @@ class Study:
         return StudyPoint(workload=tts[w].name, hw_index=h, lazy_index=li,
                           hw=hws[h], lazy=lazys[li], results=results)
 
+    def points_from_lane_accs(self, accs: dict[str, dict]) -> ResultSet:
+        """Split stacked accumulators back into this study's tagged points:
+        ``accs`` maps mechanism -> host accumulator dict whose arrays carry
+        a leading lane axis of length ``num_points``, ordered like the
+        single bucket's ``lane_points``.  The result-splitting half of
+        cross-request coalescing (:mod:`repro_torch.serve.coalesce`); only
+        valid for single-bucket studies, where lane order is point order.
+        Every lane passes the ``finalize_result`` integrity sentinel; a
+        poisoned lane raises ``ResultIntegrityError`` naming the workload,
+        mechanism and field."""
+        bls = self.bucket_lanes()
+        if len(bls) != 1:
+            raise ValueError(
+                f"points_from_lane_accs needs a single-bucket study, this "
+                f"one has {len(bls)} buckets (serve such studies "
+                f"uncoalesced)")
+        points = []
+        for pos, j in enumerate(bls[0].lane_points):
+            w = self._lanes()[j][0]
+            res = {m: finalize_result(self.traces()[w].name, m,
+                                      {k: v[pos] for k, v in acc.items()})
+                   for m, acc in accs.items()}
+            points.append(self._make_point(j, res))
+        return ResultSet(points, self.mechanisms)
+
     # -- execution ----------------------------------------------------------
 
     def run(self, engine: str = "batch", on_dispatch=None,

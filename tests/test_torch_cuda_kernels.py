@@ -1254,3 +1254,52 @@ def test_smoke_serve_on_card_equals_cpu(dev, no_tf32):
     finally:
         S.get_smoke_config = S_get
     assert [(r.rid, r.out) for r in gpu_out] == [(r.rid, r.out) for r in cpu_out]
+
+
+@pytest.mark.parametrize("coalesce", [False, True], ids=["one-at-a-time", "coalesced"])
+def test_study_server_on_card_equals_cpu(dev, coalesce, monkeypatch):
+    """The resident study service on the card answers as on the CPU: the
+    same statuses and engines, every row of every answer equal; coalesced,
+    each LazyPIM window asks two bloom_query, two bloom_insert and one
+    bloom_intersect launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeConfig, StudyServer, VirtualClock
+    from repro_torch.sim import engine
+
+    windows = []
+    inner = engine._lazypim_acc
+
+    def counted(stt, shw, scfg):
+        windows.append(stt.num_windows)
+        return inner(stt, shw, scfg)
+
+    monkeypatch.setattr(engine, "_lazypim_acc", counted)
+    small = dict(num_kernels=3, windows_per_kernel=2)
+    spec_a = {"workloads": [{"app": "pagerank", "graph": "arxiv", "scale": 0.4, **small}],
+              "mechanisms": ["cpu", "lazypim"], "threads": 16}
+    spec_b = {"workloads": [{"app": "htap128", "scale": 0.004, **small}],
+              "mechanisms": ["cpu", "lazypim"], "threads": 16,
+              "hw_grid": {"offchip_bw_gbs": [16.0, 32.0]}}
+    specs = [spec_a, spec_b, spec_a, spec_a, spec_b]
+    out = {}
+    for device in (str(dev), "cpu"):
+        srv = StudyServer(ServeConfig(default_deadline_s=1e9, coalesce=coalesce,
+                                      audit_fraction=0.0, device=device),
+                          clock=VirtualClock())
+        for s in specs:
+            srv.submit(s)
+        reset_launch_counts()
+        windows.clear()
+        out[device] = {r.rid: r for r in srv.drain()}
+        if device != "cpu":
+            counts, walked = launch_counts(), sum(windows)
+            assert len(windows) == (2 if coalesce else len(specs))  # LazyPIM dispatches
+            assert counts["bloom_query"] == counts["bloom_insert"] == 2 * walked
+            assert counts["bloom_intersect"] == walked
+    gpu, cpu = out[str(dev)], out["cpu"]
+    assert sorted(gpu) == sorted(cpu) == list(range(len(specs)))
+    for rid, b in cpu.items():
+        a = gpu[rid]
+        assert (a.status, a.engine) == (b.status, b.engine) == \
+            ("ok", "coalesced" if coalesce else "batch")
+        assert a.results.to_rows() == b.results.to_rows(), rid

@@ -5,13 +5,16 @@ across by ``params_from_jax``), both serve the same requests in the same
 order with the same token lists — teacher-forced prompt steps, greedy
 tokens, slot refills at the shared cache position and the max-len cut
 included.  Float32 keeps the argmax of the two packages' logits (equal to
-~1e-6) apart from ties.  Also the request draw, the CLI, and the
-``ValueError``/``RuntimeError`` of what the port does not do."""
+~1e-6) apart from ties.  Also the request draw, the CLI, the
+``RuntimeError`` without a card, and the study service's front door
+(``--study``): a spec file answered, the reference's per-request lines and
+totals, and each study option reaching the server's config."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 
 import jax
@@ -91,21 +94,96 @@ def test_cli_main(monkeypatch, capsys):
     assert "served 3 requests" in capsys.readouterr().out
 
 
-def test_study_and_missing_card_raise():
-    with pytest.raises(ValueError, match="serve slice.*A10"):
-        S.serve(_args(study="specs.json"))
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            S.serve(_args(device=None))
+def test_missing_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.serve(_args(device=None))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.serve_study(_args(device=None, **STUDY_DEFAULTS, study=_spec_file()))
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("cache_dir", "journal"), ("deadline_s", 10.0), ("max_queue", 8),
-    ("chaos_rate", 0.1), ("coalesce", True), ("adaptive", True)])
-def test_study_only_options_raise_when_set(flag, value):
-    """The study service's options are parsed for flag parity but modify
-    nothing here: set away from their defaults they raise, naming the
-    flag; at their defaults (as main() parses them) the loop runs."""
-    with pytest.raises(ValueError, match=f"--{flag.replace('_', '-')}: .*serve slice"):
-        S.serve(_args(**{flag: value}))
-    S.serve(_args(requests=1, batch=1, max_new=1, max_len=8, **{flag: S.STUDY_OPTIONS[flag]}))
+SMALL = dict(num_kernels=3, windows_per_kernel=2)
+SPECS = [{"workloads": [{"app": "pagerank", "graph": "arxiv", "scale": 0.4, **SMALL}],
+          "mechanisms": ["cpu", "lazypim"], "threads": 16},
+         {"workloads": [{"app": "htap128", "scale": 0.004, **SMALL}],
+          "mechanisms": ["cpu", "lazypim"], "threads": 16,
+          "hw_grid": {"offchip_bw_gbs": [16.0, 32.0]}}]
+# the study service's options, at main()'s defaults
+STUDY_DEFAULTS = dict(cache_dir=None, deadline_s=300.0, max_queue=64, chaos_rate=0.0,
+                      coalesce=False, adaptive=False)
+
+
+def _spec_file(tmp_path=None):
+    import pathlib
+    import tempfile
+
+    path = pathlib.Path(tmp_path or tempfile.mkdtemp()) / "specs.json"
+    path.write_text(json.dumps(SPECS))
+    return str(path)
+
+
+def test_main_study_answers_a_spec_file(tmp_path, monkeypatch, capsys):
+    """``--study`` serves the file's specs on the CPU with ``--device cpu``:
+    one line a request, the totals, and the JSON line of the warm replay and
+    the builds and binds; a second launch on the same ``--cache-dir`` warms
+    from the first one's manifest."""
+    argv = ["serve", "--study", _spec_file(tmp_path), "--device", "cpu",
+            "--cache-dir", str(tmp_path / "cache"), "--coalesce"]
+    monkeypatch.setattr(sys, "argv", argv)
+    S.main()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("req 0: ok engine=coalesced attempts=1 ")
+    assert out[1].startswith("req 1: ok engine=coalesced attempts=1 ")
+    assert out[2] == "served 2 requests: {'ok': 2}"
+    first = json.loads(out[-1])["serve_study"]
+    assert first["device"] == "cpu" and first["warmed_entries"] == 0
+    S.main()
+    second = json.loads(capsys.readouterr().out.splitlines()[-1])["serve_study"]
+    assert second["statuses"] == {"ok": 2} and second["warmed_entries"] == 4
+
+
+def test_serve_study_lines_match_reference(tmp_path, capsys):
+    """The per-request lines (latency aside) and the totals equal the
+    reference's ``serve_study`` on the same file, coalesced and not."""
+    import re
+
+    for coalesce in (False, True):
+        kw = dict(STUDY_DEFAULTS, study=_spec_file(tmp_path), coalesce=coalesce)
+        want = [r.status for r in RS.serve_study(_args(**kw))]
+        ref = capsys.readouterr().out.splitlines()
+        got = [r.status for r in S.serve_study(_args(**kw))]
+        out = capsys.readouterr().out.splitlines()
+        assert got == want == ["ok", "ok"]
+        strip = [re.sub(r" \d+ ms", "", line) for line in ref]
+        assert [re.sub(r" \d+ ms", "", line) for line in out[:len(ref)]] == strip
+
+
+@pytest.mark.parametrize("flag,value,field", [
+    ("cache_dir", "journal", "cache_dir"), ("deadline_s", 10.0, "default_deadline_s"),
+    ("max_queue", 8, "max_queue"), ("chaos_rate", 0.1, "fault_rate"),
+    ("coalesce", True, "coalesce"), ("adaptive", True, "adaptive")])
+def test_study_option_reaches_the_server(monkeypatch, tmp_path, flag, value, field):
+    """Each study-service option set away from its default reaches the
+    ``ServeConfig`` that ``serve_study`` builds (``--chaos-rate`` the chaos
+    monkey's config; ``--adaptive`` implies coalescing), with the device."""
+    import repro_torch.serve as SV
+
+    seen = []
+
+    class Capture(SV.StudyServer):
+        def __init__(self, cfg, **kw):
+            super().__init__(cfg, **kw)
+            seen.append(self)
+
+    monkeypatch.setattr(SV, "StudyServer", Capture)
+    if flag == "cache_dir":
+        value = str(tmp_path / value)
+    kw = dict(STUDY_DEFAULTS, study=_spec_file(tmp_path), **{flag: value})
+    S.serve_study(_args(**kw))
+    cfg = seen[0].cfg
+    assert cfg.device == "cpu"
+    got = seen[0].chaos.cfg.fault_rate if flag == "chaos_rate" else getattr(cfg, field)
+    assert got == value
+    if flag == "adaptive":
+        assert cfg.coalesce
