@@ -196,8 +196,43 @@ Phases, in order; any failure exits non-zero before the final line:
    (every call held to the plain version at ``FA_TOL``'s float32 pair,
    rtol 1e-5 and row_tol 1e-3) and held to the CPU run's logits (1e-4):
    the general route's own path;
-18. the ``kernels`` JSON line (ten kernels, launches by path including the
-   extended fleet's, the M = 64 Study's and the study service's legs: B7 once a route, as
+18. qwen2-moe-a2.7b prefill — ``get_config("qwen2_moe_a2_7b")`` at full
+   width and depth (24 layers of attention + MoE: 60 routed experts padded
+   to 64, top-4, 4 shared; 14,835,091,456 parameters, 27.63 GiB in bf16)
+   initialised on the card from a seeded generator after the qwen3-4b
+   weights are freed; ``make_prefill_step`` on 4 x 4,096 seeded tokens,
+   three times: counted and tapped (exactly 24 B7 launches, all on the
+   sm90 route at Hq = Hkv = 16, each held to its plain version by
+   ``fa_excess``; each layer's pairs dropped past capacity printed; no
+   padded expert routed), unprofiled (wall, tokens/s, peak memory),
+   profiled (idle share, top kernels, B7's share of device time);
+19. MoE dispatch check — layer 0's MoE block on the prefill's own layer-0
+   input under ``sort``, ``cumsum`` and ``ep``, at the model's capacity
+   factor (1.25) and at 1.0 (capacity 1,024: the hot experts drop): the
+   same kept (token, expert, rank) set, outputs within 3e-2 of ``sort``'s
+   (the tolerance of ``tests/test_moe_ep.py:43``), ``sort`` twice giving
+   the same bits; then B7's sm90 kernel timed at the MoE prefill's shape,
+   q / k / v (4, 4,096, 16, 128) causal on layer 0's inputs, as phase 14
+   times it (SDPA as yardstick);
+20. qwen2-moe-a2.7b serve — ``launch.serve.serve`` at full width with the
+   reference loop's defaults: all 8 served, tokens/s; 8 decode steps at
+   batch 4 timed and profiled (kernels a step, device busy, idle share);
+21. MoE smoke — the qwen2-moe and moonshot smoke configs in float32 (TF32
+   off) through ``make_prefill_step`` and 3 decode steps on the card and
+   on the CPU: logits within 1e-4, every MoE call's ``top_e`` equal;
+22. capture study — ``benchmarks/fig_capture.py:48``'s fleet (the three
+   captured families and their synthetic analogues: ``capture/kv_serve``,
+   ``capture/moe_experts``, ``capture/lazy_embed``, ``htap_stream``,
+   ``mtmix-enron``, ``pagerank-enron``) with all six mechanisms on both
+   engines, counted (B1–B6 launched; 2 / 2 / 1 B3 / B2 / B4 launches a
+   LazyPIM window) and tapped (every B5 / B6 call held to its plain
+   version); batch == sequential == one ``device="cpu"`` run of the port
+   on every field; then ``capture/moe_experts``'s trace on the card against
+   its CPU trace, field for field;
+23. the ``kernels`` JSON line (ten kernels, launches by path including the
+   extended fleet's, the M = 64 Study's, the study service's legs, the MoE
+   paths' and the capture study's; B7-sm90 also carries its MoE-shape
+   timing as ``moe_shape``: B7 once a route, as
    ``flash_attention_general`` — its forced bf16 timing, the float32 one as
    ``float32`` — and ``flash_attention_sm90``; the seven redesigned Bloom
    kernels also carry the launch floor, ``h3_hash`` (timed at 262,144
@@ -313,6 +348,17 @@ SMOKE_PREFILL_LEN = 150
 SERVE_ARGS = dict(arch="qwen3-4b", smoke=False, requests=8, batch=4, max_new=16,
                   max_len=64, seed=0, study=None)  # the reference serve loop's defaults
 TEACHER_LEN = 64
+MOE_ARCH = "qwen2_moe_a2_7b"
+MOE_SERVE_ARGS = dict(SERVE_ARGS, arch="qwen2-moe-a2.7b")
+MOE_SMOKE_ARCHS = ("qwen2_moe_a2_7b", "moonshot_v1_16b_a3b")
+MOE_SMOKE_LEN, MOE_SMOKE_DECODE = 32, 3
+MOE_DISPATCHES = ("sort", "cumsum", "ep")
+MOE_DISPATCH_TOL = 3e-2  # the reference's EP-against-sort tolerance (tests/test_moe_ep.py:43)
+MOE_DROP_CAPACITY_FACTOR = 1.0  # capacity 1,024 a padded expert at T = 16,384: hot experts drop
+# benchmarks/fig_capture.py:48: the three captured families, then the
+# synthetic analogue of each
+CAPTURE_STUDY = ("capture/kv_serve", "capture/moe_experts", "capture/lazy_embed",
+                 "htap_stream", "mtmix-enron", "pagerank-enron")
 LAZY_STEPS = 24          # qwen3-4b-width sync_steps (commit fires at 16)
 LAZY_PROFILE_STEPS = 8   # steps timed twice for the idle share
 LAZY_TOUCHED = 4096      # touched ids per group per step
@@ -1422,6 +1468,25 @@ def device_busy_s(fn, top: int | None = 8) -> tuple[float, int, list]:
     return sum(t for t, _, _ in by_name), sum(c for _, c, _ in by_name), by_name[:top]
 
 
+def time_and_profile(fn) -> tuple[float, int, float, int, list, float]:
+    """``fn()`` once unprofiled (wall, peak memory) and once under the
+    profiler: (wall s, peak bytes, device busy s, kernels, every kernel by
+    name largest first, B7's device s); prints the top 8."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    busy, n_kernels, by_name = device_busy_s(fn, top=None)
+    for t, c, name in by_name[:8]:
+        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    b7_s = sum(t for t, _, name in by_name if "flash_attention" in name)
+    return wall, peak, busy, n_kernels, by_name, b7_s
+
+
 def main_path_profile(batch_wall_s: float) -> dict:
     """Device time of one profiled batch run, by kernel, against the wall
     time of the unprofiled batch run: the device's busy and idle shares."""
@@ -2366,15 +2431,8 @@ def prefill_path() -> tuple[dict, dict, dict, tuple]:
     del tap, last
     gc.collect()
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    last = step(params, batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    busy, _, top = device_busy_s(lambda: step(params, batch))
-    for t, c, name in top:
-        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    wall, peak, busy, _, by_name, _ = time_and_profile(lambda: step(params, batch))
+    top = by_name[:8]
     tokens_per_s = PREFILL_BATCH * PREFILL_LEN / wall
     print(f"prefill: {wall:.4f} s wall ({tokens_per_s:.0f} tokens/s); device busy "
           f"{busy:.4f} s (idle share {1.0 - busy / wall:.3f}); peak memory allocated "
@@ -2521,16 +2579,8 @@ def prefill_f32_path(params: dict) -> tuple[dict, dict]:
     del tap, last
     gc.collect()
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    step(params, batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    busy, n_kernels, by_name = device_busy_s(lambda: step(params, batch), top=None)
-    for t, c, name in by_name[:8]:
-        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
-    b7_s = sum(t for t, _, name in by_name if "flash_attention" in name)
+    wall, peak, busy, n_kernels, by_name, b7_s = time_and_profile(
+        lambda: step(params, batch))
     tokens_per_s = PREFILL_LEN / wall
     n_params = model.param_count()
     print(f"prefill f32: {wall:.4f} s wall ({tokens_per_s:.0f} tokens/s); device busy "
@@ -2602,9 +2652,7 @@ def serve_path(params: dict) -> tuple[dict, dict]:
     the serve run)."""
     import torch
 
-    from repro_torch import kernels as KS
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.model import Model
 
@@ -2612,50 +2660,7 @@ def serve_path(params: dict) -> tuple[dict, dict]:
     dev = torch.device("cuda", 0)
     cfg = get_config("qwen3_4b")
     model = Model(cfg)
-    args = argparse.Namespace(device=str(dev), **SERVE_ARGS)
-    torch.cuda.synchronize()
-    KS.reset_launch_counts()
-    t0 = time.perf_counter()
-    served = serve(args, params=params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    check(len(served) == SERVE_ARGS["requests"],
-          f"serve: {len(served)} of {SERVE_ARGS['requests']} requests served")
-    check(sorted(r.rid for r in served) == list(range(SERVE_ARGS["requests"])),
-          "serve: request ids")
-    for r in served:
-        check(r.done and len(r.out) > len(r.prompt)
-              and all(0 <= t < cfg.vocab_size for t in r.out),
-              f"serve: request {r.rid} out of range or unfinished")
-    total = sum(len(r.out) for r in served)
-    new = sum(len(r.out) - len(r.prompt) for r in served)
-    print(f"serve: {len(served)} requests, {total} tokens ({new} generated) in "
-          f"{wall:.3f} s wall: {total / wall:.1f} tokens/s ({new / wall:.1f} "
-          f"generated/s); launches {counts}", flush=True)
-
-    # the decode step's idle share: 8 steps at the serve loop's batch, timed
-    # unprofiled and then under the profiler from the same cache
-    tok = torch.zeros((SERVE_ARGS["batch"], 1), dtype=torch.int64, device=dev)
-    cache0 = model.init_cache(SERVE_ARGS["batch"], SERVE_ARGS["max_len"], dev)
-
-    def decode_window():
-        c = cache0
-        for _ in range(8):
-            _, c = model.decode(params, tok, c)
-        torch.cuda.synchronize()
-
-    decode_window()
-    t0 = time.perf_counter()
-    decode_window()
-    step_wall = (time.perf_counter() - t0) / 8
-    busy, n_kernels, top = device_busy_s(decode_window)
-    for t, c, name in top:
-        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
-    decode_idle = 1.0 - busy / 8 / step_wall
-    print(f"decode step (batch {SERVE_ARGS['batch']}, {cfg.num_layers} layers): "
-          f"{step_wall * 1e3:.3f} ms wall, {busy / 8 * 1e3:.3f} ms device busy in "
-          f"{n_kernels / 8:.0f} kernels (idle share {decode_idle:.3f})", flush=True)
+    summary, counts = serve_and_decode("serve", model, params, SERVE_ARGS)
 
     phase("qwen3-4b decode against prefill (teacher-forced)")
     prompt = torch.randint(0, cfg.vocab_size, (1, TEACHER_LEN), device=dev,
@@ -2679,15 +2684,427 @@ def serve_path(params: dict) -> tuple[dict, dict]:
           f"decode vs full forward top-1 agreement {agree:.4f} over {TEACHER_LEN} positions, max "
           f"|diff| {max_d:.4g}; last position vs the prefill step: top-1 equal "
           f"{last_agree}, max |diff| {last_d:.4g} (recorded, not gated)", flush=True)
+    summary["teacher_forced"] = dict(len=TEACHER_LEN, top1_agreement=agree,
+                                     max_abs_diff=max_d, last_top1_equal=last_agree,
+                                     last_max_abs_diff=last_d)
+    return summary, counts
+
+
+def serve_and_decode(label: str, model, params: dict, serve_args: dict) -> tuple[dict, dict]:
+    """``launch.serve.serve`` with ``serve_args`` on ``params`` (counted:
+    every request served, in range); then 8 decode steps at the serve
+    loop's batch, timed unprofiled and then under the profiler from the
+    same cache.  Returns (summary, launch counts of the serve run)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.launch.serve import serve
+
+    dev = torch.device("cuda", 0)
+    cfg = model.cfg
+    args = argparse.Namespace(device=str(dev), **serve_args)
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = serve(args, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_req = serve_args["requests"]
+    check(len(served) == n_req, f"{label}: {len(served)} of {n_req} requests served")
+    check(sorted(r.rid for r in served) == list(range(n_req)), f"{label}: request ids")
+    for r in served:
+        check(r.done and len(r.out) > len(r.prompt)
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"{label}: request {r.rid} out of range or unfinished")
+    total = sum(len(r.out) for r in served)
+    new = sum(len(r.out) - len(r.prompt) for r in served)
+    print(f"{label}: {len(served)} requests, {total} tokens ({new} generated) in "
+          f"{wall:.3f} s wall: {total / wall:.1f} tokens/s ({new / wall:.1f} "
+          f"generated/s); launches {counts}", flush=True)
+
+    tok = torch.zeros((serve_args["batch"], 1), dtype=torch.int64, device=dev)
+    cache0 = model.init_cache(serve_args["batch"], serve_args["max_len"], dev)
+
+    def decode_window():
+        c = cache0
+        for _ in range(8):
+            _, c = model.decode(params, tok, c)
+        torch.cuda.synchronize()
+
+    decode_window()
+    t0 = time.perf_counter()
+    decode_window()
+    step_wall = (time.perf_counter() - t0) / 8
+    busy, n_kernels, top = device_busy_s(decode_window)
+    for t, c, name in top:
+        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    decode_idle = 1.0 - busy / 8 / step_wall
+    print(f"decode step (batch {serve_args['batch']}, {cfg.num_layers} layers): "
+          f"{step_wall * 1e3:.3f} ms wall, {busy / 8 * 1e3:.3f} ms device busy in "
+          f"{n_kernels / 8:.0f} kernels (idle share {decode_idle:.3f})", flush=True)
     summary = dict(requests=len(served), tokens=total, generated=new, wall_s=wall,
                    tokens_per_s=total / wall, generated_per_s=new / wall,
                    decode_step_wall_s=step_wall, decode_step_busy_s=busy / 8,
                    decode_idle_share=decode_idle, decode_step_kernels=n_kernels / 8,
-                   decode_top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top],
-                   teacher_forced=dict(len=TEACHER_LEN, top1_agreement=agree,
-                                       max_abs_diff=max_d, last_top1_equal=last_agree,
-                                       last_max_abs_diff=last_d))
+                   decode_top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top])
     return summary, counts
+
+
+class MoETap:
+    """While active, records each ``moe_block`` call the model zoo makes:
+    its routing (``top_e``, kept on the host), the pairs it dropped past
+    capacity and, for the first call, its inputs.  The wrapped call runs as
+    it would have; the tap recomputes the routing with ``moe.route`` and
+    ``moe.dispatch_plan``, which launch no kernel of the package."""
+
+    def __init__(self):
+        self.top_e, self.dropped, self.first = [], [], None
+
+    def __enter__(self):
+        M = importlib.import_module("repro_torch.models.moe")
+        self._M, self._orig = M, M.moe_block
+
+        def tapped(p, x, cfg):
+            out = self._orig(p, x, cfg)
+            *_, top_e = M.route(p, x, cfg)
+            _, _, rank, _, _ = M.dispatch_plan(top_e, cfg.moe.num_routed_padded,
+                                               cfg.moe_dispatch)
+            self.top_e.append(top_e.cpu())
+            self.dropped.append(int((rank >= M.capacity(cfg.moe, top_e.shape[0])).sum()))
+            if self.first is None:
+                self.first = (p, x)
+            return out
+
+        M.moe_block = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._M.moe_block = self._orig
+        return False
+
+
+def moe_prefill_path() -> tuple[dict, dict, dict, tuple]:
+    """qwen2-moe-a2.7b at full width and depth on the card: three prefill
+    steps of 4 x 4,096 tokens — counted and tapped (exactly 24 B7 launches,
+    all on the sm90 route, each held to its plain version; each layer's
+    dropped pairs), unprofiled (wall, peak memory), profiled (idle share,
+    top kernels, B7's share of device time).  Returns (summary, launch
+    counts of the counted run, params, layer 0's MoE inputs and B7 inputs)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import Model
+
+    phase("qwen2-moe-a2.7b prefill")
+    dev = torch.device("cuda", 0)
+    cfg = get_config(MOE_ARCH)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    n_params = model.param_count()
+    moe = cfg.moe
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads / {cfg.num_kv_heads} kv heads x {cfg.head_dim}, {moe.num_experts} routed "
+          f"experts padded to {moe.num_routed_padded}, top-{moe.top_k}, {moe.num_shared} "
+          f"shared, d_expert {moe.d_expert}; {n_params} parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) initialised in "
+          f"{init_s:.2f} s (peak {init_peak / 2**30:.2f} GiB)", flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    step(params, {"tokens": tokens[:, :256]})  # warm-up: cuBLAS handles, kernels
+    torch.cuda.synchronize()
+
+    tap, moe_tap = FlashTap(), MoETap()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tap, moe_tap:
+        last = step(params, batch)
+    torch.cuda.synchronize()
+    tapped_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["flash_attention_sm90"] == cfg.num_layers
+          and counts["flash_attention_general"] == 0,
+          f"moe prefill: {counts['flash_attention_sm90']} flash_attention launches on the "
+          f"sm90 route and {counts['flash_attention_general']} on the general one, want "
+          f"exactly {cfg.num_layers} (one per layer), all sm90 (bf16, D = {cfg.head_dim})")
+    check(len(tap.calls) == cfg.num_layers, f"moe prefill: {len(tap.calls)} ops.mha calls")
+    check(len(moe_tap.dropped) == cfg.num_layers,
+          f"moe prefill: {len(moe_tap.dropped)} moe_block calls")
+    check(tuple(last.shape) == (PREFILL_BATCH, cfg.vocab) and
+          bool(last.to(torch.float32).isfinite().all()),
+          f"moe prefill: last-position logits {tuple(last.shape)} not finite")
+    err, excess = tap.check("moe prefill")
+    t = PREFILL_BATCH * PREFILL_LEN
+    cap, pairs = M.capacity(moe, t), t * moe.top_k
+    print(f"moe prefill (counted): {tapped_wall:.3f} s wall; launches {counts}; all "
+          f"{len(tap.calls)} flash_attention calls (sm90 route, Hq = Hkv = {cfg.num_heads}) "
+          f"within tolerance of their plain versions (max |diff| {err:.4g}, at most "
+          f"{excess:.3g} of the tolerance)", flush=True)
+    print(f"moe prefill: capacity {cap} a padded expert ({pairs} pairs, mean "
+          f"{pairs / moe.num_experts:.0f} a real expert); pairs dropped past capacity by "
+          f"layer: {moe_tap.dropped} ({sum(moe_tap.dropped)} of {pairs * cfg.num_layers}, "
+          f"{sum(moe_tap.dropped) / (pairs * cfg.num_layers):.4%})", flush=True)
+    loads = torch.bincount(moe_tap.top_e[0].reshape(-1), minlength=moe.num_routed_padded)
+    print(f"layer 0 expert loads: min {int(loads[:moe.num_experts].min())}, max "
+          f"{int(loads.max())}, padded experts {int(loads[moe.num_experts:].sum())}",
+          flush=True)
+    check(int(loads[moe.num_experts:].sum()) == 0, "moe prefill: a padded expert was routed")
+    layer0 = moe_tap.first, tap.calls[0][:3]
+    dropped = list(moe_tap.dropped)
+    del tap, moe_tap, last
+    gc.collect()
+
+    wall, peak, busy, n_kernels, by_name, b7_s = time_and_profile(
+        lambda: step(params, batch))
+    tokens_per_s = t / wall
+    print(f"moe prefill: {wall:.4f} s wall ({tokens_per_s:.0f} tokens/s); device busy "
+          f"{busy:.4f} s in {n_kernels} kernels (idle share {1.0 - busy / wall:.3f}), B7 "
+          f"{b7_s:.4f} s of it ({b7_s / busy:.3f}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB (the {n_params * 2 / 2**30:.2f} GiB of weights "
+          f"included)", flush=True)
+    summary = dict(batch=PREFILL_BATCH, seq=PREFILL_LEN, layers=cfg.num_layers,
+                   params=n_params, init_s=init_s, init_peak_mem_bytes=init_peak,
+                   wall_s=wall, counted_wall_s=tapped_wall, tokens_per_s=tokens_per_s,
+                   device_busy_s=busy, idle_share=1.0 - busy / wall, kernels=n_kernels,
+                   flash_device_s=b7_s, flash_share=b7_s / busy, peak_mem_bytes=peak,
+                   flash_calls=cfg.num_layers, flash_max_abs_err=err,
+                   flash_max_tolerance_share=excess, capacity=cap, pairs_per_layer=pairs,
+                   dropped_by_layer=dropped,
+                   top=[dict(kernel=k[:80], s=tt, count=c) for tt, c, k in by_name[:8]])
+    return summary, counts, params, layer0
+
+
+def moe_dispatch_phase(layer0: tuple) -> dict:
+    """Layer 0's MoE block at full width on the prefill's own layer-0
+    input under each dispatch, at the model's capacity factor and at 1.0
+    (where the hot experts drop): the same kept (token, expert, rank) set,
+    outputs within ``MOE_DISPATCH_TOL`` of ``sort``'s, and ``sort`` run
+    twice giving the same bits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    phase("qwen2-moe-a2.7b dispatch check (layer 0, full width)")
+    base = get_config(MOE_ARCH)
+    p, x = layer0
+    e, k = base.moe.num_routed_padded, base.moe.top_k
+    t = x.shape[0] * x.shape[1]
+    out = {}
+    for cf in (base.moe.capacity_factor, MOE_DROP_CAPACITY_FACTOR):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+        cap = M.capacity(cfg.moe, t)
+        outs, kept, walls = {}, {}, {}
+        for disp in MOE_DISPATCHES:
+            c = dataclasses.replace(cfg, moe_dispatch=disp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[disp], _ = M.moe_block(p, x, c)
+            torch.cuda.synchronize()
+            walls[disp] = time.perf_counter() - t0
+            *_, top_e = M.route(p, x, c)
+            tok, exp, rank, _, _ = M.dispatch_plan(top_e, e, disp)
+            keep = rank < cap
+            key = (tok * e + exp)[keep]  # a token never picks one expert twice
+            order = torch.argsort(key)
+            kept[disp] = torch.stack([key[order], rank[keep][order]])
+        again, _ = M.moe_block(p, x, dataclasses.replace(cfg, moe_dispatch="sort"))
+        check(torch.equal(again, outs["sort"]), f"moe dispatch (cf {cf}): sort run twice differs")
+        diffs = {}
+        for disp in MOE_DISPATCHES[1:]:
+            check(torch.equal(kept[disp], kept["sort"]),
+                  f"moe dispatch (cf {cf}): {disp} keeps another (token, expert, rank) set "
+                  f"than sort")
+            a, b = outs[disp].to(torch.float32), outs["sort"].to(torch.float32)
+            diffs[disp] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, rtol=MOE_DISPATCH_TOL, atol=MOE_DISPATCH_TOL)),
+                  f"moe dispatch (cf {cf}): {disp} output differs from sort's by "
+                  f"{diffs[disp]:.4g}")
+        n_kept = kept["sort"].shape[1]
+        ep_equal = torch.equal(outs["ep"], outs["sort"])
+        print(f"layer 0, T = {t}, capacity factor {cf} (capacity {cap}): sort, cumsum and ep "
+              f"keep the same {n_kept} (token, expert, rank) triples ({t * k - n_kept} of "
+              f"{t * k} pairs dropped); outputs against sort's: max |diff| cumsum "
+              f"{diffs['cumsum']:.4g}, ep {diffs['ep']:.4g} (ep bit-equal: {ep_equal}); sort "
+              f"twice bit-equal; walls { {d: round(w, 4) for d, w in walls.items()} } s",
+              flush=True)
+        out[f"cf{cf}"] = dict(tokens=t, capacity=cap, kept=n_kept, dropped=t * k - n_kept,
+                              max_abs_diff_vs_sort=diffs, ep_bit_equal=ep_equal,
+                              sort_deterministic=True, wall_s=walls)
+    check(out[f"cf{MOE_DROP_CAPACITY_FACTOR}"]["dropped"] > 0,
+          f"moe dispatch: nothing dropped at capacity factor {MOE_DROP_CAPACITY_FACTOR}")
+    return out
+
+
+def moe_flash_timing(qkv: tuple) -> dict:
+    """B7's sm90 kernel at the MoE prefill's shape (MHA, Hq = Hkv = 16) on
+    layer 0's inputs, against its plain version, timed as
+    :func:`flash_kernel_phase` times it, with SDPA as yardstick."""
+    import torch.nn.functional as F
+
+    FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    phase("kernel flash_attention (sm90 bf16) at the MoE prefill's shape")
+    q, k, v = (a.contiguous() for a in qkv)
+    b, s, hq, d = q.shape
+    check(FA._route_for(q.dtype, d) == "sm90", "the MoE prefill's B7 call is not sm90")
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    got = FA._flash_attention(q, k, v, causal=True, route="sm90")
+    err, excess = fa_excess(got, want)
+    del got, want
+    check(excess <= 1.0, f"flash_attention_sm90 at the MoE shape: {excess:.3g} of the tolerance")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    useful = 4 * d * (s * (s + 1) // 2) * b * hq
+    st = measure(f"flash_attention_sm90 (B={b}, S={s}, Hq={hq}, Hkv={k.shape[2]}, D={d}, "
+                 f"bfloat16, causal)", err,
+                 lambda *a: FA._flash_attention(*a, causal=True, route="sm90"),
+                 lambda *a: FA.flash_attention_plain(*a, causal=True), (q, k, v),
+                 nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(), ops=useful,
+                 iters=200, plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
+                 library=lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+                 library_args=(qt, kt, vt))
+    return dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=k.shape[2], D=d, dtype="bfloat16",
+                               causal=True), tolerance_share=excess, useful_flop=useful)
+
+
+def moe_serve_path(params: dict) -> tuple[dict, dict]:
+    """The port's serve loop at full width for qwen2-moe-a2.7b with the
+    reference loop's defaults on ``params``, and its decode step profiled.
+    Returns (summary, launch counts of the serve run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    phase("qwen2-moe-a2.7b serve")
+    return serve_and_decode("moe serve", Model(get_config(MOE_ARCH)), params, MOE_SERVE_ARGS)
+
+
+def moe_smoke_path() -> dict[str, int]:
+    """The MoE smoke configs in float32 (TF32 off) through
+    ``make_prefill_step`` and three decode steps on the card and on the
+    port's CPU: logits within 1e-4, every MoE call's ``top_e`` equal."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+
+    phase("MoE smoke configs, float32, card against CPU")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the MoE smoke phase")
+    dev = torch.device("cuda", 0)
+    total = None
+    for arch in MOE_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=torch.float32)
+        model = Model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, MOE_SMOKE_LEN),
+                             generator=torch.Generator().manual_seed(1))
+        step = make_prefill_step(model)
+        runs = {}
+        for where, params in (("card", tree_map(lambda a: a.to(dev), cpu)), ("cpu", cpu)):
+            d = dev if where == "card" else torch.device("cpu")
+            if where == "card":
+                torch.cuda.synchronize()
+                KS.reset_launch_counts()
+            tap = MoETap()
+            with tap:
+                logits = [step(params, {"tokens": toks.to(d)})]
+                cache = model.init_cache(2, MOE_SMOKE_DECODE + 1, d)
+                for i in range(MOE_SMOKE_DECODE):
+                    out, cache = model.decode(params, toks[:, i:i + 1].to(d), cache)
+                    logits.append(out[:, 0])
+            if where == "card":
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                total = counts if total is None else {n: total[n] + c for n, c in counts.items()}
+            runs[where] = ([t.cpu() for t in logits], tap.top_e)
+        (got, got_e), (want, want_e) = runs["card"], runs["cpu"]
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in zip(got, want)),
+              f"moe smoke {arch}: card logits differ from the CPU run's by {diff:.3g}")
+        check(len(got_e) == len(want_e) == cfg.num_layers * (1 + MOE_SMOKE_DECODE)
+              and all(torch.equal(a, b) for a, b in zip(got_e, want_e)),
+              f"moe smoke {arch}: the card routes differently from the CPU")
+        print(f"{cfg.name} (float32): prefill 2 x {MOE_SMOKE_LEN} + {MOE_SMOKE_DECODE} decode "
+              f"steps: logits equal the CPU run's within 1e-4 (max |diff| {diff:.3g}); "
+              f"top_e of all {len(got_e)} MoE calls equal", flush=True)
+    print(f"moe smoke launches (card): {total}", flush=True)
+    return total
+
+
+def capture_study_path() -> tuple[dict, dict]:
+    """``benchmarks/fig_capture.py``'s study — the three captured families
+    and their synthetic analogues, all six mechanisms — on both engines:
+    2 / 2 / 1 Bloom launches a LazyPIM window, every B5 / B6 call held to
+    its plain version, batch == sequential and both == one CPU run of the
+    port on every field; then ``capture/moe_experts``'s trace on the card
+    against its CPU trace, field for field.  Returns (launch counts, walls)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import MECHANISMS, Study
+    from repro_torch.sim.trace import make_trace
+
+    phase(f"capture study ({len(CAPTURE_STUDY)} workloads), CPU run")
+    t0 = time.perf_counter()
+    cpu = Study(list(CAPTURE_STUDY), device="cpu").run(engine="sequential")
+    walls = {"cpu_sequential": time.perf_counter() - t0}
+    print(f"cpu: {walls['cpu_sequential']:.2f} s wall", flush=True)
+    counts, runs = {}, {}
+    for engine in ("batch", "sequential"):
+        phase(f"capture study, engine={engine}")
+        tap = KernelTap()
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        study = Study(list(CAPTURE_STUDY))
+        t0 = time.perf_counter()
+        with tap:
+            rs = study.run(engine=engine)
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        counts[engine], runs[engine] = launch_counts(), rs
+        label = f"capture study/{engine}"
+        for name in CAPTURE_KERNELS:
+            check(counts[engine][name] > 0, f"{label}: kernel {name} was never launched")
+        windows = check_query_launches(label, study, rs, engine,
+                                       counts[engine]) // QUERIES_PER_WINDOW
+        check_insert_launches(label, study, rs, engine, counts[engine])
+        check_intersect_launches(label, study, rs, engine, counts[engine])
+        err5, err6 = tap.check(label)
+        print(f"{engine}: {len(rs)} workloads x {len(MECHANISMS)} mechanisms in "
+              f"{walls[engine]:.2f} s wall; {windows} LazyPIM windows, 2 / 2 / 1 launches "
+              f"each; launches {counts[engine]}; {len(tap.b5)} bloom_detect_conflicts calls "
+              f"exact, {len(tap.b6)} lazy_merge calls within {err6:.3g}", flush=True)
+    exact_points(runs["batch"].points, runs["sequential"].points,
+                 "capture study batch vs sequential")
+    exact_points(runs["sequential"].points, cpu.points, "capture study card vs CPU")
+    phase("capture/moe_experts trace, card against CPU")
+    t0 = time.perf_counter()
+    card = make_trace("capture/moe_experts")
+    torch.cuda.synchronize()
+    walls["moe_experts_trace"] = time.perf_counter() - t0
+    host = make_trace("capture/moe_experts", device="cpu")
+    for f in dataclasses.fields(card):
+        a, b = getattr(card, f.name), getattr(host, f.name)
+        if isinstance(a, torch.Tensor):
+            check(a.device.type == "cuda" and torch.equal(a.cpu(), b),
+                  f"capture/moe_experts trace field {f.name}: card differs from CPU")
+        else:
+            check(a == b, f"capture/moe_experts trace field {f.name}: {a!r} vs {b!r}")
+    print(f"batch == sequential == the CPU run on every field of {len(cpu)} x "
+          f"{len(MECHANISMS)} results; capture/moe_experts's trace on the card "
+          f"({walls['moe_experts_trace']:.2f} s, {card.num_windows} windows) equals its CPU "
+          f"trace field for field", flush=True)
+    return counts, walls
 
 
 def main() -> int:
@@ -2737,6 +3154,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         smoke_counts = smoke_prefill_path()
+        moe_prefill, moe_prefill_counts, params, (layer0, qkv0) = moe_prefill_path()
+        moe_dispatch = moe_dispatch_phase(layer0)
+        stats["flash_attention_sm90"]["moe_shape"] = moe_flash_timing(qkv0)
+        del layer0, qkv0
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_serving, moe_serve_counts = moe_serve_path(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_smoke_counts = moe_smoke_path()
+        capstudy_counts, capstudy_walls = capture_study_path()
         for name in ("h3_hash", "bloom_query", "bloom_query_onehot", "bloom_insert",
                      "bloom_insert_onehot", "bloom_intersect"):
             stats[name]["launch_floor_ms"] = floor_ms
@@ -2756,7 +3185,11 @@ def main() -> int:
                "kv_serve_sequential": kv_counts["sequential"],
                "qwen3_prefill": prefill_counts, "qwen3_serve": serve_counts,
                "qwen3_prefill_f32": prefill32_counts,
-               "smoke_prefill_f32": smoke_counts}
+               "smoke_prefill_f32": smoke_counts,
+               "moe_prefill": moe_prefill_counts, "moe_serve": moe_serve_counts,
+               "moe_smoke_f32": moe_smoke_counts,
+               "capture_study_batch": capstudy_counts["batch"],
+               "capture_study_sequential": capstudy_counts["sequential"]}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=TPU_KERNEL[name],
                     launches=sum(c[name] for c in by_path.values()),
@@ -2768,7 +3201,9 @@ def main() -> int:
                       "signatures": signatures,
                       "capture_wall_s": cap_walls, "lazysync": lazy,
                       "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,
-                      "qwen3_serve": serving, "qwen3_prefill_f32": prefill32}))
+                      "qwen3_serve": serving, "qwen3_prefill_f32": prefill32,
+                      "moe_prefill": moe_prefill, "moe_dispatch": moe_dispatch,
+                      "moe_serve": moe_serving, "capture_study_wall_s": capstudy_walls}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,11 @@
 Each adapter runs live code and records the integer index streams it
 already computes as a :class:`repro_torch.sim.trace.WindowTrace`, through
 the recorder (:mod:`.recorder`), the line-mapper (:mod:`.layout`) and the
-windower.  Ported here: ``capture/lazy_embed``, which records the LazySync
-protocol (:mod:`repro_torch.core.lazy_sync`), and ``capture/kv_serve``, a
-paged-KV decode loop at the serving stack's page/slot arithmetic.
-``capture/moe_experts`` drives the MoE model zoo and comes with that slice
-of the port (ROADMAP A11 / A12); asking for it raises a ``ValueError``
-naming it.
+windower.  The adapters: ``capture/lazy_embed``, which records the
+LazySync protocol (:mod:`repro_torch.core.lazy_sync`),
+``capture/kv_serve``, a paged-KV decode loop at the serving stack's
+page/slot arithmetic, and ``capture/moe_experts``, two tenants' traffic
+through the MoE block's live routing (:mod:`repro_torch.models.moe`).
 """
 
 from __future__ import annotations
@@ -17,21 +16,19 @@ from __future__ import annotations
 from repro_torch.capture.kv_serve import KVServeConfig, capture_kv_serve
 from repro_torch.capture.lazy_embed import LazyEmbedConfig, capture_lazy_embed
 from repro_torch.capture.layout import LineLayout, Region
+from repro_torch.capture.moe_experts import MoEExpertsConfig, capture_moe_experts
 from repro_torch.capture.recorder import WindowRecorder
-from repro_torch.sim.trace import (
-    CAPTURE_APPS,
-    MODEL_ZOO_SLICE,
-    PORTED_CAPTURE_APPS,
-    WindowTrace,
-)
+from repro_torch.sim.trace import CAPTURE_APPS, WindowTrace
 
 _ADAPTERS = {"capture/kv_serve": capture_kv_serve,
+             "capture/moe_experts": capture_moe_experts,
              "capture/lazy_embed": capture_lazy_embed}
-assert set(_ADAPTERS) == set(PORTED_CAPTURE_APPS)
+assert set(_ADAPTERS) == set(CAPTURE_APPS)
 
 # Per-adapter cpu_reuse defaults (the reference's values: the KV hot tail
 # is re-read hardest, like the streaming family).
-_CPU_REUSE = {"capture/kv_serve": 8.0, "capture/lazy_embed": 6.0}
+_CPU_REUSE = {"capture/kv_serve": 8.0, "capture/moe_experts": 6.0,
+              "capture/lazy_embed": 6.0}
 
 
 def capture_trace(app: str, threads: int = 16, seed: int = 0,
@@ -42,8 +39,6 @@ def capture_trace(app: str, threads: int = 16, seed: int = 0,
     (``None`` = the CUDA card)."""
     fn = _ADAPTERS.get(app)
     if fn is None:
-        if app in CAPTURE_APPS:
-            raise ValueError(f"{app!r}: {MODEL_ZOO_SLICE}")
         raise ValueError(
             f"unknown capture spec {app!r} (know {sorted(CAPTURE_APPS)}); "
             f"capture workloads are named 'capture/<adapter>'")
@@ -55,6 +50,7 @@ def capture_trace(app: str, threads: int = 16, seed: int = 0,
 
 
 __all__ = [
-    "CAPTURE_APPS", "KVServeConfig", "LazyEmbedConfig", "LineLayout", "Region",
-    "WindowRecorder", "capture_kv_serve", "capture_lazy_embed", "capture_trace",
+    "CAPTURE_APPS", "KVServeConfig", "LazyEmbedConfig", "LineLayout",
+    "MoEExpertsConfig", "Region", "WindowRecorder", "capture_kv_serve",
+    "capture_lazy_embed", "capture_moe_experts", "capture_trace",
 ]

@@ -1,11 +1,13 @@
 """Architecture registry, PyTorch port of :mod:`repro.configs`:
 ``get_config(name)`` / ``get_smoke_config(name)``.
 
-Every architecture of the reference is named in :data:`ARCHS`; the dense,
-attention-only ones are ported (:data:`PORTED`: ``qwen3_4b``, which the
-serving and LazySync paths drive at full width, ``phi3_mini_3_8b``,
-``deepseek_67b``, ``nemotron_4_340b``), with ``config()`` and ``smoke()``
-copied field for field.  Any other one raises a ``ValueError`` naming the
+Every architecture of the reference is named in :data:`ARCHS`; the dense
+and MoE decoder-only ones are ported (:data:`PORTED`: ``qwen3_4b``, which
+the serving and LazySync paths drive at full width, ``phi3_mini_3_8b``,
+``deepseek_67b``, ``nemotron_4_340b``, and the MoE pair
+``qwen2_moe_a2_7b``, served at full width too, and
+``moonshot_v1_16b_a3b``), with ``config()`` and ``smoke()`` copied field
+for field.  Any other one raises a ``ValueError`` naming the
 slice of the port that brings it (ROADMAP A11).
 """
 
@@ -31,11 +33,10 @@ ARCHS = (
 # Canonical ids (hyphenated, as in the assignment) -> module names.
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
-PORTED = ("qwen3_4b", "phi3_mini_3_8b", "deepseek_67b", "nemotron_4_340b")
+PORTED = ("qwen3_4b", "phi3_mini_3_8b", "deepseek_67b", "nemotron_4_340b",
+          "qwen2_moe_a2_7b", "moonshot_v1_16b_a3b")
 
 _LATER = {
-    "qwen2_moe_a2_7b": "the MoE slice",
-    "moonshot_v1_16b_a3b": "the MoE slice",
     "falcon_mamba_7b": "the SSM / recurrent / hybrid slice",
     "recurrentgemma_2b": "the SSM / recurrent / hybrid slice",
     "seamless_m4t_large_v2": "the enc-dec / VLM slice",

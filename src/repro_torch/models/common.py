@@ -67,6 +67,12 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     return out
 
 
+# Largest leaf drawn in one piece (2^30 elements, 4 GiB of float32 scratch);
+# qwen2-moe-a2.7b's stacked experts (24 x 64 x 2,048 x 1,408, 4.4e9
+# elements) are drawn in slices.
+_DRAW_CHUNK = 2**30
+
+
 def _materialize(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     dev = generator.device
     if spec.init == "zeros":
@@ -78,8 +84,18 @@ def _materialize(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     else:  # fan-in normal
         fan_in = spec.shape[0] if len(spec.shape) == 1 else math.prod(spec.shape[:-1])
         std = spec.scale if spec.scale is not None else (1.0 / max(1.0, fan_in)) ** 0.5
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=dev)
-    return x.mul_(std).to(spec.dtype)
+    if math.prod(spec.shape) <= _DRAW_CHUNK:
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=dev)
+        return x.mul_(std).to(spec.dtype)
+    # a leaf past _DRAW_CHUNK elements is drawn a slice of its leading axis
+    # at a time, so the float32 scratch stays one slice
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+    rows = max(1, _DRAW_CHUNK // math.prod(spec.shape[1:]))
+    for i in range(0, spec.shape[0], rows):
+        x = torch.randn((min(rows, spec.shape[0] - i),) + spec.shape[1:],
+                        generator=generator, dtype=torch.float32, device=dev)
+        out[i:i + x.shape[0]] = x.mul_(std)
+    return out
 
 
 def init_params(spec_tree, generator: torch.Generator):

@@ -1,18 +1,21 @@
-"""Model stack assembly, PyTorch port of the dense part of
+"""Model stack assembly, PyTorch port of the decoder-only part of
 :mod:`repro.models.transformer`: blocks -> layer loop -> logits.
 
 A block = mixer + FFN, each with its own pre-norm and residual:
 
     kind 'attn'  : GQA attention            + dense MLP
     kind 'swa'   : sliding-window attention + dense MLP
+    kind 'moe'   : GQA attention            + MoE FFN (shared + routed)
 
 Layer iteration: the block pattern's smallest repeating unit (the *period*)
 is stacked on a leading axis, as in the reference; where the reference runs
 ``jax.lax.scan`` over that axis (+remat), the port loops over it in Python
 (``remat`` has no meaning without a backward pass), and the non-divisible
 tail is unrolled.  Decode unrolls all layers and carries the KV cache.
+The stack returns the MoE aux losses averaged over the MoE layers (zeros
+for a dense stack), as the reference does.
 
-Block kinds ``moe``, ``mamba`` and ``rglru``, the encoder-decoder stack and
+Block kinds ``mamba`` and ``rglru``, the encoder-decoder stack and
 ``chunked_xent`` come with later slices of the port and raise a
 ``ValueError`` naming theirs (ROADMAP A11).
 """
@@ -25,10 +28,10 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
+from repro_torch.models import moe as M
 
-DENSE_KINDS = ("attn", "swa")
+PORTED_KINDS = ("attn", "swa", "moe")
 LATER_KINDS = {
-    "moe": "the MoE slice of the port (models/moe.py; ROADMAP A11)",
     "mamba": "the SSM / recurrent / hybrid slice of the port (models/ssm.py; ROADMAP A11)",
     "rglru": "the SSM / recurrent / hybrid slice of the port (models/recurrent.py; "
              "ROADMAP A11)",
@@ -40,16 +43,16 @@ TRAIN_SLICE = "the training slice of the port (ROADMAP A11)"
 
 
 def _check_kind(kind: str) -> None:
-    if kind in DENSE_KINDS:
+    if kind in PORTED_KINDS:
         return
     if kind in LATER_KINDS:
         raise ValueError(f"block kind {kind!r} comes with {LATER_KINDS[kind]}")
     raise ValueError(kind)
 
 
-def check_dense(cfg: C.ModelConfig) -> None:
+def check_ported(cfg: C.ModelConfig) -> None:
     """Raise a ``ValueError`` naming the later slice for anything but a
-    decoder-only stack of 'attn' / 'swa' blocks."""
+    decoder-only stack of 'attn' / 'swa' / 'moe' blocks."""
     if cfg.encoder_layers > 0:
         raise ValueError(f"{cfg.name}: {ENCDEC_SLICE}")
     for kind in dict.fromkeys(cfg.pattern):
@@ -88,16 +91,23 @@ def mlp_block(p, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
 
 def block_param_specs(kind: str, cfg: C.ModelConfig) -> dict:
     _check_kind(kind)
+    if kind == "moe":
+        return {"mixer": A.attn_param_specs(cfg), "moe": M.moe_param_specs(cfg)}
     return {"mixer": A.attn_param_specs(cfg), "mlp": mlp_param_specs(cfg)}
 
 
 def apply_block(kind: str, p, x: torch.Tensor, cfg: C.ModelConfig,
                 positions=None) -> tuple[torch.Tensor, dict]:
     _check_kind(kind)
+    aux = {}
     window = cfg.window_size if kind == "swa" else 0
     x = x + A.attn_block(p["mixer"], x, cfg, window=window, positions=positions)
-    x = x + mlp_block(p["mlp"], x, cfg)
-    return x, {}
+    if kind == "moe":
+        out, aux = M.moe_block(p["moe"], x, cfg)
+        x = x + out
+    else:
+        x = x + mlp_block(p["mlp"], x, cfg)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -148,14 +158,16 @@ def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
     """Run the full block stack. Returns (hidden, aux_losses)."""
     per = _period(cfg)
     n_full, tail = _split_layers(cfg)
-    for i in range(n_full):
-        for kind, p in zip(per, params["period"]):
-            x, _ = apply_block(kind, _index(p, i), x, cfg, positions=positions)
-    for kind, p in zip(tail, params["tail"]):
-        x, _ = apply_block(kind, p, x, cfg, positions=positions)
+    aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    layers = [(kind, _index(p, i)) for i in range(n_full)
+              for kind, p in zip(per, params["period"])]
+    for kind, p in layers + list(zip(tail, params["tail"])):
+        x, aux = apply_block(kind, p, x, cfg, positions=positions)
+        if aux:
+            aux_sum = aux_sum + torch.stack([aux["load_balance"], aux["router_z"]])
     x = C.rms_norm(x, params["final_norm"])
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"load_balance": zero, "router_z": zero}
+    n_moe = max(sum(1 for k in cfg.pattern if k == "moe"), 1)
+    return x, {"load_balance": aux_sum[0] / n_moe, "router_z": aux_sum[1] / n_moe}
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +176,7 @@ def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
 
 
 def lm_param_specs(cfg: C.ModelConfig) -> dict:
-    check_dense(cfg)
+    check_ported(cfg)
     specs: dict[str, Any] = {
         "embed": C.ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed_table"),
                              cfg.param_dtype, "small_normal"),
@@ -231,10 +243,10 @@ def _ring_cache(cfg: C.ModelConfig) -> bool:
 
 
 def init_cache(cfg: C.ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Decode cache of a dense stack: one KV slot per layer.  ``len`` is a
+    """Decode cache of an attention stack: one KV slot per layer.  ``len`` is a
     0-dim int32 tensor on the host, so reading it costs no device
     synchronization."""
-    check_dense(cfg)
+    check_ported(cfg)
     cache: dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32)}
     size = min(max_len, cfg.window_size) if _ring_cache(cfg) else max_len
     cache["kv"] = A.init_kv_cache(cfg, batch, size, cfg.num_layers, device)
@@ -256,7 +268,7 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: C.ModelConfig):
     """One decode step. token: (B, 1) -> (logits (B,1,V), new_cache).  The
     input cache is not written: the step clones it once and each layer
     writes its new k / v slot into its slice of the copy."""
-    check_dense(cfg)
+    check_ported(cfg)
     x = embed_tokens(params, token, cfg)
     clen = int(cache["len"])
     ring = _ring_cache(cfg)
@@ -269,7 +281,11 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: C.ModelConfig):
             p["mixer"], x, kv["k"][i], kv["v"][i], clen, cfg,
             window=window, cache_pos=kv["pos"] if ring else None)
         x = x + out
-        x = x + mlp_block(p["mlp"], x, cfg)
+        if kind == "moe":
+            out, _ = M.moe_block(p["moe"], x, cfg)
+            x = x + out
+        else:
+            x = x + mlp_block(p["mlp"], x, cfg)
     x = C.rms_norm(x, params["stack"]["final_norm"])
     logits = logits_from_hidden(params, x, cfg)
     new_cache = {**cache, "kv": kv,

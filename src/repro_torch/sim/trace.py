@@ -15,10 +15,9 @@ Ported here: the Ligra graph apps and the HTAP IMDB (the paper's 12
 workloads, Fig. 7), the extended families (BFS/SSSP frontier kernels,
 streaming-ingest HTAP, the two-tenant mix: ``all_workloads(extended=True)``
 is the reference's 22), and the captured traces ``capture/lazy_embed``
-(recorded from the live LazySync protocol) and ``capture/kv_serve`` (a
-paged-KV decode loop), both by :mod:`repro_torch.capture`.
-``capture/moe_experts`` (which drives the MoE model zoo) comes with a later
-slice of the port and raises a ``ValueError`` naming that slice.
+(recorded from the live LazySync protocol), ``capture/kv_serve`` (a
+paged-KV decode loop) and ``capture/moe_experts`` (two tenants' live MoE
+routing), all by :mod:`repro_torch.capture`.
 """
 
 from __future__ import annotations
@@ -43,32 +42,22 @@ MT_APPS = ("mtmix",)
 # Recorded from live execution (repro_torch.capture), not synthesized.
 CAPTURE_APPS = ("capture/kv_serve", "capture/moe_experts",
                 "capture/lazy_embed")
-PORTED_CAPTURE_APPS = ("capture/kv_serve", "capture/lazy_embed")
 
 # app -> needs a graph input?
 ALL_APPS = {**{a: True for a in GRAPH_APPS + FRONTIER_APPS + MT_APPS},
-            **{a: False for a in HTAP_APPS + STREAM_APPS + PORTED_CAPTURE_APPS}}
-
-MODEL_ZOO_SLICE = ("the capture that drives the MoE model zoo "
-                   "(capture/moe_experts, which needs models/moe.py's routing) "
-                   "comes with the MoE slice of the port (ROADMAP queue A11 / "
-                   "A12)")
-_LATER_APPS = {a: MODEL_ZOO_SLICE for a in CAPTURE_APPS
-               if a not in PORTED_CAPTURE_APPS}
+            **{a: False for a in HTAP_APPS + STREAM_APPS + CAPTURE_APPS}}
 
 
 def is_known_app(app: str) -> bool:
-    """Whether ``app`` names a workload of the reference (ported here or
-    queued for a later slice)."""
-    return app in ALL_APPS or app in _LATER_APPS or app.startswith("capture/")
+    """Whether ``app`` names a workload, or a capture spec (checked by
+    :func:`check_app`)."""
+    return app in ALL_APPS or app.startswith("capture/")
 
 
 def check_app(app: str) -> None:
-    """Raise a ``ValueError`` for an app this slice does not produce."""
+    """Raise a ``ValueError`` for an app no family or adapter produces."""
     if app in ALL_APPS:
         return
-    if app in _LATER_APPS:
-        raise ValueError(f"{app!r}: {_LATER_APPS[app]}")
     if app.startswith("capture/"):
         raise ValueError(f"unknown capture spec {app!r} (know "
                          f"{sorted(CAPTURE_APPS)}); capture workloads are "
@@ -257,11 +246,9 @@ def all_workloads(extended: bool = False,
     """The paper's 12 evaluated (app, input) pairs (Fig. 7); with
     ``extended=True`` also the extended families (the frontier kernels and
     the two-tenant mix on every graph input, streaming-ingest HTAP), the
-    reference's 22.  The full captured set is not ported yet: ``captured=True``
-    raises a ``ValueError`` naming its slice (``capture/lazy_embed`` and
-    ``capture/kv_serve`` are ported: name them in a study's workloads)."""
-    if captured:
-        raise ValueError(f"all_workloads(captured=True): {MODEL_ZOO_SLICE}")
+    reference's 22; with ``captured=True``, also the live-model captured
+    families (:mod:`repro_torch.capture`) — opt-in, so fig7-style fleets
+    keep the paper-set means unchanged by default."""
     out: list[tuple[str, str | None]] = [
         (a, g) for a in GRAPH_APPS for g in GRAPH_INPUTS
     ]
@@ -270,4 +257,6 @@ def all_workloads(extended: bool = False,
         out += [(a, g) for a in FRONTIER_APPS for g in GRAPH_INPUTS]
         out += [(a, None) for a in STREAM_APPS]
         out += [(a, g) for a in MT_APPS for g in GRAPH_INPUTS]
+    if captured:
+        out += [(a, None) for a in CAPTURE_APPS]
     return out

@@ -4,7 +4,8 @@ on the CPU: the line-mapper, the windower, the counter-PRNG streams, the
 the tiny scale of ``tests/test_capture.py`` and at the default scale), the
 hand-computed KV decode transcript of ``tests/test_capture.py``, and the
 captured studies through ``Study`` on both engines, all exact.  Also the
-naming ``ValueError``s of the capture that waits for the MoE slice."""
+naming ``ValueError``s of unknown capture specs (``capture/moe_experts``
+has its own file, ``tests/test_torch_moe_capture.py``)."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.capture.recorder import split_step, subsample_even
 from repro_torch.capture.streams import Stream, perm
 from repro_torch.sim.prep import bucket_bound
 from repro_torch.sim.synth import MAX_SIG_ADDRS
-from repro_torch.sim.trace import all_workloads, build_plan, make_trace
+from repro_torch.sim.trace import build_plan, make_trace
 
 APP = "capture/lazy_embed"
 TINY = dict(num_kernels=3, windows_per_kernel=2, scale=0.05)
@@ -220,23 +221,18 @@ def test_study_matches_reference(engine):
 
 
 def test_naming_valueerrors():
-    for app in ("capture/moe_experts",):
-        with pytest.raises(ValueError, match="MoE slice.*A11"):
-            make_trace(app, device="cpu")
-        with pytest.raises(ValueError, match="MoE slice.*A11"):
-            capture_trace(app, device="cpu")
     with pytest.raises(ValueError, match="unknown capture spec"):
         make_trace("capture/bogus", device="cpu")
+    with pytest.raises(ValueError, match="unknown capture spec"):
+        capture_trace("capture/bogus", device="cpu")
     with pytest.raises(ValueError, match="graph_name must be None"):
         make_trace(APP, "enron", device="cpu")
     with pytest.raises(ValueError, match="recorded from live"):
         build_plan(APP)
-    with pytest.raises(ValueError, match="capture/moe_experts"):
-        all_workloads(captured=True)
     from repro_torch.api import Study
 
-    with pytest.raises(ValueError, match="workloads\\[0\\].*A11"):
-        Study(["capture/moe_experts"], device="cpu")
+    with pytest.raises(ValueError, match="workloads\\[0\\].*unknown capture spec"):
+        Study(["capture/bogus"], device="cpu")
 
 
 def test_capture_defaults_to_cuda():

@@ -1303,3 +1303,105 @@ def test_study_server_on_card_equals_cpu(dev, coalesce, monkeypatch):
         assert (a.status, a.engine) == (b.status, b.engine) == \
             ("ok", "coalesced" if coalesce else "batch")
         assert a.results.to_rows() == b.results.to_rows(), rid
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "moonshot_v1_16b_a3b"])
+def test_moe_smoke_on_card_equals_cpu(dev, no_tf32, arch):
+    """An MoE smoke config (float32) on the card: the prefill step's logits
+    and three decode steps' within 1e-4 of the CPU run's, the same experts
+    picked in every MoE call, one B7 launch per prefill layer."""
+    import repro_torch.models.moe as M
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=torch.float32)
+    model = Model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    step = make_prefill_step(model)
+    block = M.moe_block
+    runs = {}
+    for where, params in (("card", tree_map(lambda t: t.to(dev), cpu)), ("cpu", cpu)):
+        d = torch.device(dev if where == "card" else "cpu")
+        picks = []
+
+        def tapped(p, x, c):
+            picks.append(M.route(p, x, c)[-1].cpu())
+            return block(p, x, c)
+
+        M.moe_block = tapped
+        try:
+            reset_launch_counts()
+            logits = [step(params, {"tokens": toks.to(d)}).cpu()]
+            if where == "card":
+                torch.cuda.synchronize()
+                assert launch_counts()["flash_attention"] == cfg.num_layers
+            cache = model.init_cache(2, 4, d)
+            for i in range(3):
+                out, cache = model.decode(params, toks[:, i:i + 1].to(d), cache)
+                logits.append(out[:, 0].cpu())
+        finally:
+            M.moe_block = block
+        runs[where] = (logits, picks)
+    (got, got_e), (want, want_e) = runs["card"], runs["cpu"]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert len(got_e) == len(want_e) == 4 * cfg.num_layers
+    assert all(torch.equal(a, b) for a, b in zip(got_e, want_e))
+    reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dispatch", ["sort", "cumsum"])
+def test_moe_block_on_card_is_bit_stable(dev, no_tf32, dtype, dispatch):
+    """The MoE block (qwen2-moe's 64 padded experts, top-4, at a capacity
+    that drops) gives the same bits twice on the card — no atomic combine —
+    and keeps the sort dispatch's (token, expert, rank) set."""
+    import repro_torch.models.moe as M
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import MoEConfig
+
+    base = get_config("qwen2_moe_a2_7b")
+    cfg = dataclasses.replace(base, d_model=256, param_dtype=dtype, moe_dispatch=dispatch,
+                              moe=MoEConfig(num_experts=60, num_shared=4, top_k=4,
+                                            d_expert=64, capacity_factor=0.5,
+                                            padded_experts=64))
+    from repro_torch.models.common import init_params
+
+    p = init_params(M.moe_param_specs(cfg), _gen(dev, 3))
+    p["router"] = p["router"] * 400  # peaked gates: hot experts drop
+    x = torch.randn((4, 512, cfg.d_model), generator=_gen(dev, 4), device=dev).to(dtype)
+    a, aux_a = M.moe_block(p, x, cfg)
+    b, aux_b = M.moe_block(p, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a["router_z"], aux_b["router_z"])
+    top_e = M.route(p, x, cfg)[-1]
+    cap = M.capacity(cfg.moe, 4 * 512)
+    sets = []
+    for disp in ("sort", "cumsum"):
+        tok, exp, rank, _, _ = M.dispatch_plan(top_e, 64, disp)
+        keep = rank < cap
+        sets.append(sorted(zip(tok[keep].tolist(), exp[keep].tolist(), rank[keep].tolist())))
+    assert sets[0] == sets[1] and len(sets[0]) < 4 * 512 * 4
+    cpu_p = {k: v.cpu() for k, v in p.items()}
+    want, _ = M.moe_block(cpu_p, x.cpu(), cfg)
+    tol = 1e-4 if dtype == torch.float32 else 0.05
+    torch.testing.assert_close(a.cpu(), want, rtol=tol, atol=tol)
+
+
+def test_moe_experts_trace_on_card_equals_cpu(dev):
+    """``capture/moe_experts`` routed on the card records the CPU's trace,
+    field for field."""
+    from repro_torch.sim.trace import make_trace
+
+    kw = dict(num_kernels=6, seed=1)
+    card = make_trace("capture/moe_experts", **kw)
+    host = make_trace("capture/moe_experts", device="cpu", **kw)
+    for f in dataclasses.fields(card):
+        a, b = getattr(card, f.name), getattr(host, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b), f.name
+        else:
+            assert a == b, f.name

@@ -213,7 +213,7 @@ def test_on_dispatch_boundary(pairs):
 def test_study_rejects_bad_specs(pairs):
     tts = [t for _, t in pairs]
     for bad, match in ((["nosuchapp"], "unknown app"),
-                       (["capture/moe_experts"], "slice"),
+                       (["capture/no_such_adapter"], "unknown capture spec"),
                        (["pagerank"], "graph input"),
                        (["htap128-arxiv"], "table workload")):
         with pytest.raises(ValueError, match=match):

@@ -19,10 +19,13 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-# the walk reaches the study service and its runtime helpers
+# the walk reaches the study service and its runtime helpers, and the MoE
+# family with its capture and the host copy of jax.random's draws
 missing = {"repro_torch.runtime.fault_tolerance", *(f"repro_torch.serve.{m}" for m in (
     "chaos", "clock", "coalesce", "policy", "queueing", "request", "retry", "server",
-    "warm"))} - set(names)
+    "warm")), "repro_torch.models.moe", "repro_torch.capture.moe_experts",
+    "repro_torch.sim._jaxrandom", "repro_torch.configs.qwen2_moe_a2_7b",
+    "repro_torch.configs.moonshot_v1_16b_a3b"} - set(names)
 assert not missing, missing
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)

@@ -315,14 +315,14 @@ def test_decode_does_not_write_its_input_cache():
 
 
 def test_later_slices_raise_naming_them():
-    for arch, slice_name in (("qwen2_moe_a2_7b", "MoE"), ("falcon_mamba_7b", "SSM"),
+    for arch, slice_name in (("falcon_mamba_7b", "SSM"),
                              ("recurrentgemma_2b", "SSM"),
                              ("seamless_m4t_large_v2", "enc-dec"),
                              ("internvl2_26b", "enc-dec")):
         with pytest.raises(ValueError, match=f"{slice_name}.*A11"):
             get_smoke_config(arch)
     cfg = get_smoke_config("qwen3_4b")
-    for kind, name in (("moe", "MoE"), ("mamba", "SSM"), ("rglru", "SSM")):
+    for kind, name in (("mamba", "SSM"), ("rglru", "SSM")):
         with pytest.raises(ValueError, match=f"{name}.*A11"):
             Model(dataclasses.replace(cfg, block_kind=kind)).param_specs()
     with pytest.raises(ValueError, match="enc-dec"):

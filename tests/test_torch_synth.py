@@ -16,7 +16,7 @@ from repro.sim import synth as RS
 from repro.sim.trace import all_workloads as r_all_workloads
 from repro.sim.trace import make_trace as r_make_trace
 from repro_torch.sim import synth as TS
-from repro_torch.sim.trace import all_workloads, make_trace, trace_from_numpy
+from repro_torch.sim.trace import CAPTURE_APPS, all_workloads, make_trace, trace_from_numpy
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -97,24 +97,23 @@ def test_trace_from_numpy_carries_a_reference_trace():
 
 
 def test_all_workloads_is_the_paper_set():
-    """The paper's 12 by default, repro's 22 with ``extended=True``; the
-    captured set still names its slice."""
+    """The paper's 12 by default, repro's 22 with ``extended=True``, and
+    repro's captured set with ``captured=True``."""
     assert all_workloads() == r_all_workloads()
     assert all_workloads(extended=True) == r_all_workloads(extended=True)
-    with pytest.raises(ValueError, match="slice"):
-        all_workloads(captured=True)
+    assert all_workloads(captured=True) == r_all_workloads(captured=True)
+    assert all_workloads(captured=True)[-3:] == [(a, None) for a in CAPTURE_APPS]
 
 
 @pytest.mark.parametrize("app,graph", [("bfs", "arxiv"), ("htap_stream", None),
                                        ("mtmix", "enron"), ("capture/moe_experts", None)])
 def test_later_families_name_their_slice(app, graph):
-    """The extended families are ported and equal repro's traces;
-    ``capture/moe_experts`` still names the slice it comes with."""
+    """The extended families and ``capture/moe_experts`` are ported and
+    equal repro's traces."""
     if app.startswith("capture/"):
-        with pytest.raises(ValueError, match="slice"):
-            make_trace(app, graph, device="cpu")
-        return
-    kw = dict(num_kernels=4, scale=0.002 if graph is None else 0.5)
+        kw = dict(num_kernels=4, scale=0.05)
+    else:
+        kw = dict(num_kernels=4, scale=0.002 if graph is None else 0.5)
     _assert_same_trace(r_make_trace(app, graph, **kw),
                        make_trace(app, graph, device="cpu", **kw))
 

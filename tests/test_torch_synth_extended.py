@@ -164,8 +164,9 @@ def test_unknown_backend_raises():
 def test_all_workloads_extended_is_the_reference_fleet():
     assert all_workloads(extended=True) == r_all_workloads(extended=True)
     assert len(all_workloads(extended=True)) == 22
-    with pytest.raises(ValueError, match="A11"):
-        all_workloads(extended=True, captured=True)
+    full = all_workloads(extended=True, captured=True)
+    assert full == r_all_workloads(extended=True, captured=True)
+    assert len(full) == 25
 
 
 def test_numpy_threefry_equals_reference():
