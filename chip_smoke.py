@@ -63,6 +63,13 @@ Phases, in order; any failure exits non-zero before the final line:
    ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
 5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
    by kernel and the device's idle share of the unprofiled batch wall time;
+5m. lane mesh — the Fig. 7 study at ``devices=1`` (counted; a spy on
+   ``sim.mesh.shard_lanes`` sees no call) equal to phase 4's batch run on
+   every field; ``devices`` one past the visible cards refused naming the
+   count; where two or more cards are visible, the study at ``devices=2``
+   equal to ``devices=1`` on every field, each card launching the window
+   loop's B2, B3 and B4 (counted by entry point and card); on one card a
+   line says the ``devices=2`` leg did not run, and why;
 5a. extended Fig. 7 fleet — ``Study(all_workloads(extended=True))``, the
    reference Fig. 7 driver's 22 workloads (the paper's 12, ``bfs`` and
    ``sssp`` on every graph input, ``htap_stream``, ``mtmix`` on every graph
@@ -220,6 +227,26 @@ Phases, in order; any failure exits non-zero before the final line:
 21. MoE smoke — the qwen2-moe and moonshot smoke configs in float32 (TF32
    off) through ``make_prefill_step`` and 3 decode steps on the card and
    on the CPU: logits within 1e-4, every MoE call's ``top_e`` equal;
+21a. falcon-mamba-7b — ``get_config("falcon_mamba_7b")`` at full width
+   and depth (64 mamba layers, d_inner 8,192, d_state 16; 7,006,326,784
+   parameters, 13.05 GiB bf16) from a seeded generator: ``make_prefill_step``
+   on ``SSM_PREFILL_BATCH`` x 4,096 tokens counted (no kernel of the
+   package: the products and the log-depth scan are PyTorch ops, as the
+   reference's are outside Pallas), unprofiled (wall, tokens/s, peak
+   memory and the shape taken) and profiled (idle share, top kernels);
+   layer 0's ``ssm_block`` in float32 on the card against the same call on
+   the CPU (rtol 1e-4, atol 1e-4 of the output's scale); the serve loop
+   with the reference's defaults and 8 decode steps profiled;
+21b. recurrentgemma-2b — ``get_config("recurrentgemma_2b")`` at full width
+   and depth (18 rglru + 8 swa layers, 10 query heads on one KV head of
+   256, window 2,048; 2,894,481,920 parameters): prefill 4 x 4,096 counted
+   and tapped (exactly 8 sm90 B7 launches, each held to its plain
+   version), unprofiled and profiled; layer 2's B7 call timed against its
+   plain version with the bound counted inside the band (6,292,480
+   query-key pairs a head) and SDPA with a boolean band mask as yardstick
+   (``hybrid_shape`` in the kernels line); the serve loop (its ring KV
+   cache of min(max_len, 2,048) slots does not wrap in 63 steps, as a line
+   says) and 8 decode steps profiled;
 22. capture study — ``benchmarks/fig_capture.py:48``'s fleet (the three
    captured families and their synthetic analogues: ``capture/kv_serve``,
    ``capture/moe_experts``, ``capture/lazy_embed``, ``htap_stream``,
@@ -231,8 +258,9 @@ Phases, in order; any failure exits non-zero before the final line:
    its CPU trace, field for field;
 23. the ``kernels`` JSON line (ten kernels, launches by path including the
    extended fleet's, the M = 64 Study's, the study service's legs, the MoE
-   paths' and the capture study's; B7-sm90 also carries its MoE-shape
-   timing as ``moe_shape``: B7 once a route, as
+   paths', the lane mesh's, the SSM / hybrid paths' and the capture
+   study's; B7-sm90 also carries its MoE-shape timing as ``moe_shape`` and
+   recurrentgemma's as ``hybrid_shape``: B7 once a route, as
    ``flash_attention_general`` — its forced bf16 timing, the float32 one as
    ``float32`` — and ``flash_attention_sm90``; the seven redesigned Bloom
    kernels also carry the launch floor, ``h3_hash`` (timed at 262,144
@@ -252,6 +280,7 @@ results are compared.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import importlib
@@ -355,6 +384,19 @@ MOE_SMOKE_LEN, MOE_SMOKE_DECODE = 32, 3
 MOE_DISPATCHES = ("sort", "cumsum", "ep")
 MOE_DISPATCH_TOL = 3e-2  # the reference's EP-against-sort tolerance (tests/test_moe_ep.py:43)
 MOE_DROP_CAPACITY_FACTOR = 1.0  # capacity 1,024 a padded expert at T = 16,384: hot experts drop
+SSM_ARCH = "falcon_mamba_7b"
+HYBRID_ARCH = "recurrentgemma_2b"
+SSM_SERVE_ARGS = dict(SERVE_ARGS, arch="falcon-mamba-7b")
+HYBRID_SERVE_ARGS = dict(SERVE_ARGS, arch="recurrentgemma-2b")
+# falcon-mamba's prefill: 4 x 4,096 tokens.  Each (B, S, 8,192, 16) float32
+# scan term is 8.6 GB there; the scan keeps dA, dBx and its half-length
+# levels (~2x more) beside the 13.05 GiB of bf16 weights, ~50 GB in all.
+SSM_PREFILL_BATCH = 4
+SSM_CHECK_LEN = 256   # tokens of layer 0's card-against-CPU ssm_block check
+# float32, TF32 off: rtol, and atol as a share of the output's largest
+# magnitude (the reference's init scales a stacked leaf by its fan-in over
+# the layer axis too, so full-width activations are ~1e-3)
+SSM_CHECK_TOL = 1e-4
 # benchmarks/fig_capture.py:48: the three captured families, then the
 # synthetic analogue of each
 CAPTURE_STUDY = ("capture/kv_serve", "capture/moe_experts", "capture/lazy_embed",
@@ -938,7 +980,7 @@ def main_path(K) -> dict[str, dict[str, int]]:
             check(not diff, f"{a.workload}/{m}: batch != sequential {diff}")
     print("batch and sequential agree on every field of 12 x 6 results",
           flush=True)
-    return counts, walls, runs["sequential"]
+    return counts, walls, runs
 
 
 def exact_points(got, want, label: str) -> None:
@@ -3041,6 +3083,362 @@ def moe_smoke_path() -> dict[str, int]:
     return total
 
 
+class LaunchDeviceTap:
+    """While active, counts every kernel launch by (entry point, device) by
+    wrapping ``_build.launch``, which every launcher calls with the device
+    of its tensors; the wrapped call launches exactly what it would have."""
+
+    def __enter__(self):
+        from repro_torch.kernels import _build
+
+        self._b, self._orig = _build, _build.launch
+        self.launches = collections.Counter()
+
+        def tapped(lib, name, *args, device):
+            if device is not None:
+                self.launches[(name, str(device))] += 1
+            return self._orig(lib, name, *args, device=device)
+
+        _build.launch = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._b.launch = self._orig
+        return False
+
+
+def mesh_path(batch_rs) -> tuple[dict, dict]:
+    """The lane mesh on the card: the Fig. 7 study at ``devices=1`` (counted;
+    no shard call; every field equal to the batch run of phase 4), a count
+    past the visible cards refused naming it, and — where two or more cards
+    are visible — the study at ``devices=2`` equal to ``devices=1`` with the
+    window loop's Bloom kernels launched on both cards.  Returns (summary,
+    launch counts by leg)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.api import Study, all_workloads
+    from repro_torch.sim import mesh as M
+
+    phase("lane mesh: the Fig. 7 study at devices=1")
+    n_cards = torch.cuda.device_count()
+    shard_calls = []
+    orig = M.shard_lanes
+
+    def spy(fn, devices, device=None):
+        shard_calls.append(devices)
+        return orig(fn, devices, device)
+
+    study = Study(all_workloads())
+    M.shard_lanes = spy
+    try:
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        rs = study.run(devices=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        M.shard_lanes = orig
+    counts = {"mesh_fig7_devices1": launch_counts()}
+    check(not shard_calls, f"devices=1 made {len(shard_calls)} shard calls")
+    for name in FIG7_KERNELS:
+        check(counts["mesh_fig7_devices1"][name] > 0, f"mesh devices=1: {name} never launched")
+    exact_points(rs.points, batch_rs.points, "lane mesh devices=1 against the batch run")
+    print(f"devices=1: {len(rs)} workloads in {wall:.2f} s wall, no shard call; every "
+          f"SimResult field equals the batch run's; launches {counts['mesh_fig7_devices1']}",
+          flush=True)
+    try:
+        study.run(devices=n_cards + 1)
+    except ValueError as e:
+        check(f"only {n_cards} visible" in str(e), f"devices={n_cards + 1}: {e}")
+        print(f"devices={n_cards + 1} refused: {e}", flush=True)
+    else:
+        check(False, f"devices={n_cards + 1} ran on {n_cards} visible cards")
+    summary = dict(cards=n_cards, devices1_wall_s=wall, shard_calls=0)
+    if n_cards < 2:
+        print(f"lane mesh: the devices=2 leg did not run: {n_cards} CUDA device visible, "
+              f"it needs two", flush=True)
+        summary["devices2"] = f"not run: {n_cards} card visible"
+        return summary, counts
+    phase("lane mesh: the Fig. 7 study at devices=2")
+    with LaunchDeviceTap() as tap:
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        rs2 = study.run(devices=2)
+        for i in range(2):
+            torch.cuda.synchronize(i)
+        wall2 = time.perf_counter() - t0
+    counts["mesh_fig7_devices2"] = launch_counts()
+    exact_points(rs2.points, rs.points, "lane mesh devices=2 against devices=1")
+    by_card = {f"cuda:{i}": sorted(n for n, d in tap.launches if d == f"cuda:{i}")
+               for i in range(2)}
+    for card_name, names in by_card.items():
+        for entry in ("bloom_insert", "bloom_query", "bloom_intersect"):
+            check(any(n.startswith(entry) for n in names),
+                  f"devices=2: no {entry} launch on {card_name} ({names})")
+    print(f"devices=2: {wall2:.2f} s wall; every SimResult field equals devices=1; "
+          f"launches by (entry point, card) {dict(tap.launches)}", flush=True)
+    summary.update(devices2_wall_s=wall2,
+                   devices2_launches={f"{n}@{d}": c for (n, d), c in tap.launches.items()})
+    return summary, counts
+
+
+def ssm_prefill_path() -> tuple[dict, dict, dict]:
+    """falcon-mamba-7b at full width and depth on the card: prefill steps of
+    ``SSM_PREFILL_BATCH`` x 4,096 tokens, counted (the model runs no kernel
+    of the package: its products and scan are PyTorch ops, as the
+    reference's are outside Pallas), unprofiled (wall, peak memory) and
+    profiled (idle share, top kernels).  Returns (summary, launch counts of
+    the counted run, params)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+
+    phase("falcon-mamba-7b prefill")
+    dev = torch.device("cuda", 0)
+    cfg = get_config(SSM_ARCH)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.param_count()
+    di = cfg.ssm.expand * cfg.d_model
+    print(f"{cfg.name}: {cfg.num_layers} mamba layers, d_model {cfg.d_model}, d_inner {di}, "
+          f"d_state {cfg.ssm.d_state}, vocab {cfg.vocab}; {n_params} parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) initialised in "
+          f"{init_s:.2f} s", flush=True)
+    shape = (SSM_PREFILL_BATCH, PREFILL_LEN)
+    tokens = torch.randint(0, cfg.vocab_size, shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    step(params, {"tokens": tokens[:, :256]})  # warm-up: cuBLAS handles
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = step(params, batch)
+    torch.cuda.synchronize()
+    counted_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(sum(counts.values()) == 0,
+          f"mamba prefill: the SSM stack launched kernels of the package: {counts}")
+    check(tuple(last.shape) == (shape[0], cfg.vocab) and
+          bool(last.to(torch.float32).isfinite().all()),
+          f"mamba prefill: last-position logits {tuple(last.shape)} not finite")
+    del last
+    term_gb = shape[0] * shape[1] * di * cfg.ssm.d_state * 4 / 1e9
+    print(f"mamba prefill (counted) {shape[0]} x {shape[1]}: {counted_wall:.3f} s wall; "
+          f"no kernel of the package launched; each (B, S, d_inner, d_state) float32 scan "
+          f"term {term_gb:.2f} GB", flush=True)
+    wall, peak, busy, n_kernels, by_name, _ = time_and_profile(lambda: step(params, batch))
+    t = shape[0] * shape[1]
+    print(f"mamba prefill: {wall:.4f} s wall ({t / wall:.0f} tokens/s); device busy "
+          f"{busy:.4f} s in {n_kernels} kernels (idle share {1.0 - busy / wall:.3f}); peak "
+          f"memory allocated {peak / 2**30:.2f} GiB (the {n_params * 2 / 2**30:.2f} GiB of "
+          f"weights included) at {shape[0]} x {shape[1]} tokens", flush=True)
+    summary = dict(batch=shape[0], seq=shape[1], layers=cfg.num_layers, params=n_params,
+                   init_s=init_s, wall_s=wall, counted_wall_s=counted_wall,
+                   tokens_per_s=t / wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
+                   kernels=n_kernels, peak_mem_bytes=peak, scan_term_bytes=term_gb * 1e9,
+                   top=[dict(kernel=k[:80], s=tt, count=c) for tt, c, k in by_name[:8]])
+    return summary, counts, params
+
+
+def ssm_block_check(params: dict) -> dict:
+    """Layer 0's ``ssm_block`` at full width in float32 (TF32 off) on the card
+    against the same call on the CPU: the weights cast to float32, the
+    input the embeddings of ``SSM_CHECK_LEN`` seeded tokens; within rtol
+    ``SSM_CHECK_TOL`` and an atol of ``SSM_CHECK_TOL`` times the output's
+    largest magnitude."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+
+    phase("falcon-mamba-7b layer 0 ssm_block, float32, card against CPU")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the ssm_block check")
+    cfg = dataclasses.replace(get_config(SSM_ARCH), param_dtype=torch.float32)
+    p = tree_map(lambda a: a.to(torch.float32), T._index(params["stack"]["period"][0], 0))
+    p = p["mixer"]
+    toks = torch.randint(0, cfg.vocab_size, (1, SSM_CHECK_LEN),
+                         generator=torch.Generator().manual_seed(3))
+    x = params["embed"][toks.to(params["embed"].device)].to(torch.float32) * cfg.d_model ** 0.5
+    t0 = time.perf_counter()
+    got = SSM.ssm_block(p, x, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = SSM.ssm_block(tree_map(lambda a: a.cpu(), p), x.cpu(), cfg)
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    diff, scale = float((got - want).abs().max()), float(want.abs().max())
+    check(scale > 0 and bool(torch.allclose(got, want, rtol=SSM_CHECK_TOL,
+                                            atol=SSM_CHECK_TOL * scale)),
+          f"ssm_block layer 0: card differs from the CPU by {diff:.3g} (max |out| {scale:.3g})")
+    print(f"ssm_block layer 0 (float32, 1 x {SSM_CHECK_LEN} tokens, d_inner "
+          f"{cfg.ssm.expand * cfg.d_model}): card equals the CPU within rtol {SSM_CHECK_TOL}, "
+          f"atol {SSM_CHECK_TOL} x max |out| (max |diff| {diff:.3g}, max |out| {scale:.4g}, "
+          f"{diff / scale:.3g} of it); card {card_s:.3f} s, CPU {cpu_s:.3f} s", flush=True)
+    return dict(tokens=SSM_CHECK_LEN, max_abs_diff=diff, rtol=SSM_CHECK_TOL,
+                atol=SSM_CHECK_TOL * scale, max_abs_out=scale)
+
+
+def hybrid_prefill_path() -> tuple[dict, dict, dict, tuple]:
+    """recurrentgemma-2b at full width and depth on the card: prefill steps
+    of 4 x 4,096 tokens — counted and tapped (exactly one sm90 B7 launch a
+    ``swa`` layer, 8, each held to its plain version), unprofiled (wall,
+    peak memory) and profiled (idle share, B7's share).  Returns (summary,
+    launch counts of the counted run, params, layer 2's B7 inputs)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+
+    phase("recurrentgemma-2b prefill")
+    dev = torch.device("cuda", 0)
+    cfg = get_config(HYBRID_ARCH)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.param_count()
+    n_swa = cfg.pattern.count("swa")
+    print(f"{cfg.name}: {cfg.num_layers} layers ({cfg.pattern.count('rglru')} rglru, {n_swa} "
+          f"swa at window {cfg.window_size}), d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} kv head x {cfg.head_dim}, lru width "
+          f"{cfg.recurrent.lru_width}, vocab {cfg.vocab}; {n_params} parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) initialised in "
+          f"{init_s:.2f} s", flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    step(params, {"tokens": tokens[:, :256]})  # warm-up: cuBLAS handles, kernels
+    torch.cuda.synchronize()
+    tap = FlashTap()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tap:
+        last = step(params, batch)
+    torch.cuda.synchronize()
+    counted_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["flash_attention_sm90"] == n_swa and counts["flash_attention_general"] == 0,
+          f"hybrid prefill: {counts['flash_attention_sm90']} flash_attention launches on the "
+          f"sm90 route and {counts['flash_attention_general']} on the general one, want "
+          f"exactly {n_swa} (one a swa layer), all sm90 (bf16, D = {cfg.head_dim})")
+    check(len(tap.calls) == n_swa and all(c[4] == cfg.window_size for c in tap.calls),
+          f"hybrid prefill: {len(tap.calls)} ops.mha calls, windows "
+          f"{[c[4] for c in tap.calls]}")
+    check(tuple(last.shape) == (PREFILL_BATCH, cfg.vocab) and
+          bool(last.to(torch.float32).isfinite().all()),
+          f"hybrid prefill: last-position logits {tuple(last.shape)} not finite")
+    err, excess = tap.check("hybrid prefill")
+    print(f"hybrid prefill (counted): {counted_wall:.3f} s wall; launches {counts}; all "
+          f"{len(tap.calls)} flash_attention calls (sm90 route, Hq {cfg.num_heads} on Hkv "
+          f"{cfg.num_kv_heads}, D {cfg.head_dim}, window {cfg.window_size}) within tolerance "
+          f"of their plain versions (max |diff| {err:.4g}, at most {excess:.3g} of the "
+          f"tolerance)", flush=True)
+    qkv = tap.calls[0][:3]
+    del tap, last
+    gc.collect()
+    wall, peak, busy, n_kernels, by_name, b7_s = time_and_profile(
+        lambda: step(params, batch))
+    t = PREFILL_BATCH * PREFILL_LEN
+    print(f"hybrid prefill: {wall:.4f} s wall ({t / wall:.0f} tokens/s); device busy "
+          f"{busy:.4f} s in {n_kernels} kernels (idle share {1.0 - busy / wall:.3f}), B7 "
+          f"{b7_s:.4f} s of it ({b7_s / busy:.3f}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB (the {n_params * 2 / 2**30:.2f} GiB of weights "
+          f"included)", flush=True)
+    summary = dict(batch=PREFILL_BATCH, seq=PREFILL_LEN, layers=cfg.num_layers,
+                   params=n_params, init_s=init_s, wall_s=wall,
+                   counted_wall_s=counted_wall, tokens_per_s=t / wall, device_busy_s=busy,
+                   idle_share=1.0 - busy / wall, kernels=n_kernels, flash_device_s=b7_s,
+                   flash_share=b7_s / busy, peak_mem_bytes=peak, flash_calls=n_swa,
+                   flash_max_abs_err=err, flash_max_tolerance_share=excess,
+                   top=[dict(kernel=k[:80], s=tt, count=c) for tt, c, k in by_name[:8]])
+    return summary, counts, params, qkv
+
+
+def hybrid_flash_timing(qkv: tuple, window: int) -> dict:
+    """B7's sm90 kernel at recurrentgemma's shape (GQA 10 on 1, D = 256,
+    causal under a ``window``-token band) on layer 2's inputs, against its
+    plain version, timed as :func:`flash_kernel_phase` times it; its bound
+    counts the FLOPs inside the band only.  SDPA with an explicit boolean
+    band mask is the yardstick (a mask takes it off its flash backend)."""
+    import torch
+    import torch.nn.functional as F
+
+    FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    phase("kernel flash_attention (sm90 bf16) at the hybrid prefill's shape (window)")
+    q, k, v = (a.contiguous() for a in qkv)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    check(FA._route_for(q.dtype, d) == "sm90", "the hybrid prefill's B7 call is not sm90")
+    want = FA.flash_attention_plain(q, k, v, causal=True, window=window)
+    got = FA._flash_attention(q, k, v, causal=True, window=window, route="sm90")
+    err, excess = fa_excess(got, want)
+    check(excess <= 1.0, f"flash_attention_sm90 at the hybrid shape: {excess:.3g} of the "
+                         f"tolerance (max |diff| {err:.4g})")
+    pos = torch.arange(s, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).to(torch.float32)
+                     - want.to(torch.float32)).abs().max())
+    del got, want, lib
+    pairs = sum(min(i + 1, window) for i in range(s))  # query-key pairs in the band, a head
+    useful = 4 * d * pairs * b * hq
+    st = measure(f"flash_attention_sm90 (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, bfloat16, "
+                 f"causal, window {window}; library: SDPA with a boolean band mask)", err,
+                 lambda *a: FA._flash_attention(*a, causal=True, window=window, route="sm90"),
+                 lambda *a: FA.flash_attention_plain(*a, causal=True, window=window),
+                 (q, k, v), nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                 ops=useful, iters=200, plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
+                 library=lambda *a: F.scaled_dot_product_attention(
+                     *a, attn_mask=band, enable_gqa=True),
+                 library_args=(qt, kt, vt))
+    print(f"hybrid shape: {pairs} query-key pairs a head inside the band "
+          f"({useful:.4g} FLOP); SDPA (band mask) against plain {lib_err:.4g}", flush=True)
+    return dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=hkv, D=d, dtype="bfloat16", causal=True,
+                               window=window),
+                tolerance_share=excess, useful_flop=useful, band_pairs_per_head=pairs,
+                library_call="torch.nn.functional.scaled_dot_product_attention"
+                             "(attn_mask=<bool band>, enable_gqa=True)",
+                library_max_abs_diff_vs_plain=lib_err)
+
+
+def recurrent_serve_path(arch: str, serve_args: dict, params: dict) -> tuple[dict, dict]:
+    """The port's serve loop at full width for an SSM / hybrid arch with the
+    reference loop's defaults on ``params``, and its decode step profiled.
+    The cache is the reference's: one per loop, shared by the slots, the
+    SSM / RG-LRU states included.  Returns (summary, launch counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    phase(f"{cfg.name} serve")
+    if T._ring_cache(cfg):
+        slots = min(serve_args["max_len"], cfg.window_size)
+        print(f"ring KV cache of {slots} slots (min(max_len {serve_args['max_len']}, window "
+              f"{cfg.window_size})); the loop stops after max_len - 1 = "
+              f"{serve_args['max_len'] - 1} steps, so the ring does not wrap in this run "
+              f"(it would past {slots} positions)", flush=True)
+    return serve_and_decode(f"{cfg.name} serve", Model(cfg), params, serve_args)
+
+
 def capture_study_path() -> tuple[dict, dict]:
     """``benchmarks/fig_capture.py``'s study — the three captured families
     and their synthetic analogues, all six mechanisms — on both engines:
@@ -3113,6 +3511,7 @@ def main() -> int:
         K = build()
         import torch
 
+        from repro_torch.configs import get_config
         from repro_torch.models.common import tree_map
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3121,8 +3520,11 @@ def main() -> int:
               f"{torch.backends.cudnn.allow_tf32}", flush=True)
         floor_ms = launch_floor_ms()
         stats = kernel_phases(K, floor_ms)
-        counts, walls, sequential = main_path(K)
+        counts, walls, fig7_runs = main_path(K)
+        sequential = fig7_runs["sequential"]
         profile = main_path_profile(walls["batch"])
+        mesh_summary, mesh_counts = mesh_path(fig7_runs["batch"])
+        del fig7_runs
         fig7x_counts, fig7x_walls = extended_fleet_path(sequential, card)
         service_summary, service_counts = study_service_path(sequential.points, card)
         caps_counts = signature_caps_phase(K, importlib.import_module(
@@ -3165,6 +3567,24 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         moe_smoke_counts = moe_smoke_path()
+        mamba_prefill, mamba_prefill_counts, params = ssm_prefill_path()
+        mamba_block = ssm_block_check(params)
+        mamba_serving, mamba_serve_counts = recurrent_serve_path(SSM_ARCH, SSM_SERVE_ARGS,
+                                                                  params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_prefill, hybrid_prefill_counts, params, qkv2 = hybrid_prefill_path()
+        stats["flash_attention_sm90"]["hybrid_shape"] = hybrid_flash_timing(
+            qkv2, get_config(HYBRID_ARCH).window_size)
+        del qkv2
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_serving, hybrid_serve_counts = recurrent_serve_path(HYBRID_ARCH,
+                                                                    HYBRID_SERVE_ARGS, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
         capstudy_counts, capstudy_walls = capture_study_path()
         for name in ("h3_hash", "bloom_query", "bloom_query_onehot", "bloom_insert",
                      "bloom_insert_onehot", "bloom_intersect"):
@@ -3188,6 +3608,9 @@ def main() -> int:
                "smoke_prefill_f32": smoke_counts,
                "moe_prefill": moe_prefill_counts, "moe_serve": moe_serve_counts,
                "moe_smoke_f32": moe_smoke_counts,
+               **mesh_counts,
+               "mamba_prefill": mamba_prefill_counts, "mamba_serve": mamba_serve_counts,
+               "hybrid_prefill": hybrid_prefill_counts, "hybrid_serve": hybrid_serve_counts,
                "capture_study_batch": capstudy_counts["batch"],
                "capture_study_sequential": capstudy_counts["sequential"]}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
@@ -3203,7 +3626,11 @@ def main() -> int:
                       "kv_serve_wall_s": kv_walls, "qwen3_prefill": prefill,
                       "qwen3_serve": serving, "qwen3_prefill_f32": prefill32,
                       "moe_prefill": moe_prefill, "moe_dispatch": moe_dispatch,
-                      "moe_serve": moe_serving, "capture_study_wall_s": capstudy_walls}))
+                      "moe_serve": moe_serving, "lane_mesh": mesh_summary,
+                      "mamba_prefill": mamba_prefill, "mamba_block_check": mamba_block,
+                      "mamba_serve": mamba_serving, "hybrid_prefill": hybrid_prefill,
+                      "hybrid_serve": hybrid_serving,
+                      "capture_study_wall_s": capstudy_walls}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

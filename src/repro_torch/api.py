@@ -5,9 +5,9 @@
     rows = Study(workloads=["pagerank-arxiv", "htap128"]).run() \\
         .pivot("workload", "mechanism", "speedup")
 
-The same names as :mod:`repro.api`, restricted to what this slice of the
-port covers (the paper's 12 workloads on one device).  Everything runs on
-the CUDA card unless ``device="cpu"`` is passed.
+The same names as :mod:`repro.api`.  Everything runs on the CUDA card
+unless ``device="cpu"`` is passed; ``Study.run(devices=d)`` shards the
+lane axis over ``d`` cards (:mod:`repro_torch.sim.mesh`).
 """
 
 from repro_torch.core.coherence import LazyPIMConfig

@@ -1,14 +1,15 @@
 """Architecture registry, PyTorch port of :mod:`repro.configs`:
 ``get_config(name)`` / ``get_smoke_config(name)``.
 
-Every architecture of the reference is named in :data:`ARCHS`; the dense
-and MoE decoder-only ones are ported (:data:`PORTED`: ``qwen3_4b``, which
-the serving and LazySync paths drive at full width, ``phi3_mini_3_8b``,
-``deepseek_67b``, ``nemotron_4_340b``, and the MoE pair
-``qwen2_moe_a2_7b``, served at full width too, and
-``moonshot_v1_16b_a3b``), with ``config()`` and ``smoke()`` copied field
-for field.  Any other one raises a ``ValueError`` naming the
-slice of the port that brings it (ROADMAP A11).
+Every architecture of the reference is named in :data:`ARCHS`; the
+decoder-only ones are ported (:data:`PORTED`: ``qwen3_4b``, which the
+serving and LazySync paths drive at full width, ``phi3_mini_3_8b``,
+``deepseek_67b``, ``nemotron_4_340b``, the MoE pair ``qwen2_moe_a2_7b``,
+served at full width too, and ``moonshot_v1_16b_a3b``, the SSM
+``falcon_mamba_7b`` and the hybrid ``recurrentgemma_2b``, both served at
+full width), with ``config()`` and ``smoke()`` copied field for field.
+The encoder-decoder and VLM ones raise a ``ValueError`` naming the slice
+of the port that brings them (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -34,11 +35,10 @@ ARCHS = (
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 PORTED = ("qwen3_4b", "phi3_mini_3_8b", "deepseek_67b", "nemotron_4_340b",
-          "qwen2_moe_a2_7b", "moonshot_v1_16b_a3b")
+          "qwen2_moe_a2_7b", "moonshot_v1_16b_a3b", "falcon_mamba_7b",
+          "recurrentgemma_2b")
 
 _LATER = {
-    "falcon_mamba_7b": "the SSM / recurrent / hybrid slice",
-    "recurrentgemma_2b": "the SSM / recurrent / hybrid slice",
     "seamless_m4t_large_v2": "the enc-dec / VLM slice",
     "internvl2_26b": "the enc-dec / VLM slice",
 }

@@ -14,6 +14,7 @@ started and the libraries bound in this process.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -119,9 +120,24 @@ def bind(source: pathlib.Path, signatures: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib, name: str, *args) -> None:
-    """Call one entry point; raise if it reports a CUDA error."""
-    rc = getattr(lib, name)(*args)
+def on_device(device):
+    """The context a launch on ``device`` runs in: ``torch.cuda.device`` of
+    a CUDA device, since the CUDA runtime launches (and sets a kernel's
+    shared-memory attribute) on the *current* device, whatever stream it is
+    given; nothing for ``None`` or the CPU."""
+    if device is None or device.type != "cuda":
+        return contextlib.nullcontext()
+    import torch
+
+    return torch.cuda.device(device)
+
+
+def launch(lib, name: str, *args, device) -> None:
+    """Call one entry point with ``device`` (the device of the tensors it
+    launches on, or ``None`` for a query that takes none) current; raise if
+    it reports a CUDA error."""
+    with on_device(device):
+        rc = getattr(lib, name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 

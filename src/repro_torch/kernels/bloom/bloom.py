@@ -94,8 +94,8 @@ def _lib() -> ctypes.CDLL:
     return _build.bind(SOURCE, _SIGNATURES)
 
 
-def _launch(name: str, *args) -> None:
-    _build.launch(_lib(), name, *args)
+def _launch(name: str, *args, device: torch.device) -> None:
+    _build.launch(_lib(), name, *args, device=device)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -214,7 +214,7 @@ def h3_hash(spec: SignatureSpec, addrs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, spec.num_segments), dtype=torch.int32, device=addrs.device)
     if n:
         _launch("h3_hash_launch", addrs.data_ptr(), ptab.data_ptr(), out.data_ptr(), n,
-                s, spec.num_segments, log_seg, _stream(addrs))
+                s, spec.num_segments, log_seg, _stream(addrs), device=addrs.device)
         h3_hash.launches += 1
     return out
 
@@ -358,12 +358,12 @@ def bloom_insert(spec: SignatureSpec, *,
                         ids_b.data_ptr() if pair else None,
                         valid_b.data_ptr() if pair else None, cols.ctypes.data,
                         out.data_ptr(), out.shape[0], lanes, ids.shape[1],
-                        ids_b.shape[1] if pair else 0, *geometry)
+                        ids_b.shape[1] if pair else 0, *geometry, device=src.device)
             else:
                 _launch("bloom_insert_bitmap_launch", bitmap.data_ptr(),
                         bitmap_b.data_ptr() if pair else None, cols.ctypes.data,
                         out.data_ptr(), out.shape[0], lanes, bitmap.shape[1], num_lines,
-                        *geometry)
+                        *geometry, device=src.device)
             bloom_insert.launches += 1
     return (out[0], out[1]) if pair else out[0]
 
@@ -437,7 +437,7 @@ def bloom_query(spec: SignatureSpec, sig: torch.Tensor, words: torch.Tensor,
                     cols.ctypes.data, out.data_ptr(),
                     None if out_b is None else out_b.data_ptr(), words.shape[0],
                     words.shape[1], num_lines, cols.shape[0], log_seg, m0,
-                    spec.num_words, _stream(sig))
+                    spec.num_words, _stream(sig), device=sig.device)
             bloom_query.launches += 1
     else:
         out = torch.empty_like(words)
@@ -504,14 +504,14 @@ def bloom_intersect(a: torch.Tensor, b: torch.Tensor, num_segments: int, *,
         out = torch.empty((2, lanes), dtype=torch.bool, device=a.device)
         _launch("bloom_intersect_pair_launch", a.data_ptr(), a_b.data_ptr(), b.data_ptr(),
                 out.data_ptr(), lanes, rows // lanes, nw, nw // num_segments,
-                num_segments, _stream(a))
+                num_segments, _stream(a), device=a.device)
         bloom_intersect.launches += 1
         return out
     out = torch.empty((rows,), dtype=torch.bool, device=a.device)
     if rows:
         _launch("bloom_intersect_launch", a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), rows, rows // lanes, nw,
-                nw // num_segments, num_segments, _stream(a))
+                nw // num_segments, num_segments, _stream(a), device=a.device)
         bloom_intersect.launches += 1
     return out
 
@@ -585,7 +585,8 @@ def bloom_detect_conflicts(spec: SignatureSpec, sigs: torch.Tensor,
     if n:
         _launch("bloom_detect_conflicts_launch", sigs.data_ptr(), addrs.data_ptr(),
                 ptab.data_ptr(), out.data_ptr(), n, g, nw, s, spec.num_segments, log_seg,
-                int(route == "transposed"), _sm_count(addrs.device), _stream(addrs))
+                int(route == "transposed"), _sm_count(addrs.device), _stream(addrs),
+                device=addrs.device)
         bloom_detect_conflicts.launches += 1
         bloom_detect_conflicts.route_launches[route] += 1
     return out
@@ -608,7 +609,7 @@ KERNELS = {"h3_hash": h3_hash, "bloom_insert": bloom_insert,
 
 def _attributes(entry: str, builds: tuple[str, ...]) -> dict[str, dict[str, int]]:
     out = (ctypes.c_int * (3 * len(builds)))()
-    _build.launch(_lib(), entry, ctypes.addressof(out))
+    _build.launch(_lib(), entry, ctypes.addressof(out), device=None)
     keys = ("registers", "local_bytes", "static_smem_bytes")
     return {b: dict(zip(keys, out[3 * i:3 * i + 3])) for i, b in enumerate(builds)}
 

@@ -69,8 +69,8 @@ def _lib() -> ctypes.CDLL:
     return _build.bind(SOURCE, _SIGNATURES)
 
 
-def _launch(name: str, *args) -> None:
-    _build.launch(_lib(), name, *args)
+def _launch(name: str, *args, device: torch.device) -> None:
+    _build.launch(_lib(), name, *args, device=device)
 
 
 def _check_spec_addrs(spec: SignatureSpec, addrs: torch.Tensor) -> tuple[int, int]:
@@ -185,7 +185,7 @@ def bloom_insert_onehot(spec: SignatureSpec, sig: torch.Tensor | None,
             _launch("bloom_insert_onehot_launch", addrs.data_ptr(), ptr(mask),
                     ptr(addrs_b), ptr(mask_b), ptr(sig), cols.ctypes.data, out.data_ptr(),
                     out.shape[0], lanes, n, n_b, cols.shape[0], log_seg, m0, int(i > 0),
-                    spec.num_words, _stream(addrs))
+                    spec.num_words, _stream(addrs), device=addrs.device)
             bloom_insert_onehot.launches += 1
     return (out[0], out[1]) if pair else out[0]
 
@@ -233,7 +233,7 @@ def bloom_query_onehot(spec: SignatureSpec, bits: torch.Tensor,
         for i, (cols, m0) in enumerate(passes):  # a later pass ANDs into out
             _launch("bloom_query_onehot_launch", bits.data_ptr(), addrs.data_ptr(),
                     cols.ctypes.data, out.data_ptr(), lanes, n, cols.shape[0], log_seg,
-                    m0, int(i > 0), spec.sig_bits, _stream(addrs))
+                    m0, int(i > 0), spec.sig_bits, _stream(addrs), device=addrs.device)
             bloom_query_onehot.launches += 1
     return out
 
@@ -247,7 +247,7 @@ KERNELS = {"bloom_insert_onehot": bloom_insert_onehot,
 
 def _attributes(entry: str) -> dict[str, dict[str, int]]:
     out = (ctypes.c_int * 6)()
-    _build.launch(_lib(), entry, ctypes.addressof(out))
+    _build.launch(_lib(), entry, ctypes.addressof(out), device=None)
     keys = ("registers", "local_bytes", "static_smem_bytes")
     return {"paper": dict(zip(keys, out[:3])), "any": dict(zip(keys, out[3:]))}
 

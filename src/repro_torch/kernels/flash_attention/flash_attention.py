@@ -68,7 +68,7 @@ def sm90_attributes(d: int) -> dict[str, int]:
     and dynamic shared memory a block.  Builds the library; needs a card."""
     vals = (ctypes.c_int * 4)()
     _build.launch(_lib_sm90(), "flash_attention_sm90_attributes", d,
-                  ctypes.addressof(vals))
+                  ctypes.addressof(vals), device=None)
     return dict(zip(("registers", "local_bytes", "static_smem_bytes",
                      "dynamic_smem_bytes"), vals))
 
@@ -80,7 +80,7 @@ def general_bands(dtype: torch.dtype) -> tuple[int, ...]:
     needs a card."""
     vals = (ctypes.c_int * 16)()
     _build.launch(_lib(), "flash_attention_general_bands", _DTYPES[dtype], len(vals),
-                  ctypes.addressof(vals))
+                  ctypes.addressof(vals), device=None)
     return tuple(vals[1:1 + vals[0]])
 
 
@@ -95,7 +95,7 @@ def general_attributes(dtype: torch.dtype, d: int) -> dict[str, int]:
     raises for a head dim the route refuses."""
     vals = (ctypes.c_int * 7)()
     _build.launch(_lib(), "flash_attention_general_attributes", _DTYPES[dtype], d,
-                  ctypes.addressof(vals))
+                  ctypes.addressof(vals), device=None)
     return dict(zip(("registers", "local_bytes", "static_smem_bytes",
                      "dynamic_smem_bytes", "block_k", "threads", "block_q"), vals))
 
@@ -214,7 +214,7 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.launch(lib, _ENTRY[chosen], q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, sq, sk, hq, hkv, d,
                       ctypes.c_float(d ** -0.5), int(bool(causal)), int(window),
-                      _DTYPES[q.dtype], _stream(q))
+                      _DTYPES[q.dtype], _stream(q), device=q.device)
         flash_attention.launches += 1
         flash_attention.route_launches[chosen] += 1
     return out

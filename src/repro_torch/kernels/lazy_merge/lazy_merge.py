@@ -83,7 +83,7 @@ def lazy_merge(rows: torch.Tensor, base: torch.Tensor,
     if r and d:
         _build.launch(_lib(), "lazy_merge_launch", rows.data_ptr(),
                       base.data_ptr(), valid.data_ptr(), out.data_ptr(), g, r,
-                      d, _DTYPES[rows.dtype], _stream(rows))
+                      d, _DTYPES[rows.dtype], _stream(rows), device=rows.device)
         lazy_merge.launches += 1
     return out
 

@@ -10,8 +10,9 @@ a step (teacher-forced "prefill" through the decode path), then its own
 greedy tokens, in lockstep with the other slots; finished slots are refilled
 from the queue (continuous batching).  One cache and one ``len`` are shared
 by all slots, so a refilled slot continues at the previous request's
-position and attends to its cache entries — the reference's behaviour,
-mirrored and not fixed (ROADMAP §C).
+position and attends to its cache entries (and, for the SSM and hybrid
+archs, carries on from its predecessor's conv / SSM / RG-LRU states) —
+the reference's behaviour, mirrored and not fixed (ROADMAP §C).
 
 ``--study`` switches to the resident *study* service
 (:mod:`repro_torch.serve`): read a JSON file holding one study-request spec

@@ -1,7 +1,8 @@
 """Step functions (prefill / decode), PyTorch port of the serving part of
 :mod:`repro.launch.steps`.  The port runs them eagerly on the tensors'
 device; ``make_train_step`` and the sharding helpers (``batch_shardings``,
-``cache_shardings``) come with the training and mesh slices (ROADMAP A11).
+``cache_shardings``) come with the training and the dry-run / launch-mesh
+slices (ROADMAP A11).
 """
 
 from __future__ import annotations

@@ -255,6 +255,26 @@ def activation(name: str, x: torch.Tensor, gate: torch.Tensor | None = None) -> 
     raise ValueError(name)
 
 
+def linear_scan_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The diagonal linear recurrence h_t = a_t * h_{t-1} + b_t (h_{-1} = 0)
+    along dim 1 of ``a`` and ``b`` (same shape), at log depth: the
+    odd/even recursion of ``jax.lax.associative_scan`` (combine adjacent
+    pairs, scan the half-length sequence, fill in the even positions),
+    which the reference runs with the combine ``(a2 a1, a2 b1 + b2)``.
+    Each level is a few elementwise ops on strided views, O(S) work in all.
+    ``b`` is overwritten with the states and returned; ``a`` is read only."""
+    s = a.shape[1]
+    if s < 2:
+        return b
+    a_odd = a[:, 1::2]
+    b_red = a_odd * b[:, 0:s - 1:2]
+    b_red += b[:, 1::2]
+    odd = linear_scan_(a_odd * a[:, 0:s - 1:2], b_red)
+    b[:, 2::2] += a[:, 2::2] * odd[:, :(s - 1) // 2]
+    b[:, 1::2] = odd
+    return b
+
+
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
     """(q, k) bool mask: causal, optionally limited to a trailing window."""
     m = k_pos[None, :] <= q_pos[:, None]

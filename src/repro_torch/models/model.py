@@ -1,5 +1,6 @@
 """Public model facade, PyTorch port of :mod:`repro.models.model` for the
-decoder-only dense and MoE families: one entry point per execution mode.
+decoder-only families (dense, MoE, SSM, hybrid): one entry point per
+execution mode.
 
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -10,11 +11,14 @@ decoder-only dense and MoE families: one entry point per execution mode.
 Parameters are a plain dict of tensors with the reference's nesting and
 names (``{"embed", "stack": {"period": [...], "tail": [...],
 "final_norm"}, ["lm_head"]}``; an MoE block's ``"moe"`` subtree keeps
-its float32 router and norm beside the parameter-dtype experts);
-:func:`params_from_jax` carries a reference parameter tree across bit for
-bit, each leaf in its own dtype.  ``apply`` returns the logits and the
-MoE aux losses (``load_balance``, ``router_z``) averaged over the MoE
-layers.  ``loss`` comes with the training slice of the port; ``abstract``
+its float32 router and norm beside the parameter-dtype experts, a Mamba
+block its float32 ``dt_bias``, ``a_log`` and ``d_skip``, an RG-LRU block
+its float32 ``lam``); :func:`params_from_jax` carries a reference
+parameter tree across bit for bit, each leaf in its own dtype.  ``apply``
+returns the logits and the MoE aux losses (``load_balance``,
+``router_z``) averaged over the MoE layers.  The decode cache is the
+reference's heterogeneous one: ``kv`` for attention layers, ``ssm``
+{conv, ssm} for Mamba layers, ``rec`` {conv, h} for RG-LRU layers.  ``loss`` comes with the training slice of the port; ``abstract``
 and ``shardings`` (the dry-run and mesh helpers) are not ported.
 """
 

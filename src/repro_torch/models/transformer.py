@@ -1,23 +1,25 @@
 """Model stack assembly, PyTorch port of the decoder-only part of
 :mod:`repro.models.transformer`: blocks -> layer loop -> logits.
 
-A block = mixer + FFN, each with its own pre-norm and residual:
+A block = mixer (+ optional FFN), each with its own pre-norm and residual:
 
     kind 'attn'  : GQA attention            + dense MLP
     kind 'swa'   : sliding-window attention + dense MLP
     kind 'moe'   : GQA attention            + MoE FFN (shared + routed)
+    kind 'mamba' : Mamba selective SSM mixer (no separate FFN)
+    kind 'rglru' : Griffin RG-LRU recurrent  + dense MLP
 
 Layer iteration: the block pattern's smallest repeating unit (the *period*)
 is stacked on a leading axis, as in the reference; where the reference runs
 ``jax.lax.scan`` over that axis (+remat), the port loops over it in Python
 (``remat`` has no meaning without a backward pass), and the non-divisible
-tail is unrolled.  Decode unrolls all layers and carries the KV cache.
-The stack returns the MoE aux losses averaged over the MoE layers (zeros
-for a dense stack), as the reference does.
+tail is unrolled.  Decode unrolls all layers and carries heterogeneous
+caches (KV / conv+ssm / conv+h per kind), each indexed by its kind's own
+layer counter.  The stack returns the MoE aux losses averaged over the MoE
+layers (zeros for a dense stack), as the reference does.
 
-Block kinds ``mamba`` and ``rglru``, the encoder-decoder stack and
-``chunked_xent`` come with later slices of the port and raise a
-``ValueError`` naming theirs (ROADMAP A11).
+The encoder-decoder stack and ``chunked_xent`` come with later slices of
+the port and raise a ``ValueError`` naming theirs (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -29,34 +31,25 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
 from repro_torch.models import moe as M
+from repro_torch.models import recurrent as R
+from repro_torch.models import ssm as S
 
-PORTED_KINDS = ("attn", "swa", "moe")
-LATER_KINDS = {
-    "mamba": "the SSM / recurrent / hybrid slice of the port (models/ssm.py; ROADMAP A11)",
-    "rglru": "the SSM / recurrent / hybrid slice of the port (models/recurrent.py; "
-             "ROADMAP A11)",
-}
+KINDS = ("attn", "swa", "moe", "mamba", "rglru")
+ATTN_KINDS = ("attn", "swa", "moe")
 ENCDEC_SLICE = ("the encoder-decoder stack (encode, encdec_forward, cross "
                 "attention) comes with the enc-dec / VLM slice of the port "
                 "(ROADMAP A11)")
 TRAIN_SLICE = "the training slice of the port (ROADMAP A11)"
 
 
-def _check_kind(kind: str) -> None:
-    if kind in PORTED_KINDS:
-        return
-    if kind in LATER_KINDS:
-        raise ValueError(f"block kind {kind!r} comes with {LATER_KINDS[kind]}")
-    raise ValueError(kind)
-
-
 def check_ported(cfg: C.ModelConfig) -> None:
-    """Raise a ``ValueError`` naming the later slice for anything but a
-    decoder-only stack of 'attn' / 'swa' / 'moe' blocks."""
+    """Raise a ``ValueError`` naming the later slice for an encoder-decoder
+    stack, and one naming the kind for a block kind the zoo does not have."""
     if cfg.encoder_layers > 0:
         raise ValueError(f"{cfg.name}: {ENCDEC_SLICE}")
     for kind in dict.fromkeys(cfg.pattern):
-        _check_kind(kind)
+        if kind not in KINDS:
+            raise ValueError(f"block kind {kind!r}: not one of {KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -90,23 +83,35 @@ def mlp_block(p, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
 
 
 def block_param_specs(kind: str, cfg: C.ModelConfig) -> dict:
-    _check_kind(kind)
+    if kind in ("attn", "swa"):
+        return {"mixer": A.attn_param_specs(cfg), "mlp": mlp_param_specs(cfg)}
     if kind == "moe":
         return {"mixer": A.attn_param_specs(cfg), "moe": M.moe_param_specs(cfg)}
-    return {"mixer": A.attn_param_specs(cfg), "mlp": mlp_param_specs(cfg)}
+    if kind == "mamba":
+        return {"mixer": S.ssm_param_specs(cfg)}
+    if kind == "rglru":
+        return {"mixer": R.rglru_param_specs(cfg), "mlp": mlp_param_specs(cfg)}
+    raise ValueError(kind)
 
 
 def apply_block(kind: str, p, x: torch.Tensor, cfg: C.ModelConfig,
                 positions=None) -> tuple[torch.Tensor, dict]:
-    _check_kind(kind)
     aux = {}
-    window = cfg.window_size if kind == "swa" else 0
-    x = x + A.attn_block(p["mixer"], x, cfg, window=window, positions=positions)
-    if kind == "moe":
+    if kind in ("attn", "swa"):
+        window = cfg.window_size if kind == "swa" else 0
+        x = x + A.attn_block(p["mixer"], x, cfg, window=window, positions=positions)
+        x = x + mlp_block(p["mlp"], x, cfg)
+    elif kind == "moe":
+        x = x + A.attn_block(p["mixer"], x, cfg, positions=positions)
         out, aux = M.moe_block(p["moe"], x, cfg)
         x = x + out
-    else:
+    elif kind == "mamba":
+        x = x + S.ssm_block(p["mixer"], x, cfg)
+    elif kind == "rglru":
+        x = x + R.rglru_block(p["mixer"], x, cfg)
         x = x + mlp_block(p["mlp"], x, cfg)
+    else:
+        raise ValueError(kind)
     return x, aux
 
 
@@ -237,19 +242,31 @@ def chunked_xent(params, hidden, labels, cfg: C.ModelConfig):
 def _ring_cache(cfg: C.ModelConfig) -> bool:
     """True when every attention layer is sliding-window: the KV cache is a
     window-sized ring buffer with per-slot absolute positions."""
-    attn_kinds = [k for k in cfg.pattern if k in ("attn", "swa", "moe")]
+    attn_kinds = [k for k in cfg.pattern if k in ATTN_KINDS]
     return bool(attn_kinds) and all(k == "swa" for k in attn_kinds) \
         and cfg.window_size > 0
 
 
 def init_cache(cfg: C.ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Decode cache of an attention stack: one KV slot per layer.  ``len`` is a
-    0-dim int32 tensor on the host, so reading it costs no device
-    synchronization."""
+    """Heterogeneous decode cache, as the reference's: ``kv`` for the
+    attention layers (a window-sized ring buffer when every one is
+    sliding-window), ``ssm`` {conv, ssm} for the Mamba layers and ``rec``
+    {conv, h} for the RG-LRU ones, each stacked over its kind's layers.
+    ``len`` is a 0-dim int32 tensor on the host, so reading it costs no
+    device synchronization."""
     check_ported(cfg)
+    kinds = cfg.pattern
+    n_attn = sum(1 for k in kinds if k in ATTN_KINDS)
+    n_ssm = sum(1 for k in kinds if k == "mamba")
+    n_rec = sum(1 for k in kinds if k == "rglru")
     cache: dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32)}
-    size = min(max_len, cfg.window_size) if _ring_cache(cfg) else max_len
-    cache["kv"] = A.init_kv_cache(cfg, batch, size, cfg.num_layers, device)
+    if n_attn:
+        size = min(max_len, cfg.window_size) if _ring_cache(cfg) else max_len
+        cache["kv"] = A.init_kv_cache(cfg, batch, size, n_attn, device)
+    if n_ssm:
+        cache["ssm"] = S.init_ssm_cache(cfg, batch, n_ssm, device)
+    if n_rec:
+        cache["rec"] = R.init_rglru_cache(cfg, batch, n_rec, device)
     return cache
 
 
@@ -265,29 +282,52 @@ def _layer_params(params, cfg: C.ModelConfig, i: int):
 
 
 def decode_step(params, token: torch.Tensor, cache: dict, cfg: C.ModelConfig):
-    """One decode step. token: (B, 1) -> (logits (B,1,V), new_cache).  The
-    input cache is not written: the step clones it once and each layer
-    writes its new k / v slot into its slice of the copy."""
+    """One decode step. token: (B, 1) -> (logits (B,1,V), new_cache).  Walks
+    the kinds with one layer counter each, as the reference does.  The
+    input cache is not written: the step clones each of its stacks once
+    and each layer writes its new k / v slot, or its new states, into its
+    slice of the copy."""
     check_ported(cfg)
     x = embed_tokens(params, token, cfg)
     clen = int(cache["len"])
     ring = _ring_cache(cfg)
-    kv = {"k": cache["kv"]["k"].clone(), "v": cache["kv"]["v"].clone(),
-          "pos": cache["kv"]["pos"].clone() if ring else cache["kv"]["pos"]}
+    new_cache: dict[str, Any] = dict(cache)
+    kv = ssm = rec = None
+    if "kv" in cache:
+        kv = {"k": cache["kv"]["k"].clone(), "v": cache["kv"]["v"].clone(),
+              "pos": cache["kv"]["pos"].clone() if ring else cache["kv"]["pos"]}
+        new_cache["kv"] = kv
+    if "ssm" in cache:
+        ssm = new_cache["ssm"] = {k: t.clone() for k, t in cache["ssm"].items()}
+    if "rec" in cache:
+        rec = new_cache["rec"] = {k: t.clone() for k, t in cache["rec"].items()}
+    i_attn = i_ssm = i_rec = 0
     for i, kind in enumerate(cfg.pattern):
         p = _layer_params(params["stack"], cfg, i)
-        window = cfg.window_size if kind == "swa" else 0
-        out, _, _, _ = A.attn_decode_block(
-            p["mixer"], x, kv["k"][i], kv["v"][i], clen, cfg,
-            window=window, cache_pos=kv["pos"] if ring else None)
-        x = x + out
-        if kind == "moe":
-            out, _ = M.moe_block(p["moe"], x, cfg)
+        if kind in ATTN_KINDS:
+            window = cfg.window_size if kind == "swa" else 0
+            out, _, _, _ = A.attn_decode_block(
+                p["mixer"], x, kv["k"][i_attn], kv["v"][i_attn], clen, cfg,
+                window=window, cache_pos=kv["pos"] if ring else None)
             x = x + out
-        else:
+            if kind == "moe":
+                out, _ = M.moe_block(p["moe"], x, cfg)
+                x = x + out
+            else:
+                x = x + mlp_block(p["mlp"], x, cfg)
+            i_attn += 1
+        elif kind == "mamba":
+            out, ssm["conv"][i_ssm], ssm["ssm"][i_ssm] = S.ssm_decode_block(
+                p["mixer"], x, ssm["conv"][i_ssm], ssm["ssm"][i_ssm], cfg)
+            x = x + out
+            i_ssm += 1
+        elif kind == "rglru":
+            out, rec["conv"][i_rec], rec["h"][i_rec] = R.rglru_decode_block(
+                p["mixer"], x, rec["conv"][i_rec], rec["h"][i_rec], cfg)
+            x = x + out
             x = x + mlp_block(p["mlp"], x, cfg)
+            i_rec += 1
     x = C.rms_norm(x, params["stack"]["final_norm"])
     logits = logits_from_hidden(params, x, cfg)
-    new_cache = {**cache, "kv": kv,
-                 "len": torch.tensor(clen + 1, dtype=torch.int32)}
+    new_cache["len"] = torch.tensor(clen + 1, dtype=torch.int32)
     return logits, new_cache

@@ -2,8 +2,9 @@
 (PyTorch port of :mod:`repro.serve.server`).
 
 One long-lived :class:`StudyServer` answers many small ``Study`` requests
-on one device (``ServeConfig.device``; ``None`` is the CUDA card, and
-without one the server raises unless ``device="cpu"`` is given).  The
+on one device type (``ServeConfig.device``; ``None`` is the CUDA card,
+and without one the server raises unless ``device="cpu"`` is given),
+its batched dispatches sharded over ``ServeConfig.devices`` of them.  The
 loop is cooperative and single-worker — ``submit`` admits, ``step``
 serves one request or one coalesced group — which keeps every failure
 decision deterministic and lets the chaos harness replay a whole storm
@@ -44,8 +45,9 @@ bit for bit.  The hardening layers, in request order:
   zero ``nvcc`` builds and zero new library binds for previously seen
   studies.
 
-The lane mesh is one device (``devices`` above 1 raises, naming ROADMAP
-A9).
+Batched and coalesced dispatches shard their lanes over a lane mesh of
+``ServeConfig.devices`` devices (:mod:`repro_torch.sim.mesh`), resolved
+against the devices visible at boot.
 """
 
 from __future__ import annotations
@@ -111,8 +113,8 @@ class ServeConfig:
     study_cache: int = 32           # resident Studies reused for repeat
     #                                 specs (skips re-synthesis); 0 disables
     devices: int | None = None      # lane-mesh width for batched dispatches
-    #                                 (None or 1: one device; more raises,
-    #                                 the lane mesh is ROADMAP A9)
+    #                                 (None: every visible device of
+    #                                 ``device``'s type; checked at boot)
     # Adaptive coalescing policy (repro_torch.serve.policy).  Off by
     # default: greedy immediate formation at the full lane budget is the
     # behavior the chaos storms and bit-exactness tests pin.
@@ -178,7 +180,7 @@ class StudyServer:
         # a legitimate observation (fake test clocks, sub-resolution fast
         # paths) that must decay through the EMA, not hard-reset it.
         self._service_ema: float | None = None
-        self._devices = _mesh.resolve_devices(self.cfg.devices)
+        self._devices = _mesh.resolve_devices(self.cfg.devices, self.device)
         self._group_tag = 0      # coalesced-dispatch counter (audit stream)
         self._study_cache: dict[str, object] = {}  # spec json -> Study (LRU)
         # Telemetry is always on (pure accumulation, no clock reads); the
@@ -675,7 +677,7 @@ class StudyServer:
         accumulators carrying the stacked lane axis."""
         self.hb.beat(WORKER, 0, now=self.clock.now())
         # Route the group like the planner routes a bucket: the largest
-        # pow2 device subset its real lanes fill (one device in the port).
+        # pow2 device subset its real lanes fill.
         # Every blessed width >= the (pow2) mesh size is already a mesh
         # multiple.
         d = _mesh.devices_for(sum(r.study.num_points for r in members),

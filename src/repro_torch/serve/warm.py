@@ -221,21 +221,23 @@ class WarmCache:
         of dispatches replayed; :attr:`warm_wall_s` holds the host seconds
         it took.
 
-        Entries recorded on a wider lane mesh than this host routes
-        (``devices`` past the visible devices, or past the port's one-device
-        lane mesh, ROADMAP A9) are *skipped*, counted in
+        Entries recorded on a wider lane mesh than this host has
+        (``devices`` past the visible devices — a manifest carried over
+        from a bigger machine) are *skipped*, counted in
         :attr:`skipped_entries`: live traffic rebuilds its own warm state
-        at this host's routing — a replay must never wedge the restart."""
+        at this host's routing — a replay must never wedge the restart.
+        The others replay at their recorded mesh size."""
         t0 = time.perf_counter()
-        avail = min(_mesh.available_devices(self.device), 1)  # one-device mesh (A9)
+        avail = _mesh.available_devices(self.device)
         replayed = 0
         for e in entries:
-            if int(e.get("devices", 1)) > avail:
+            d = int(e.get("devices", 1))
+            if d > avail:
                 self.skipped_entries += 1
                 continue
             stt, shw, scfg = dummy_stacked(e, self.device)
             # the thunk copies every accumulator to the host: it has run
-            _engine._sweep_accs(stt, shw, (e["mechanism"],), scfg)
+            _engine._sweep_accs(stt, shw, (e["mechanism"],), scfg, devices=d)
             replayed += 1
         self.warm_wall_s = time.perf_counter() - t0
         return replayed

@@ -9,6 +9,9 @@
   :func:`stack_lazy`) and one window loop per mechanism runs all lanes.
 * **Bucketed fleet** — :func:`run_batch` groups a mixed-geometry fleet into
   padded geometry buckets through the ``Study`` planner.
+* **Lane mesh** — ``_sweep_accs(..., devices=d)`` shards a stacked
+  dispatch's lane axis over ``d`` devices (:mod:`repro_torch.sim.mesh`);
+  ``devices=1`` is the single-device path, unchanged.
 
 Both paths run the very same lane-batched window loop — the sequential
 engine is the one-lane case — and both turn ``HWParams`` and the numeric
@@ -20,6 +23,7 @@ keys have no counterpart here: PyTorch runs eagerly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -27,6 +31,7 @@ from repro_torch.core.coherence import LazyPIMConfig, _lazypim_acc
 from repro_torch.core.mechanisms import ACC_FNS, SimResult, finalize_result
 from repro_torch.core.signatures import SignatureSpec
 from repro_torch.device import resolve_device, same_device
+from repro_torch.sim import mesh as _mesh
 from repro_torch.sim.costmodel import HWParams, hw_leaf_dtypes
 from repro_torch.sim.prep import (
     TRACE_DATA_FIELDS,
@@ -139,16 +144,21 @@ def _sweep_accs(stt: TraceTensors, shw: HWParams, mechanisms: tuple[str, ...],
     boundary ``(mechanism, thunk) -> accs``; the thunk runs the dispatch and
     copies its results to the host, so device failures surface inside the
     boundary.  A boundary returns the thunk's result unchanged or raises.
-    ``devices`` must be 1 in this slice."""
-    if devices != 1:
-        from repro_torch.sim.mesh import MESH_SLICE
 
-        raise ValueError(f"devices={devices}: {MESH_SLICE}")
+    ``devices`` selects the mesh variant: the stacked lane axis shards over
+    a ``devices``-wide lane mesh (:func:`repro_torch.sim.mesh.shard_lanes`;
+    the lane count must already be a multiple of ``devices`` — the planner
+    pads with :func:`repro_torch.sim.prep.dummy_lane_triple` lanes).
+    ``devices=1`` runs the single-device dispatch itself: no shard call, no
+    split, no copy."""
     out = {}
     for m in mechanisms:
-        def thunk(m=m):
-            acc = _run_lanes(m, stt, shw, scfg)
-            return {k: v.cpu().numpy() for k, v in acc.items()}
+        run = functools.partial(_run_lanes, m)
+        if devices > 1:
+            run = _mesh.shard_lanes(run, devices, stt.device)
+
+        def thunk(run=run):
+            return {k: v.cpu().numpy() for k, v in run(stt, shw, scfg).items()}
 
         out[m] = thunk() if boundary is None else boundary(m, thunk)
     return out

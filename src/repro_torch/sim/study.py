@@ -38,7 +38,8 @@ from repro_torch.device import resolve_device, same_device
 from repro_torch.sim import engine as _engine
 from repro_torch.sim import mesh as _mesh
 from repro_torch.sim.costmodel import HWParams
-from repro_torch.sim.prep import TraceTensors, bucket_shapes, pad_trace, prepare
+from repro_torch.sim.prep import (TraceTensors, bucket_shapes, dummy_lane_triple, pad_trace,
+                                  prepare)
 from repro_torch.sim.trace import (ALL_APPS, GRAPH_INPUTS, check_app, is_known_app,
                                    make_trace)
 
@@ -66,7 +67,7 @@ class Dispatch:
     lanes: int = 1                   # stacked lanes in this dispatch
     bucket_lines: int | None = None  # batch only: the bucket's line bound
     workload: str | None = None      # sequential only: the point's workload
-    devices: int = 1
+    devices: int = 1                 # lane-mesh size this dispatch shards over
 
 
 # ---------------------------------------------------------------------------
@@ -353,11 +354,16 @@ class StudyPlan:
                  f"mechanisms in {self.num_buckets} geometry buckets "
                  f"({self.dispatches} batched dispatches; eager PyTorch, "
                  f"nothing is compiled)"]
+        if self.devices > 1:
+            lines[0] += f", lane mesh over {self.devices} devices"
         for b in self.buckets:
             lines.append(
                 f"  bucket {b['num_lines']} lines x {b['num_windows']} "
                 f"windows: {b['lanes']} lanes over {len(b['workloads'])} "
                 f"workloads, pad overhead {b['line_pad_overhead']:.2f}x")
+            if b.get("devices", 1) > 1:
+                lines[-1] += (f", sharded {b['padded_lanes']} lanes / "
+                              f"{b['devices']} devices")
         return "\n".join(lines)
 
 
@@ -482,10 +488,16 @@ class Study:
 
     def plan(self, devices: int | None = None) -> StudyPlan:
         """Predict the execution shape — geometry buckets and lane counts —
-        without dispatching anything (the reference's bucket/lane plan)."""
+        without dispatching anything (the reference's bucket/lane plan).
+
+        ``devices`` is the lane-mesh width :meth:`run` will shard over
+        (``None`` = every visible device of the study's type, matching
+        ``run``'s default); each bucket routes to the largest pow2 device
+        subset its lane count fills (the bucket's ``devices`` entry) and
+        pads its lane axis up to ``padded_lanes``, the next mesh multiple."""
         tts = self.traces()
         lanes = self._lanes()
-        resolved = _mesh.resolve_devices(devices)
+        resolved = _mesh.resolve_devices(devices, self.device)
         buckets = []
         for idx, shape in bucket_shapes(tts):
             members = set(idx)
@@ -567,9 +579,18 @@ class Study:
         ``engine="batch"`` runs the planner: one lane-batched dispatch per
         (mechanism, bucket).  ``engine="sequential"`` runs every point alone
         through :func:`repro_torch.sim.engine.run_mechanism`; the two are
-        bit-exact.  ``devices`` (lane-mesh width) must be 1 or ``None`` in
-        this slice.  ``device`` defaults to the study's own device; another
+        bit-exact.  ``device`` defaults to the study's own device; another
         device is a ``ValueError`` (build the study there instead).
+
+        ``devices`` shards each bucket's stacked lane axis over a lane mesh
+        (``None`` = every visible device of the study's type; on one card,
+        or on the CPU without ``MESH_ENV_VAR``, that is the single-device
+        path).  Buckets route per :meth:`plan`: the largest pow2 device
+        subset their lanes fill, the lane axis padded to the mesh multiple
+        with all-sentinel masked lanes that contribute nothing.  Sharded
+        results equal ``devices=1`` bit for bit on every ``SimResult``
+        field.  Batch engine only: ``engine="sequential"`` with
+        ``devices > 1`` is a ``ValueError``.
 
         ``on_dispatch(dispatch_info, thunk)`` is an optional per-dispatch
         boundary, called once per (mechanism, bucket) in the batched engine
@@ -613,21 +634,38 @@ class Study:
     def _run_batched(self, on_dispatch=None,
                      devices: int | None = None) -> ResultSet:
         tts, lanes = self.traces(), self._lanes()
-        _mesh.resolve_devices(devices)
+        resolved = _mesh.resolve_devices(devices, self.device)
         points: list[StudyPoint | None] = [None] * len(lanes)
         for bl in self.bucket_lanes():
             n = len(bl.traces)
-            stacked = _engine.neutral_trace(_engine.stack_traces(bl.traces))
-            shw = _engine.stack_hw(bl.hws, self.device)
-            scfg = _engine.stack_lazy(bl.lazys, self.device)
+            d = _mesh.devices_for(n, resolved)
+            width = _mesh.mesh_lane_width(n, d)
+            traces, hws, lazys = bl.traces, bl.hws, bl.lazys
+            if width > n:
+                # Mesh pad lanes: all-sentinel masked traces (zero
+                # contribution) carrying the study's static lazy flags.
+                # Appended past lane_points, so the result loop below
+                # never reads them.
+                static = {f: getattr(self._lazys[0], f)
+                          for f in _engine._LAZY_STATIC_FIELDS}
+                pads = [dummy_lane_triple(traces[0].spec, bl.shape, static,
+                                          device=self.device)
+                        for _ in range(width - n)]
+                traces = traces + [p[0] for p in pads]
+                hws = hws + [p[1] for p in pads]
+                lazys = lazys + [p[2] for p in pads]
+            stacked = _engine.neutral_trace(_engine.stack_traces(traces))
+            shw = _engine.stack_hw(hws, self.device)
+            scfg = _engine.stack_lazy(lazys, self.device)
             boundary = None
             if on_dispatch is not None:
-                def boundary(m, thunk, _shape=bl.shape, _n=n):
+                def boundary(m, thunk, _shape=bl.shape, _n=n, _d=d):
                     return on_dispatch(
                         Dispatch(engine="batch", mechanism=m, lanes=_n,
-                                 bucket_lines=_shape["num_lines"]), thunk)
+                                 bucket_lines=_shape["num_lines"],
+                                 devices=_d), thunk)
             accs = _engine._sweep_accs(stacked, shw, self.mechanisms, scfg,
-                                       boundary=boundary)
+                                       boundary=boundary, devices=d)
             for pos, j in enumerate(bl.lane_points):
                 w = lanes[j][0]
                 res = {m: finalize_result(tts[w].name, m,

@@ -5,13 +5,15 @@ bind code (``repro_torch.kernels._build``): a compiler that exits 0 at once
 that run each kernel's arithmetic in numpy on the host memory its pointers
 name (CPU tensors taken as CUDA ones).  The stand-in records which entry
 points ran since it was loaded, as a card loads a kernel's module on its
-first launch.
+first launch, and each launch with the device that was current for it
+(``_build.on_device``, the device the launcher names).
 
 Helper module, not a test file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import shutil
 import types
@@ -54,6 +56,7 @@ class _Entry:
 
     def __call__(self, *args):
         self.lib.loaded.add(self.name)
+        self.lib.launched.append((self.name, self.lib.current))
         return self.fn(*args)
 
 
@@ -72,9 +75,20 @@ class BloomStandIn:
 
     def __init__(self):
         self.loaded: set[str] = set()
+        self.launched: list[tuple[str, object]] = []  # (entry, current device)
+        self.current = None  # the device _build.on_device made current
         for name in K._SIGNATURES:
             fn = getattr(self, "_" + name) if name in self.ENTRIES else _unexpected(name)
             setattr(self, name, _Entry(self, name, fn))
+
+    @contextlib.contextmanager
+    def on_device(self, device):
+        """``_build.on_device`` on the host: ``device`` is current inside."""
+        before, self.current = self.current, device
+        try:
+            yield
+        finally:
+            self.current = before
 
     @staticmethod
     def _h3_hash_launch(addrs, ptab, out, n, s, m, log_seg, stream):
@@ -166,6 +180,7 @@ def install(monkeypatch, build_dir) -> BloomStandIn:
         CDLL=lambda path: lib, c_int=ctypes.c_int))
     monkeypatch.setattr(K, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(K, "_stream", lambda t: 0)
+    monkeypatch.setattr(_build, "on_device", lib.on_device)
     K._lib.cache_clear()
     return lib
 

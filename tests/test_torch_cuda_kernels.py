@@ -1405,3 +1405,94 @@ def test_moe_experts_trace_on_card_equals_cpu(dev):
             assert a.device.type == "cuda" and torch.equal(a.cpu(), b), f.name
         else:
             assert a == b, f.name
+
+
+# The SSM / hybrid slice and the lane mesh.
+
+
+def test_flash_attention_sm90_recurrentgemma_shape(dev):
+    """B7's sm90 route at recurrentgemma-2b's prefill shape, batch 1: 10
+    query heads on one KV head, D = 256, causal under a 2,048-token window
+    over 4,096 tokens (the band's lower edge inside and across key tiles)."""
+    _sm90_check(*_qkv(dev, 1, 4096, 4096, 10, 1, 256, torch.bfloat16, 2048), causal=True,
+                window=2048)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
+def test_ssm_smoke_on_card_equals_cpu(dev, no_tf32, arch):
+    """The SSM / hybrid smoke configs in float32 on the card against the CPU:
+    each recurrent block alone (layer 0), the prefill step (one B7 launch a
+    swa layer) and three decode steps, logits within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=torch.float32)
+    model = Model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    block = SSM.ssm_block if arch == "falcon_mamba_7b" else R.rglru_block
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    layer0 = tree_map(lambda a: a[0], cpu["stack"]["period"][0])["mixer"]
+    got = block(tree_map(lambda t: t.to(dev), layer0), x.to(dev), cfg)
+    torch.testing.assert_close(got.cpu(), block(layer0, x, cfg), rtol=1e-4, atol=1e-4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    step = make_prefill_step(model)
+    reset_launch_counts()
+    got = [step(gpu, {"tokens": toks.to(dev)})]
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == cfg.pattern.count("swa")
+    want = [step(cpu, {"tokens": toks})]
+    for where, params, out in (("card", gpu, got), ("cpu", cpu, want)):
+        d = dev if where == "card" else torch.device("cpu")
+        cache = model.init_cache(2, 4, d)
+        for i in range(3):
+            logits, cache = model.decode(params, toks[:, i:i + 1].to(d), cache)
+            out.append(logits[:, 0])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    reset_launch_counts()
+
+
+def test_sharded_study_on_two_cards_equals_one(dev):
+    """A LazyPIM study at ``devices=2`` over ``cuda:0`` and ``cuda:1`` equals
+    ``devices=1`` on every field, each shard's Bloom kernels launched with
+    its own card current."""
+    import collections
+
+    from repro_torch.kernels import _build
+    from repro_torch.sim.study import Study, grid, workload
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices ({torch.cuda.device_count()} visible): the "
+                    f"lane mesh's devices=2 leg")
+
+    def study():
+        return Study(workloads=[workload("pagerank", "arxiv", scale=0.4, num_kernels=3,
+                                         windows_per_kernel=2)],
+                     hw=grid(offchip_bw_gbs=[16.0, 32.0, 64.0]), mechanisms=("cpu", "lazypim"))
+
+    want = study().run(devices=1)
+    launches = collections.Counter()
+    orig = _build.launch
+
+    def tapped(lib, name, *args, device):
+        launches[(name, str(device))] += 1
+        return orig(lib, name, *args, device=device)
+
+    _build.launch = tapped
+    try:
+        got = study().run(devices=2)
+    finally:
+        _build.launch = orig
+    for a, b in zip(want.points, got.points):
+        for m in a.results:
+            assert dataclasses.asdict(a.results[m]) == dataclasses.asdict(b.results[m]), m
+    for card in ("cuda:0", "cuda:1"):
+        names = {n for n, d in launches if d == card}
+        assert {"bloom_query_launch", "bloom_intersect_pair_launch"} <= names, (card, names)
+        assert any(n.startswith("bloom_insert") for n in names), (card, names)

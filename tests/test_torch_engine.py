@@ -37,6 +37,7 @@ from repro_torch.core.coherence import _lazypim_acc
 from repro_torch.core.mechanisms import ResultIntegrityError, finalize_result
 from repro_torch.sim.costmodel import hw_leaf_dtypes
 from repro_torch.sim.engine import stack_hw, stack_lazy, stack_traces
+from repro_torch.sim.mesh import MESH_ENV_VAR
 from repro_torch.sim.study import Dispatch
 from repro_torch.sim.trace import trace_from_numpy
 
@@ -210,7 +211,7 @@ def test_on_dispatch_boundary(pairs):
         Study(tts, mechanisms=("fg",), device=CPU).run(on_dispatch=cancel)
 
 
-def test_study_rejects_bad_specs(pairs):
+def test_study_rejects_bad_specs(pairs, monkeypatch):
     tts = [t for _, t in pairs]
     for bad, match in ((["nosuchapp"], "unknown app"),
                        (["capture/no_such_adapter"], "unknown capture spec"),
@@ -230,9 +231,11 @@ def test_study_rejects_bad_specs(pairs):
     study = Study(tts, mechanisms=("cpu",), device=CPU)
     with pytest.raises(ValueError, match="engine"):
         study.run("warp")
-    with pytest.raises(ValueError, match="mesh slice"):
+    # the CPU shows one device unless XLA_FORCE_HOST_PLATFORM_DEVICE_COUNT says more
+    monkeypatch.delenv(MESH_ENV_VAR, raising=False)
+    with pytest.raises(ValueError, match="devices=2 but only 1 visible"):
         study.run(devices=2)
-    with pytest.raises(ValueError, match="mesh slice"):
+    with pytest.raises(ValueError, match="devices=4 but only 1 visible"):
         study.plan(devices=4)
 
 

@@ -19,13 +19,16 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-# the walk reaches the study service and its runtime helpers, and the MoE
-# family with its capture and the host copy of jax.random's draws
+# the walk reaches the study service and its runtime helpers, the MoE
+# family with its capture and the host copy of jax.random's draws, and the
+# SSM / hybrid family beside the lane mesh
 missing = {"repro_torch.runtime.fault_tolerance", *(f"repro_torch.serve.{m}" for m in (
     "chaos", "clock", "coalesce", "policy", "queueing", "request", "retry", "server",
     "warm")), "repro_torch.models.moe", "repro_torch.capture.moe_experts",
     "repro_torch.sim._jaxrandom", "repro_torch.configs.qwen2_moe_a2_7b",
-    "repro_torch.configs.moonshot_v1_16b_a3b"} - set(names)
+    "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.models.ssm",
+    "repro_torch.models.recurrent", "repro_torch.configs.falcon_mamba_7b",
+    "repro_torch.configs.recurrentgemma_2b", "repro_torch.sim.mesh"} - set(names)
 assert not missing, missing
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)

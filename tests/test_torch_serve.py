@@ -9,9 +9,9 @@ binds, shown through a stand-in compiler and library
 
 Held to ``repro`` itself: the backoff draws bit for bit, a served study's
 answer and the warm-manifest rows it writes.  The port's own interface:
-``ServeConfig.device`` (``None``: the CUDA card), ``devices`` above 1
-refused naming ROADMAP A9, ``enable_persistent_cache`` reporting the build
-directory.
+``ServeConfig.device`` (``None``: the CUDA card), ``devices`` above the
+visible count refused at boot, ``enable_persistent_cache`` reporting the
+build directory.
 """
 
 import json
@@ -47,6 +47,7 @@ from repro_torch.serve import (
     enable_persistent_cache,
     restart_server,
 )
+from repro_torch.sim.mesh import MESH_ENV_VAR
 from repro_torch.sim.study import Study
 
 CPU = "cpu"
@@ -398,8 +399,12 @@ def test_server_runs_on_the_card_unless_told_cpu():
         assert resp.status == REJECTED_MALFORMED and "built on" in resp.error
 
 
-def test_lane_mesh_wider_than_one_device_raises_naming_a9():
-    with pytest.raises(ValueError, match="A9"):
+def test_lane_mesh_wider_than_one_device_raises_naming_a9(monkeypatch):
+    """A lane mesh wider than the visible devices is refused at boot,
+    naming the count (the CPU shows one device unless the mesh variable
+    forces more)."""
+    monkeypatch.delenv(MESH_ENV_VAR, raising=False)
+    with pytest.raises(ValueError, match="devices=2 but only 1 visible"):
         _server(devices=2)
 
 
