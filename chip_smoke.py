@@ -61,8 +61,10 @@ Phases, in order; any failure exits non-zero before the final line:
    conflict checks); the engines must agree on every field and
    ``pagerank-arxiv`` / ``htap128`` must match the goldens in
    ``tests/golden/`` (event counts exact, ratios 1e-6, raw 1e-4);
-5. Fig. 7 profile — one more batch run under ``torch.profiler``: device time
-   by kernel and the device's idle share of the unprofiled batch wall time;
+5. Fig. 7 profile — ``FIG7_PROFILE_WORKLOADS`` (two of the 12) on the batch
+   engine, once unprofiled and once under ``torch.profiler``: device time by
+   kernel and the device's idle share of the unprofiled wall time (the
+   whole fleet took ~2 min of profiler bookkeeping);
 5m. lane mesh — the Fig. 7 study at ``devices=1`` (counted; a spy on
    ``sim.mesh.shard_lanes`` sees no call) equal to phase 4's batch run on
    every field; ``devices`` one past the visible cards refused naming the
@@ -247,6 +249,36 @@ Phases, in order; any failure exits non-zero before the final line:
    (``hybrid_shape`` in the kernels line); the serve loop (its ring KV
    cache of min(max_len, 2,048) slots does not wrap in 63 steps, as a line
    says) and 8 decode steps profiled;
+21c. seamless-m4t-large-v2 — ``get_config("seamless_m4t_large_v2")`` at
+   full width and depth (24 encoder and 24 decoder layers, d_model 1,024,
+   16 heads of 64; 1,772,431,360 parameters, 3.30 GiB bf16) from a seeded
+   generator: ``make_prefill_step`` on 4 x 4,096 tokens with
+   ``synth_embeddings``' 4 x 1,024 x 1,024 frames (the reference's draw),
+   counted and checked (exactly 72 sm90 B7 launches: 24 encoder calls,
+   non-causal 1,024 x 1,024; 24 decoder calls, causal 4,096 x 4,096; 24
+   cross calls, non-causal 4,096 on 1,024; each held to its plain version
+   as it runs), unprofiled (wall, tokens/s, peak memory) and profiled (idle
+   share, B7's share); then layer 0's call of each kind timed against its
+   plain version with SDPA beside it (``encdec_shapes``);
+21d. internvl2-26b — ``get_config("internvl2_26b")`` at full width and
+   depth (48 layers, d_model 6,144, GQA 48 on 8 at D = 128; 19,292,657,664
+   parameters, 35.94 GiB bf16): the same on 4 x 4,096 tokens behind 4 x 256
+   vision prefix embeddings (exactly 48 sm90 launches at 4,352 x 4,352,
+   causal), layer 0's call timed (``vlm_shape``);
+21e. qwen3-4b training — ``launch.train.build``'s model and AdamW (float32
+   moments, remat on, lr 3e-3) at full width, 4 ``make_train_step`` steps
+   on ``host_batch``'s 1 x 4,096 tokens: exactly 36 sm90 B7 launches in
+   each step's forward pass and 36 more in remat's recompute (the backward
+   differentiates ``mha_chunked``), losses and gradient norms finite, every
+   parameter leaf changed, step wall, tokens/s and peak memory; then layer
+   0's attention block in float32 (the general B7 route, one launch) on 256
+   tokens: every gradient within 1e-4 (of its largest entry) of the CPU's,
+   ``wq`` / ``wk`` / ``wv``'s nonzero;
+21f. ``launch.train.run`` at smoke size on the card with the reference
+   end-to-end test's arguments, in temporary checkpoint directories: a
+   clean 24-step run whose loss falls, and one failing at step 16 that
+   restores step 8, its 16 losses within the reference test's 0.05 band
+   of the clean run's; one general-route B7 launch a layer a step (112);
 22. capture study — ``benchmarks/fig_capture.py:48``'s fleet (the three
    captured families and their synthetic analogues: ``capture/kv_serve``,
    ``capture/moe_experts``, ``capture/lazy_embed``, ``htap_stream``,
@@ -258,9 +290,11 @@ Phases, in order; any failure exits non-zero before the final line:
    its CPU trace, field for field;
 23. the ``kernels`` JSON line (ten kernels, launches by path including the
    extended fleet's, the M = 64 Study's, the study service's legs, the MoE
-   paths', the lane mesh's, the SSM / hybrid paths' and the capture
-   study's; B7-sm90 also carries its MoE-shape timing as ``moe_shape`` and
-   recurrentgemma's as ``hybrid_shape``: B7 once a route, as
+   paths', the lane mesh's, the SSM / hybrid paths', the enc-dec / VLM
+   prefills', the training paths' and the capture study's; B7-sm90 also
+   carries its MoE-shape timing as ``moe_shape``, recurrentgemma's as
+   ``hybrid_shape``, seamless's three as ``encdec_shapes`` and internvl2's
+   as ``vlm_shape``: B7 once a route, as
    ``flash_attention_general`` — its forced bf16 timing, the float32 one as
    ``float32`` — and ``flash_attention_sm90``; the seven redesigned Bloom
    kernels also carry the launch floor, ``h3_hash`` (timed at 262,144
@@ -397,6 +431,20 @@ SSM_CHECK_LEN = 256   # tokens of layer 0's card-against-CPU ssm_block check
 # magnitude (the reference's init scales a stacked leaf by its fan-in over
 # the layer axis too, so full-width activations are ~1e-3)
 SSM_CHECK_TOL = 1e-4
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+VLM_ARCH = "internvl2_26b"
+FRONTEND_SEED = 0        # the jax.random key of the synthetic frontend embeddings
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_STEPS = 4          # make_train_step steps at full width
+TRAIN_BATCH, TRAIN_LEN = 1, 4096
+TRAIN_LR = 3e-3          # launch/train.py's default
+TRAIN_CHECK_LEN = 256    # tokens of layer 0's card-against-CPU attention gradient
+TRAIN_GRAD_TOL = 1e-4    # float32, TF32 off: rtol, and atol as a share of the largest entry
+# tests/test_train_e2e.py's run, on the card
+TRAIN_SMOKE_ARGS = dict(arch="qwen3-4b", smoke=True, steps=24, batch=2, seq=64, lr=5e-3,
+                        seed=0, log_every=100, ckpt_every=8)
+TRAIN_FAIL_AT, TRAIN_RESTORED, TRAIN_BAND = 16, 8, 0.05
+FIG7_PROFILE_WORKLOADS = ("pagerank-arxiv", "htap128")
 # benchmarks/fig_capture.py:48: the three captured families, then the
 # synthetic analogue of each
 CAPTURE_STUDY = ("capture/kv_serve", "capture/moe_experts", "capture/lazy_embed",
@@ -1529,20 +1577,29 @@ def time_and_profile(fn) -> tuple[float, int, float, int, list, float]:
     return wall, peak, busy, n_kernels, by_name, b7_s
 
 
-def main_path_profile(batch_wall_s: float) -> dict:
-    """Device time of one profiled batch run, by kernel, against the wall
-    time of the unprofiled batch run: the device's busy and idle shares."""
-    from repro_torch.api import Study, all_workloads
+def main_path_profile() -> dict:
+    """Device time of one profiled batch run of ``FIG7_PROFILE_WORKLOADS``
+    (two of the fleet's 12, all six mechanisms), by kernel, against the
+    wall time of an unprofiled batch run of the same study just before it:
+    the device's busy and idle shares."""
+    import torch
 
-    phase("Fig. 7 path profile, engine=batch")
+    from repro_torch.api import Study
+
+    phase(f"Fig. 7 path profile, engine=batch ({', '.join(FIG7_PROFILE_WORKLOADS)})")
+    t0 = time.perf_counter()
+    Study(list(FIG7_PROFILE_WORKLOADS)).run(engine="batch")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
     busy_s, launches, top = device_busy_s(
-        lambda: Study(all_workloads()).run(engine="batch"))
-    summary = dict(device_busy_s=busy_s, batch_wall_s=batch_wall_s,
-                   idle_share=1.0 - busy_s / batch_wall_s, launches=launches,
+        lambda: Study(list(FIG7_PROFILE_WORKLOADS)).run(engine="batch"))
+    summary = dict(workloads=list(FIG7_PROFILE_WORKLOADS), device_busy_s=busy_s,
+                   batch_wall_s=wall_s, idle_share=1.0 - busy_s / wall_s,
+                   launches=launches,
                    top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top])
     for t, c, k in top:
         print(f"  {t:9.4f} s {c:7d}x  {k[:100]}")
-    print(f"device busy {busy_s:.3f} s of {batch_wall_s:.3f} s batch wall "
+    print(f"device busy {busy_s:.3f} s of {wall_s:.3f} s batch wall "
           f"(idle share {summary['idle_share']:.3f})", flush=True)
     return summary
 
@@ -2987,34 +3044,40 @@ def moe_dispatch_phase(layer0: tuple) -> dict:
     return out
 
 
-def moe_flash_timing(qkv: tuple) -> dict:
-    """B7's sm90 kernel at the MoE prefill's shape (MHA, Hq = Hkv = 16) on
-    layer 0's inputs, against its plain version, timed as
-    :func:`flash_kernel_phase` times it, with SDPA as yardstick."""
+def flash_timing(where: str, qkv: tuple, causal: bool = True) -> dict:
+    """B7's sm90 kernel at a path's shape on the inputs of one of its calls,
+    against its plain version, timed as :func:`flash_kernel_phase` times it
+    (the bound counts the causal triangle or the full Sq x Sk rectangle),
+    with one SDPA call on the same inputs as yardstick."""
     import torch.nn.functional as F
 
     FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
-    phase("kernel flash_attention (sm90 bf16) at the MoE prefill's shape")
+    phase(f"kernel flash_attention (sm90 bf16) at the {where}'s shape")
     q, k, v = (a.contiguous() for a in qkv)
-    b, s, hq, d = q.shape
-    check(FA._route_for(q.dtype, d) == "sm90", "the MoE prefill's B7 call is not sm90")
-    want = FA.flash_attention_plain(q, k, v, causal=True)
-    got = FA._flash_attention(q, k, v, causal=True, route="sm90")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    check(FA._route_for(q.dtype, d) == "sm90", f"the {where}'s B7 call is not sm90")
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    got = FA._flash_attention(q, k, v, causal=causal, route="sm90")
     err, excess = fa_excess(got, want)
     del got, want
-    check(excess <= 1.0, f"flash_attention_sm90 at the MoE shape: {excess:.3g} of the tolerance")
+    check(excess <= 1.0, f"flash_attention_sm90 at the {where}'s shape: {excess:.3g} of the "
+                         f"tolerance")
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    useful = 4 * d * (s * (s + 1) // 2) * b * hq
-    st = measure(f"flash_attention_sm90 (B={b}, S={s}, Hq={hq}, Hkv={k.shape[2]}, D={d}, "
-                 f"bfloat16, causal)", err,
-                 lambda *a: FA._flash_attention(*a, causal=True, route="sm90"),
-                 lambda *a: FA.flash_attention_plain(*a, causal=True), (q, k, v),
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk  # query-key pairs a head
+    useful = 4 * d * pairs * b * hq
+    kind = "causal" if causal else "non-causal"
+    st = measure(f"flash_attention_sm90 (B={b}, Sq={sq}, Sk={sk}, Hq={hq}, Hkv={hkv}, D={d}, "
+                 f"bfloat16, {kind})", err,
+                 lambda *a: FA._flash_attention(*a, causal=causal, route="sm90"),
+                 lambda *a: FA.flash_attention_plain(*a, causal=causal), (q, k, v),
                  nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(), ops=useful,
                  iters=200, plain_iters=3, ops_per_s=PEAK_BF16_FLOP_PER_S,
-                 library=lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+                 library=lambda *a: F.scaled_dot_product_attention(
+                     *a, is_causal=causal, enable_gqa=hq != hkv),
                  library_args=(qt, kt, vt))
-    return dict(st, shape=dict(B=b, S=s, Hq=hq, Hkv=k.shape[2], D=d, dtype="bfloat16",
-                               causal=True), tolerance_share=excess, useful_flop=useful)
+    return dict(st, shape=dict(B=b, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, dtype="bfloat16",
+                               causal=causal), tolerance_share=excess, useful_flop=useful)
 
 
 def moe_serve_path(params: dict) -> tuple[dict, dict]:
@@ -3439,6 +3502,332 @@ def recurrent_serve_path(arch: str, serve_args: dict, params: dict) -> tuple[dic
     return serve_and_decode(f"{cfg.name} serve", Model(cfg), params, serve_args)
 
 
+class CheckedFlashTap:
+    """While active, holds every ``ops.mha`` call the model zoo makes to the
+    kernel's plain version as it happens (:func:`fa_excess`; the plain
+    version launches nothing, so nothing is counted) and keeps only the
+    inputs of the first call of each kind — (causal, Sq, Sk) — so a path
+    whose calls would not all fit on the card beside it is checked whole."""
+
+    def __init__(self, label: str):
+        self.label, self.kinds, self.first = label, collections.Counter(), {}
+        self.err = self.excess = 0.0
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        FA = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+        self._ops, self._orig = ops, ops.mha
+
+        def tapped(q, k, v, *, causal=True, window=0):
+            out = self._orig(q, k, v, causal=causal, window=window)
+            want = FA.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=causal, window=window)
+            e, x = fa_excess(out, want)
+            del want
+            kind = (causal, q.shape[1], k.shape[1])
+            check(x <= 1.0, f"{self.label}: flash_attention call {sum(self.kinds.values())} "
+                            f"{kind} disagrees with its plain version (max |diff| {e:.4g}, "
+                            f"{x:.3g} of the tolerance)")
+            self.err, self.excess = max(self.err, e), max(self.excess, x)
+            self.kinds[kind] += 1
+            self.first.setdefault(kind, (q, k, v))
+            return out
+
+        ops.mha = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.mha = self._orig
+        return False
+
+
+def frontend_prefill_path(arch: str, want_kinds: dict) -> tuple[dict, dict, dict]:
+    """An enc-dec or VLM arch at full width and depth on the card, bf16
+    weights from a seeded generator: ``make_prefill_step`` on 4 x 4,096
+    tokens plus the frontend's ``synth_embeddings`` (the reference's draw,
+    key ``FRONTEND_SEED``: the encoder's frames or the vision prefix),
+    three times — counted and checked (exactly ``want_kinds`` sm90 B7
+    launches by (causal, Sq, Sk), every one held to its plain version as
+    it happens), unprofiled (wall, tokens/s, peak memory) and profiled
+    (idle share, B7's share).  Returns (summary, launch counts of the
+    counted run, the first call's inputs of each kind)."""
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.frontends import synth_embeddings
+    from repro_torch.models.model import Model
+    from repro_torch.sim import _jaxrandom
+
+    cfg = get_config(arch)
+    phase(f"{cfg.name} prefill ({cfg.family})")
+    dev = torch.device("cuda", 0)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = model.param_count()
+    t0 = time.perf_counter()
+    emb = synth_embeddings(cfg, PREFILL_BATCH, _jaxrandom.key(FRONTEND_SEED), PREFILL_LEN, dev)
+    emb_s = time.perf_counter() - t0
+    key = "frames" if cfg.encoder_layers > 0 else "prefix_embeds"
+    print(f"{cfg.name}: {cfg.num_layers} decoder layers, {cfg.encoder_layers} encoder layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv heads x "
+          f"{cfg.head_dim}, vocab {cfg.vocab}; {n_params} parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) initialised in "
+          f"{init_s:.2f} s; {key} {tuple(emb.shape)} {emb.dtype} drawn in {emb_s:.2f} s",
+          flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens, key: emb}
+    step(params, {"tokens": tokens[:, :256], key: emb[:, :64]})  # warm-up
+    torch.cuda.synchronize()
+    n_calls = sum(want_kinds.values())
+    tap = CheckedFlashTap(f"{cfg.name} prefill")
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tap:
+        last = step(params, batch)
+    torch.cuda.synchronize()
+    counted_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["flash_attention_sm90"] == n_calls and counts["flash_attention_general"] == 0,
+          f"{cfg.name} prefill: {counts['flash_attention_sm90']} flash_attention launches on "
+          f"the sm90 route and {counts['flash_attention_general']} on the general one, want "
+          f"exactly {n_calls}, all sm90 (bf16, D = {cfg.head_dim})")
+    check(dict(tap.kinds) == want_kinds, f"{cfg.name} prefill: B7 calls by (causal, Sq, Sk) "
+                                         f"{dict(tap.kinds)}, want {want_kinds}")
+    check(tuple(last.shape) == (PREFILL_BATCH, cfg.vocab) and
+          bool(last.to(torch.float32).isfinite().all()),
+          f"{cfg.name} prefill: last-position logits {tuple(last.shape)} not finite")
+    print(f"{cfg.name} prefill (counted, each B7 call checked as it ran): {counted_wall:.3f} s "
+          f"wall; launches {counts}; calls by (causal, Sq, Sk) {dict(tap.kinds)}, all within "
+          f"tolerance of their plain versions (max |diff| {tap.err:.4g}, at most "
+          f"{tap.excess:.3g} of the tolerance)", flush=True)
+    first, err, excess = tap.first, tap.err, tap.excess
+    del tap, last
+    gc.collect()
+    wall, peak, busy, n_kernels, by_name, b7_s = time_and_profile(lambda: step(params, batch))
+    t = PREFILL_BATCH * PREFILL_LEN
+    print(f"{cfg.name} prefill: {wall:.4f} s wall ({t / wall:.0f} tokens/s); device busy "
+          f"{busy:.4f} s in {n_kernels} kernels (idle share {1.0 - busy / wall:.3f}), B7 "
+          f"{b7_s:.4f} s of it ({b7_s / busy:.3f}); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB (the {n_params * 2 / 2**30:.2f} GiB of weights included)",
+          flush=True)
+    summary = dict(batch=PREFILL_BATCH, seq=PREFILL_LEN, frontend=list(emb.shape),
+                   layers=cfg.num_layers, encoder_layers=cfg.encoder_layers, params=n_params,
+                   init_s=init_s, frontend_draw_s=emb_s, wall_s=wall,
+                   counted_wall_s=counted_wall, tokens_per_s=t / wall, device_busy_s=busy,
+                   idle_share=1.0 - busy / wall, kernels=n_kernels, flash_device_s=b7_s,
+                   flash_share=b7_s / busy, peak_mem_bytes=peak,
+                   flash_calls={str(k): n for k, n in want_kinds.items()},
+                   flash_max_abs_err=err, flash_max_tolerance_share=excess,
+                   top=[dict(kernel=k[:80], s=tt, count=c) for tt, c, k in by_name[:8]])
+    del params, batch, emb
+    return summary, counts, first
+
+
+def _sum_counts(runs: list[dict]) -> dict:
+    out = collections.Counter()
+    for c in runs:
+        out.update(c)
+    return dict(out)
+
+
+def train_path() -> tuple[dict, dict]:
+    """qwen3-4b trained at full width and depth on the card: ``launch.train
+    .build``'s model and AdamW (float32 moments, remat on), seeded bf16
+    weights, ``TRAIN_STEPS`` steps of ``make_train_step`` on
+    ``data.pipeline.host_batch``'s 1 x 4,096 tokens.  Each step: exactly one
+    sm90 B7 launch a layer in the forward pass and one more a layer in
+    remat's recompute (the backward differentiates ``mha_chunked``, no B7);
+    the loss and gradient norm finite.  After the steps every parameter
+    leaf has changed.  Then layer 0's attention block in float32 (the
+    general B7 route; its backward the autograd function's), its gradient
+    on ``TRAIN_CHECK_LEN`` tokens against the CPU's.  Returns (summary,
+    launch counts of the steps)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+
+    phase(f"{TRAIN_ARCH} training ({TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens)")
+    dev = torch.device("cuda", 0)
+    cfg, model, opt_cfg, _ = TR.build(argparse.Namespace(
+        arch=TRAIN_ARCH, smoke=False, lr=TRAIN_LR, steps=TRAIN_STEPS))
+    check(cfg.remat and cfg.remat_policy == "nothing" and opt_cfg.moment_dtype ==
+          torch.float32, f"{cfg.name}: remat {cfg.remat} ({cfg.remat_policy}), moments "
+                         f"{opt_cfg.moment_dtype}")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    before = [t.cpu() for t in tree_leaves(params)]
+    forward_counts = []
+
+    class Counted:
+        """``model`` whose ``loss`` notes the launches of the forward pass."""
+        @staticmethod
+        def loss(p, batch):
+            out = model.loss(p, batch)
+            forward_counts.append(launch_counts())
+            return out
+
+    train_step = make_train_step(Counted, opt_cfg)
+    opt_state = adamw.init(params, opt_cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH)
+    n = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms, step_counts = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = host_batch(data, i, dev)
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        step_counts.append(counts)
+        fwd = forward_counts[-1]
+        check(fwd["flash_attention_sm90"] == n and fwd["flash_attention_general"] == 0,
+              f"train step {i}: {fwd['flash_attention_sm90']} sm90 / "
+              f"{fwd['flash_attention_general']} general B7 launches in the forward pass, "
+              f"want exactly {n} sm90 (one a layer)")
+        check(counts["flash_attention_sm90"] == 2 * n and counts["flash_attention_general"] == 0,
+              f"train step {i}: {counts['flash_attention_sm90']} sm90 B7 launches a step, want "
+              f"{2 * n} ({n} forward, {n} in remat's recompute)")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"train step {i}: loss {loss}, grad norm {gnorm}")
+        losses.append(loss)
+        norms.append(gnorm)
+        print(f"train step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, lr "
+              f"{float(metrics['lr']):.3e}, {walls[-1]:.3f} s; B7 {n} forward + "
+              f"{counts['flash_attention_sm90'] - n} recompute launches", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    unchanged = [i for i, (a, b) in enumerate(zip(tree_leaves(params), before))
+                 if torch.equal(a.cpu(), b)]
+    check(not unchanged, f"train: parameter leaves {unchanged} unchanged after "
+                         f"{TRAIN_STEPS} steps")
+    del before, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = float(np.median(walls[1:]))
+    print(f"train: median step {step_s:.4f} s ({TRAIN_BATCH * TRAIN_LEN / step_s:.0f} "
+          f"tokens/s; first step {walls[0]:.3f} s); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; all {len(tree_leaves(params))} parameter leaves changed",
+          flush=True)
+
+    phase(f"{TRAIN_ARCH} layer 0 attention gradient, float32, card against CPU")
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    layer0 = {k: v[0].detach().to(torch.float32).cpu()
+              for k, v in params["stack"]["period"][0]["mixer"].items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((1, TRAIN_CHECK_LEN, cfg.d_model), generator=gen)
+    g = torch.randn((1, TRAIN_CHECK_LEN, cfg.d_model), generator=gen)
+
+    def grads(where):
+        p = {k: v.to(where).requires_grad_() for k, v in layer0.items()}
+        xx = x.to(where).requires_grad_()
+        out = A.attn_block(p, xx, cfg32)
+        names = list(p) + ["x"]
+        return dict(zip(names, torch.autograd.grad(out, list(p.values()) + [xx], g.to(where))))
+
+    KS.reset_launch_counts()
+    card = grads(dev)
+    torch.cuda.synchronize()
+    check(launch_counts()["flash_attention_general"] == 1, "the float32 attention block did "
+                                                           "not launch B7 once (general route)")
+    cpu = grads("cpu")
+    worst = 0.0
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        check(torch.allclose(got, want, rtol=TRAIN_GRAD_TOL, atol=TRAIN_GRAD_TOL * scale),
+              f"train: layer 0's {name} gradient on the card is {rel:.3g} (of its largest "
+              f"entry) from the CPU's")
+    for name in ("wq", "wk", "wv"):
+        check(bool((card[name] != 0).any()), f"train: the card's {name} gradient is zero")
+    print(f"layer 0 attention block, float32, {TRAIN_CHECK_LEN} tokens: every gradient "
+          f"({', '.join(cpu)}) within {worst:.3g} (of its largest entry) of the CPU's; wq / wk "
+          f"/ wv gradients nonzero on the card", flush=True)
+    summary = dict(arch=cfg.name, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_LEN,
+                   lr=TRAIN_LR, remat=cfg.remat, moment_dtype="float32", step_walls_s=walls,
+                   median_step_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_LEN / step_s,
+                   peak_mem_bytes=peak, losses=losses, grad_norms=norms,
+                   flash_launches_per_step=dict(forward=n, recompute=n),
+                   layer0_grad_check=dict(tokens=TRAIN_CHECK_LEN, max_rel=worst,
+                                          tol=TRAIN_GRAD_TOL))
+    return summary, _sum_counts(step_counts)
+
+
+def train_run_path() -> tuple[dict, dict]:
+    """``launch.train.run`` at smoke size on the card with the reference
+    end-to-end test's arguments: a clean 24-step run, then one that fails at
+    step ``TRAIN_FAIL_AT`` and restarts from its latest checkpoint (step
+    ``TRAIN_RESTORED``) in temporary checkpoint directories.  The clean
+    run's loss falls, and the restarted run's 16 losses lie within the
+    reference test's band of the clean run's.  Returns (summary, launch
+    counts of both runs)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as KS
+    from repro_torch.launch.train import run
+
+    phase(f"launch.train.run at smoke size on the card, --fail-at {TRAIN_FAIL_AT}")
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        clean = run(argparse.Namespace(**TRAIN_SMOKE_ARGS, ckpt_dir=f"{tmp}/clean",
+                                       fail_at=None, device="cuda"))
+        failed = run(argparse.Namespace(**TRAIN_SMOKE_ARGS, ckpt_dir=f"{tmp}/failed",
+                                        fail_at=TRAIN_FAIL_AT, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = TRAIN_SMOKE_ARGS["steps"]
+    check(clean["restored_step"] is None and clean["last_loss"] < clean["first_loss"],
+          f"train run: clean loss {clean['first_loss']:.4f} -> {clean['last_loss']:.4f}")
+    check(failed["restored_step"] == TRAIN_RESTORED and
+          len(failed["losses"]) == steps - TRAIN_RESTORED,
+          f"train run: restored step {failed['restored_step']}, {len(failed['losses'])} "
+          f"losses after it")
+    gap = np.abs(np.asarray(failed["losses"]) - np.asarray(clean["losses"][TRAIN_RESTORED:]))
+    band = TRAIN_BAND + TRAIN_BAND * np.abs(np.asarray(clean["losses"][TRAIN_RESTORED:]))
+    check(bool((gap <= band).all()), f"train run: the restarted losses leave the band "
+                                     f"(largest gap {gap.max():.4f})")
+    layers = 2  # the smoke config's; one general-route B7 launch a layer a step (no remat)
+    want = layers * (steps + TRAIN_FAIL_AT + steps - TRAIN_RESTORED)
+    check(counts["flash_attention_general"] == want and counts["flash_attention_sm90"] == 0,
+          f"train run: {counts['flash_attention_general']} general / "
+          f"{counts['flash_attention_sm90']} sm90 B7 launches, want {want} general")
+    print(f"train run: clean loss {clean['first_loss']:.4f} -> {clean['last_loss']:.4f}; "
+          f"failed at {TRAIN_FAIL_AT}, restored step {failed['restored_step']}, largest gap "
+          f"to the clean run {gap.max():.4f}; {wall:.2f} s for both; B7 launches {want}",
+          flush=True)
+    return dict(clean_losses=clean["losses"], restarted_losses=failed["losses"],
+                restored_step=failed["restored_step"], max_gap=float(gap.max()),
+                wall_s=wall), counts
+
+
 def capture_study_path() -> tuple[dict, dict]:
     """``benchmarks/fig_capture.py``'s study — the three captured families
     and their synthetic analogues, all six mechanisms — on both engines:
@@ -3522,7 +3911,7 @@ def main() -> int:
         stats = kernel_phases(K, floor_ms)
         counts, walls, fig7_runs = main_path(K)
         sequential = fig7_runs["sequential"]
-        profile = main_path_profile(walls["batch"])
+        profile = main_path_profile()
         mesh_summary, mesh_counts = mesh_path(fig7_runs["batch"])
         del fig7_runs
         fig7x_counts, fig7x_walls = extended_fleet_path(sequential, card)
@@ -3558,7 +3947,7 @@ def main() -> int:
         smoke_counts = smoke_prefill_path()
         moe_prefill, moe_prefill_counts, params, (layer0, qkv0) = moe_prefill_path()
         moe_dispatch = moe_dispatch_phase(layer0)
-        stats["flash_attention_sm90"]["moe_shape"] = moe_flash_timing(qkv0)
+        stats["flash_attention_sm90"]["moe_shape"] = flash_timing("MoE prefill", qkv0)
         del layer0, qkv0
         gc.collect()
         torch.cuda.empty_cache()
@@ -3585,6 +3974,34 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        enc_cfg = get_config(ENCDEC_ARCH)
+        enc_frames = PREFILL_LEN // enc_cfg.audio_downsample
+        encdec_prefill, encdec_counts, first = frontend_prefill_path(ENCDEC_ARCH, {
+            (False, enc_frames, enc_frames): enc_cfg.encoder_layers,
+            (True, PREFILL_LEN, PREFILL_LEN): enc_cfg.num_layers,
+            (False, PREFILL_LEN, enc_frames): enc_cfg.num_layers})
+        stats["flash_attention_sm90"]["encdec_shapes"] = {
+            "encoder": flash_timing("enc-dec encoder", first[(False, enc_frames, enc_frames)],
+                                    causal=False),
+            "decoder": flash_timing("enc-dec decoder", first[(True, PREFILL_LEN, PREFILL_LEN)]),
+            "cross": flash_timing("enc-dec cross attention",
+                                  first[(False, PREFILL_LEN, enc_frames)], causal=False)}
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        vlm_cfg = get_config(VLM_ARCH)
+        vlm_len = PREFILL_LEN + vlm_cfg.vision_tokens
+        vlm_prefill, vlm_counts, first = frontend_prefill_path(
+            VLM_ARCH, {(True, vlm_len, vlm_len): vlm_cfg.num_layers})
+        stats["flash_attention_sm90"]["vlm_shape"] = flash_timing(
+            "VLM prefill", first[(True, vlm_len, vlm_len)])
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        training, train_counts = train_path()
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_run, train_run_counts = train_run_path()
         capstudy_counts, capstudy_walls = capture_study_path()
         for name in ("h3_hash", "bloom_query", "bloom_query_onehot", "bloom_insert",
                      "bloom_insert_onehot", "bloom_intersect"):
@@ -3611,6 +4028,8 @@ def main() -> int:
                **mesh_counts,
                "mamba_prefill": mamba_prefill_counts, "mamba_serve": mamba_serve_counts,
                "hybrid_prefill": hybrid_prefill_counts, "hybrid_serve": hybrid_serve_counts,
+               "encdec_prefill": encdec_counts, "vlm_prefill": vlm_counts,
+               "qwen3_train": train_counts, "train_run_smoke": train_run_counts,
                "capture_study_batch": capstudy_counts["batch"],
                "capture_study_sequential": capstudy_counts["sequential"]}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
@@ -3629,7 +4048,9 @@ def main() -> int:
                       "moe_serve": moe_serving, "lane_mesh": mesh_summary,
                       "mamba_prefill": mamba_prefill, "mamba_block_check": mamba_block,
                       "mamba_serve": mamba_serving, "hybrid_prefill": hybrid_prefill,
-                      "hybrid_serve": hybrid_serving,
+                      "hybrid_serve": hybrid_serving, "encdec_prefill": encdec_prefill,
+                      "vlm_prefill": vlm_prefill, "qwen3_train": training,
+                      "train_run_smoke": train_run,
                       "capture_study_wall_s": capstudy_walls}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

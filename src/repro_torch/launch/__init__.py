@@ -1,3 +1,2 @@
-"""Step functions and the token-serving loop (PyTorch port of the
-serving part of :mod:`repro.launch`; the trainer, the dry-run and the mesh
-helpers come with later slices, ROADMAP A11)."""
+"""Step functions, the trainer and the token-serving loop (PyTorch port of
+:mod:`repro.launch`; the dry run and the mesh helpers are not ported)."""

@@ -1,15 +1,33 @@
-"""Step functions (prefill / decode), PyTorch port of the serving part of
+"""Step functions (train / prefill / decode), PyTorch port of
 :mod:`repro.launch.steps`.  The port runs them eagerly on the tensors'
-device; ``make_train_step`` and the sharding helpers (``batch_shardings``,
-``cache_shardings``) come with the training and the dry-run / launch-mesh
-slices (ROADMAP A11).
+device where the reference jits them; the sharding helpers
+(``batch_shardings``, ``cache_shardings``) belong to the dry run and the
+launch mesh and are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.models.model import Model
+from repro_torch.optim import adamw
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "lr"})``: the loss and its gradient with respect
+    to every parameter leaf (zeros for a leaf the loss does not reach, as
+    ``jax.value_and_grad`` gives), then one AdamW update."""
+    def train_step(params, opt_state, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = model.loss(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, (torch.zeros_like(p) if g is None else g
+                                        for p, g in zip(leaves, grads)))
+        params, opt_state, metrics = adamw.step(params, grads, opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss.detach(), **metrics}
+    return train_step
 
 
 def make_prefill_step(model: Model):

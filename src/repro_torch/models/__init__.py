@@ -1,4 +1,6 @@
 """The model zoo (PyTorch port of ``repro.models``): shared substrate
-(:mod:`.common`), GQA attention (:mod:`.attention`), the dense stack
-(:mod:`.transformer`) and the :class:`~.model.Model` facade.  The MoE, SSM,
-recurrent and enc-dec / VLM pieces come with later slices (ROADMAP A11)."""
+(:mod:`.common`), GQA attention (:mod:`.attention`), the MoE, SSM and
+RG-LRU blocks (:mod:`.moe`, :mod:`.ssm`, :mod:`.recurrent`), the
+modality frontend stubs (:mod:`.frontends`), the decoder-only and
+encoder-decoder stacks (:mod:`.transformer`) and the
+:class:`~.model.Model` facade."""

@@ -1,20 +1,22 @@
 """GQA attention, PyTorch port of :mod:`repro.models.attention`: chunked
-softmax attention (decode) and the flash kernel (train / prefill), plus the
-cached decode step.
+softmax attention (decode) and the flash kernel (train / prefill), plus
+cross attention and the cached decode step.
 
 :func:`mha_chunked` (a loop over KV chunks with running max / sum /
 accumulator) never materializes an (S, S) score matrix; it is the oracle of
 the flash kernel (``kernels/flash_attention/ref.py``) and the attention of
 the decode step, whose cache offset, valid length and ring positions the
 kernel does not take.  :func:`attn_block` (full-sequence self-attention)
-calls :func:`repro_torch.kernels.flash_attention.ops.mha`, as the
-reference's module docstring says models do (the reference's own
-``attn_block`` calls ``mha_chunked``): on a CUDA tensor that is the
+and :func:`cross_attn_block` (decoder queries on the encoder's keys and
+values) call :func:`flash_mha`, as the reference's module docstring says
+models do (the reference's own blocks call ``mha_chunked``): its forward is
+:func:`repro_torch.kernels.flash_attention.ops.mha` — on a CUDA tensor the
 hand-written CUDA kernel, on a CPU tensor its plain version, the TPU
-kernel's float32 math (ROADMAP §C).  The encoder-decoder pieces
-(``cross_attn_block``, ``encoder_kv``) come with that slice of the port.
+kernel's float32 math (ROADMAP §C) — and its backward recomputes
+``mha_chunked`` on the saved q, k and v and differentiates it, the
+gradient the reference's ``jax.value_and_grad`` takes (the TPU kernel has
+no backward).
 """
-
 from __future__ import annotations
 
 import torch
@@ -110,6 +112,33 @@ def mha_chunked(
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+class _FlashMHA(torch.autograd.Function):
+    """B7 forward; the backward differentiates ``mha_chunked``, recomputed
+    on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash.mha(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = mha_chunked(*qkv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad)
+        return dq, dk, dv, None, None
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-sequence attention, q (B, Sq, Hq, D), k / v (B, Sk, Hkv, D) ->
+    (B, Sq, Hq, D): B7 forward (one launch on the card), and a gradient
+    where one is needed (:class:`_FlashMHA`)."""
+    return _FlashMHA.apply(q, k, v, causal, window)
+
+
 # ---------------------------------------------------------------------------
 # Attention block (GQA + RoPE + optional qk-norm), train / prefill / decode
 # ---------------------------------------------------------------------------
@@ -151,8 +180,24 @@ def attn_block(p, x: torch.Tensor, cfg: C.ModelConfig, *, window: int = 0,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, h, cfg, positions)
-    out = flash.mha(q, k, v, causal=causal, window=window)
+    out = flash_mha(q, k, v, causal=causal, window=window)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attn_block(p, x: torch.Tensor, enc_kv, cfg: C.ModelConfig) -> torch.Tensor:
+    """Cross-attention: q from decoder x (no RoPE, no qk-norm), k / v
+    precomputed from the encoder (:func:`encoder_kv`); non-causal."""
+    h = C.rms_norm(x, p["norm"])
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    k, v = enc_kv
+    out = flash_mha(q, k, v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encoder_kv(p, enc_out: torch.Tensor, cfg: C.ModelConfig):
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    return (k, v)
 
 
 def init_kv_cache(cfg: C.ModelConfig, batch: int, max_len: int, n_layers: int,

@@ -67,6 +67,13 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     return out
 
 
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` (an iterable) in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 # Largest leaf drawn in one piece (2^30 elements, 4 GiB of float32 scratch);
 # qwen2-moe-a2.7b's stacked experts (24 x 64 x 2,048 x 1,408, 4.4e9
 # elements) are drawn in slices.
@@ -262,7 +269,13 @@ def linear_scan_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     pairs, scan the half-length sequence, fill in the even positions),
     which the reference runs with the combine ``(a2 a1, a2 b1 + b2)``.
     Each level is a few elementwise ops on strided views, O(S) work in all.
-    ``b`` is overwritten with the states and returned; ``a`` is read only."""
+    For inference ``b`` is overwritten with the states and returned (``a``
+    is read only), so a full-width prefill keeps no second copy; where
+    autograd records (grad mode on and an input requiring a gradient) the
+    same recursion runs out of place (:func:`_linear_scan`), bit for bit
+    the same states."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _linear_scan(a, b)
     s = a.shape[1]
     if s < 2:
         return b
@@ -273,6 +286,20 @@ def linear_scan_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b[:, 2::2] += a[:, 2::2] * odd[:, :(s - 1) // 2]
     b[:, 1::2] = odd
     return b
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`linear_scan_` out of place: the same operations in the same
+    order, each result a new tensor, so autograd can differentiate it."""
+    s = a.shape[1]
+    if s < 2:
+        return b
+    a_odd = a[:, 1::2]
+    odd = _linear_scan(a_odd * a[:, 0:s - 1:2], a_odd * b[:, 0:s - 1:2] + b[:, 1::2])
+    out = b.clone()
+    out[:, 2::2] = b[:, 2::2] + a[:, 2::2] * odd[:, :(s - 1) // 2]
+    out[:, 1::2] = odd
+    return out
 
 
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:

@@ -1,25 +1,31 @@
-"""Public model facade, PyTorch port of :mod:`repro.models.model` for the
-decoder-only families (dense, MoE, SSM, hybrid): one entry point per
-execution mode.
+"""Public model facade, PyTorch port of :mod:`repro.models.model`: one
+entry point per execution mode, for every family of the zoo (dense, MoE,
+SSM, hybrid, encoder-decoder, VLM).
 
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     logits, aux = model.apply(params, tokens)  # full-sequence forward
+    loss = model.loss(params, batch)           # next-token xent + MoE aux
     cache = model.init_cache(batch, max_len, device)
     logits, cache = model.decode(params, token, cache)
 
 Parameters are a plain dict of tensors with the reference's nesting and
 names (``{"embed", "stack": {"period": [...], "tail": [...],
-"final_norm"}, ["lm_head"]}``; an MoE block's ``"moe"`` subtree keeps
-its float32 router and norm beside the parameter-dtype experts, a Mamba
-block its float32 ``dt_bias``, ``a_log`` and ``d_skip``, an RG-LRU block
-its float32 ``lam``); :func:`params_from_jax` carries a reference
-parameter tree across bit for bit, each leaf in its own dtype.  ``apply``
-returns the logits and the MoE aux losses (``load_balance``,
-``router_z``) averaged over the MoE layers.  The decode cache is the
-reference's heterogeneous one: ``kv`` for attention layers, ``ssm``
-{conv, ssm} for Mamba layers, ``rec`` {conv, h} for RG-LRU layers.  ``loss`` comes with the training slice of the port; ``abstract``
-and ``shardings`` (the dry-run and mesh helpers) are not ported.
+"final_norm"}, ["lm_head"], ["encoder": {"blocks", "final_norm"}, "cross":
+{"period", "tail"}]}``; an MoE block's ``"moe"`` subtree keeps its float32
+router and norm beside the parameter-dtype experts, a Mamba block its
+float32 ``dt_bias``, ``a_log`` and ``d_skip``, an RG-LRU block its float32
+``lam``); :func:`params_from_jax` carries a reference parameter tree
+across bit for bit, each leaf in its own dtype.  ``apply`` returns the
+logits and the MoE aux losses (``load_balance``, ``router_z``) averaged
+over the MoE layers; an encoder-decoder config takes the encoder's
+``frames``, a VLM its ``prefix_embeds``.  ``loss`` is the reference's: the
+dense cross entropy, or ``chunked_xent`` where ``cfg.loss_chunk`` is set,
+plus the weighted MoE aux losses; autograd differentiates it.  The decode
+cache is the reference's heterogeneous one: ``kv`` for attention layers,
+``ssm`` {conv, ssm} for Mamba layers, ``rec`` {conv, h} for RG-LRU layers.
+``abstract``, ``shardings`` and ``input_specs`` (the dry-run and mesh
+helpers) are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ import torch
 
 from repro_torch.models import common as C
 from repro_torch.models import transformer as T
+
+MOE_AUX_WEIGHT = 0.01
+ROUTER_Z_WEIGHT = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +61,29 @@ class Model:
     # ---- forward ----------------------------------------------------------
 
     def apply(self, params, tokens, prefix_embeds=None, frames=None):
-        if frames is not None or self.cfg.encoder_layers > 0:
-            raise ValueError(f"{self.cfg.name}: {T.ENCDEC_SLICE}")
-        return T.forward(params, tokens, self.cfg, prefix_embeds=prefix_embeds)
+        cfg = self.cfg
+        if cfg.encoder_layers > 0:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: the encoder-decoder needs encoder frames")
+            return T.encdec_forward(params, tokens, frames, cfg)
+        return T.forward(params, tokens, cfg, prefix_embeds=prefix_embeds)
 
-    def loss(self, params, batch: dict):
-        raise ValueError(f"Model.loss comes with {T.TRAIN_SLICE}")
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """batch: {tokens, labels, [frames|prefix_embeds]} -> scalar loss."""
+        cfg = self.cfg
+        if cfg.loss_chunk > 0 and cfg.encoder_layers == 0:
+            hidden, aux = T.forward_hidden(params, batch["tokens"], cfg,
+                                           prefix_embeds=batch.get("prefix_embeds"))
+            loss = T.chunked_xent(params, hidden, batch["labels"], cfg)
+        else:
+            logits, aux = self.apply(params, batch["tokens"],
+                                     prefix_embeds=batch.get("prefix_embeds"),
+                                     frames=batch.get("frames"))
+            loss = C.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        if aux:
+            loss = (loss + MOE_AUX_WEIGHT * aux.get("load_balance", 0.0)
+                    + ROUTER_Z_WEIGHT * aux.get("router_z", 0.0))
+        return loss
 
     # ---- serving ----------------------------------------------------------
 

@@ -1,5 +1,6 @@
-"""Model stack assembly, PyTorch port of the decoder-only part of
-:mod:`repro.models.transformer`: blocks -> layer loop -> logits.
+"""Model stack assembly, PyTorch port of :mod:`repro.models.transformer`:
+blocks -> layer loop -> logits, the encoder-decoder stack and the chunked
+cross entropy.
 
 A block = mixer (+ optional FFN), each with its own pre-norm and residual:
 
@@ -11,22 +12,28 @@ A block = mixer (+ optional FFN), each with its own pre-norm and residual:
 
 Layer iteration: the block pattern's smallest repeating unit (the *period*)
 is stacked on a leading axis, as in the reference; where the reference runs
-``jax.lax.scan`` over that axis (+remat), the port loops over it in Python
-(``remat`` has no meaning without a backward pass), and the non-divisible
-tail is unrolled.  Decode unrolls all layers and carries heterogeneous
-caches (KV / conv+ssm / conv+h per kind), each indexed by its kind's own
-layer counter.  The stack returns the MoE aux losses averaged over the MoE
-layers (zeros for a dense stack), as the reference does.
-
-The encoder-decoder stack and ``chunked_xent`` come with later slices of
-the port and raise a ``ValueError`` naming theirs (ROADMAP A11).
+``jax.lax.scan`` over that axis, the port loops over it in Python (each
+stacked leaf unbound once, so a backward pass stacks its layers' gradients
+in one step), and the non-divisible tail is unrolled.  ``cfg.remat`` (with
+the reference's ``"nothing"`` policy, the only one a config uses) wraps
+each superblock, and each encoder block, in ``torch.utils.checkpoint``
+(non-reentrant) when autograd records: its activations are recomputed in
+the backward.  Decode unrolls all layers and carries heterogeneous caches
+(KV / conv+ssm / conv+h per kind), each indexed by its kind's own layer
+counter; on an encoder-decoder config it runs the decoder stack with no
+cross-attention, as the reference's does.  The stack returns the MoE aux
+losses averaged over the MoE layers (zeros for a dense stack), as the
+reference does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
@@ -36,20 +43,17 @@ from repro_torch.models import ssm as S
 
 KINDS = ("attn", "swa", "moe", "mamba", "rglru")
 ATTN_KINDS = ("attn", "swa", "moe")
-ENCDEC_SLICE = ("the encoder-decoder stack (encode, encdec_forward, cross "
-                "attention) comes with the enc-dec / VLM slice of the port "
-                "(ROADMAP A11)")
-TRAIN_SLICE = "the training slice of the port (ROADMAP A11)"
 
 
-def check_ported(cfg: C.ModelConfig) -> None:
-    """Raise a ``ValueError`` naming the later slice for an encoder-decoder
-    stack, and one naming the kind for a block kind the zoo does not have."""
-    if cfg.encoder_layers > 0:
-        raise ValueError(f"{cfg.name}: {ENCDEC_SLICE}")
-    for kind in dict.fromkeys(cfg.pattern):
-        if kind not in KINDS:
-            raise ValueError(f"block kind {kind!r}: not one of {KINDS}")
+def _remat(fn, cfg: C.ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` asks and
+    autograd records, else ``fn`` itself."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy != "nothing":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: the port has "
+                         f"'nothing' (every activation recomputed)")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +95,7 @@ def block_param_specs(kind: str, cfg: C.ModelConfig) -> dict:
         return {"mixer": S.ssm_param_specs(cfg)}
     if kind == "rglru":
         return {"mixer": R.rglru_param_specs(cfg), "mlp": mlp_param_specs(cfg)}
-    raise ValueError(kind)
+    raise ValueError(f"block kind {kind!r}: not one of {KINDS}")
 
 
 def apply_block(kind: str, p, x: torch.Tensor, cfg: C.ModelConfig,
@@ -158,15 +162,33 @@ def _index(tree, i: int):
     return C.tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a tree stacked on its leading axis, each leaf
+    unbound once (views; one backward node a leaf for all its layers)."""
+    cols = [a.unbind(0) for a in C.tree_leaves(tree)]
+    return [C.tree_unflatten(tree, (col[i] for col in cols)) for i in range(n)]
+
+
 def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
                 positions=None) -> tuple[torch.Tensor, dict]:
     """Run the full block stack. Returns (hidden, aux_losses)."""
     per = _period(cfg)
     n_full, tail = _split_layers(cfg)
+
+    def superblock(x, layer_params):
+        aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        for kind, p in zip(per, layer_params):
+            x, aux = apply_block(kind, p, x, cfg, positions=positions)
+            if aux:
+                aux_sum = aux_sum + torch.stack([aux["load_balance"], aux["router_z"]])
+        return x, aux_sum
+
+    body = _remat(superblock, cfg)
     aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
-    layers = [(kind, _index(p, i)) for i in range(n_full)
-              for kind, p in zip(per, params["period"])]
-    for kind, p in layers + list(zip(tail, params["tail"])):
+    for layer_params in _unstack(params["period"], n_full):
+        x, aux = body(x, layer_params)
+        aux_sum = aux_sum + aux
+    for kind, p in zip(tail, params["tail"]):
         x, aux = apply_block(kind, p, x, cfg, positions=positions)
         if aux:
             aux_sum = aux_sum + torch.stack([aux["load_balance"], aux["router_z"]])
@@ -181,7 +203,6 @@ def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
 
 
 def lm_param_specs(cfg: C.ModelConfig) -> dict:
-    check_ported(cfg)
     specs: dict[str, Any] = {
         "embed": C.ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed_table"),
                              cfg.param_dtype, "small_normal"),
@@ -190,6 +211,18 @@ def lm_param_specs(cfg: C.ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = C.ParamSpec((cfg.d_model, cfg.vocab),
                                        ("embed", "vocab"), cfg.param_dtype)
+    if cfg.encoder_layers > 0:
+        specs["encoder"] = {
+            "blocks": _stack_specs({"mixer": A.attn_param_specs(cfg),
+                                    "mlp": mlp_param_specs(cfg)}, cfg.encoder_layers),
+            "final_norm": C.ParamSpec((cfg.d_model,), (None,), torch.float32, "zeros"),
+        }
+        # per-decoder-layer cross attention (stacked like the period)
+        n_full, tail = _split_layers(cfg)
+        specs["cross"] = {
+            "period": _stack_specs(A.attn_param_specs(cfg, cross=True), n_full),
+            "tail": [A.attn_param_specs(cfg, cross=True) for _ in tail],
+        }
     return specs
 
 
@@ -230,8 +263,79 @@ def forward(params, tokens: torch.Tensor, cfg: C.ModelConfig,
     return logits_from_hidden(params, x, cfg), aux
 
 
-def chunked_xent(params, hidden, labels, cfg: C.ModelConfig):
-    raise ValueError(f"chunked_xent comes with {TRAIN_SLICE}")
+def chunked_xent(params, hidden: torch.Tensor, labels: torch.Tensor,
+                 cfg: C.ModelConfig) -> torch.Tensor:
+    """Next-token xent over sequence chunks of ``cfg.loss_chunk``: never
+    materializes the full (B, S, V) logits; each chunk is recomputed in the
+    backward (``torch.utils.checkpoint``).  Padded vocabulary rows are
+    masked out."""
+    b, s, _ = hidden.shape
+    ck = cfg.loss_chunk
+    n = -(-s // ck)
+    pad = n * ck - s
+    h = F.pad(hidden, (0, 0, 0, pad))
+    lab = F.pad(labels, (0, pad))
+    msk = F.pad(torch.ones((b, s), dtype=torch.float32, device=hidden.device), (0, pad))
+
+    def chunk_loss(hx, lx, mx):
+        logits = logits_from_hidden(params, hx, cfg).to(torch.float32)
+        if cfg.vocab_size < logits.shape[-1]:
+            pad_mask = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
+            logits = torch.where(pad_mask, torch.finfo(torch.float32).min, logits)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, lx[..., None].to(torch.int64), dim=-1)[..., 0]
+        return torch.sum((logz - gold) * mx)
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, n * ck, ck):
+        tot = tot + checkpoint(chunk_loss, h[:, i:i + ck], lab[:, i:i + ck],
+                               msk[:, i:i + ck], use_reentrant=False)
+    return tot / (b * s)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless)
+# ---------------------------------------------------------------------------
+
+
+def encode(params, frames: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    """Bidirectional encoder over precomputed frame embeddings (B, Se, d)."""
+    enc = params["encoder"]
+
+    def block(x, p):
+        x = x + A.attn_block(p["mixer"], x, cfg, causal=False)
+        return x + mlp_block(p["mlp"], x, cfg)
+
+    body = _remat(block, cfg)
+    x = frames.to(cfg.param_dtype)
+    for p in _unstack(enc["blocks"], cfg.encoder_layers):
+        x = body(x, p)
+    return C.rms_norm(x, enc["final_norm"])
+
+
+def encdec_forward(params, tokens: torch.Tensor, frames: torch.Tensor,
+                   cfg: C.ModelConfig):
+    """Encoder-decoder forward: (B, S) tokens + (B, Se, d) frames ->
+    (logits, {}); a cross-attention block after each decoder layer."""
+    enc_out = encode(params, frames, cfg)
+    x = embed_tokens(params, tokens, cfg)
+    per = _period(cfg)
+    n_full, tail = _split_layers(cfg)
+
+    def superblock(x, layer_params, cross_p):
+        for kind, p in zip(per, layer_params):
+            x, _ = apply_block(kind, p, x, cfg)
+        return x + A.cross_attn_block(cross_p, x, A.encoder_kv(cross_p, enc_out, cfg), cfg)
+
+    body = _remat(superblock, cfg)
+    for layer_params, cross_p in zip(_unstack(params["stack"]["period"], n_full),
+                                     _unstack(params["cross"]["period"], n_full)):
+        x = body(x, layer_params, cross_p)
+    for kind, p, cross_p in zip(tail, params["stack"]["tail"], params["cross"]["tail"]):
+        x, _ = apply_block(kind, p, x, cfg)
+        x = x + A.cross_attn_block(cross_p, x, A.encoder_kv(cross_p, enc_out, cfg), cfg)
+    x = C.rms_norm(x, params["stack"]["final_norm"])
+    return logits_from_hidden(params, x, cfg), {}
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +358,6 @@ def init_cache(cfg: C.ModelConfig, batch: int, max_len: int, device=None) -> dic
     {conv, h} for the RG-LRU ones, each stacked over its kind's layers.
     ``len`` is a 0-dim int32 tensor on the host, so reading it costs no
     device synchronization."""
-    check_ported(cfg)
     kinds = cfg.pattern
     n_attn = sum(1 for k in kinds if k in ATTN_KINDS)
     n_ssm = sum(1 for k in kinds if k == "mamba")
@@ -287,7 +390,6 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: C.ModelConfig):
     input cache is not written: the step clones each of its stacks once
     and each layer writes its new k / v slot, or its new states, into its
     slice of the copy."""
-    check_ported(cfg)
     x = embed_tokens(params, token, cfg)
     clen = int(cache["len"])
     ring = _ring_cache(cfg)

@@ -1,15 +1,24 @@
 """Host copy of the reference's ``jax.random`` float32 normal draws, in
-numpy: ``key``, ``split`` and ``normal`` give the bits that ``jax.random.
-key(seed)``, ``jax.random.split`` and ``jax.random.normal(key, shape,
-"float32")`` give on an x86-64 CPU with FMA (``jax_threefry_partitionable``
-on, the default), so a port module can draw the reference's parameters
-without JAX (``repro_torch.capture.moe_experts._params``).
+numpy: ``key``, ``split``, ``fold_in``, ``normal``, ``randint`` and
+``bernoulli`` give the bits that ``jax.random.key(seed)``,
+``jax.random.split``, ``jax.random.fold_in``, ``jax.random.normal(key,
+shape, "float32")``, ``jax.random.randint(key, shape, lo, hi)`` (int32) and
+``jax.random.bernoulli(key, p, shape)`` give on an x86-64 CPU with FMA
+(``jax_threefry_partitionable`` on, the default), so a port module can
+draw the reference's parameters, frontend embeddings and data without JAX
+(``repro_torch.capture.moe_experts._params``,
+``repro_torch.models.frontends.synth_embeddings``,
+``repro_torch.data.pipeline.host_batch``).
 
 * **Keys and bits.** A key is two uint32 words (``key(s)`` is ``(0, s)``
   for 0 <= s < 2^32).  ``split`` and the random bits are Threefry-2x32
   (:func:`repro_torch.sim._traceref.threefry2x32`) of the counter pair
   (0, i) for the flat index i; a split key is the pair of output words,
-  the bits of a draw their XOR.
+  the bits of a draw their XOR.  ``fold_in(k, d)`` is Threefry of (0, d),
+  the key ``split`` gives at index d.
+* **Integers.** ``randint`` draws two words a value from the two halves of
+  a split key and reduces them modulo the span in uint32 arithmetic (the
+  high word's remainder times 2^32 mod span, plus the low one's).
 * **Uniform.** The top 23 bits as a float in [1, 2), minus 1, scaled to
   [nextafter(-1, 0), 1) and clamped below.
 * **Normal.** ``sqrt(2) * erf_inv(u)`` with XLA's single-precision
@@ -141,11 +150,44 @@ def split(k, num: int = 2) -> list[tuple[np.uint32, np.uint32]]:
     return [(x0[i], x1[i]) for i in range(num)]
 
 
+def fold_in(k, data: int) -> tuple[np.uint32, np.uint32]:
+    """``jax.random.fold_in(k, data)`` for 0 <= data < 2^32."""
+    x0, x1 = threefry2x32(k[0], k[1], np.zeros(1, np.uint32),
+                          np.array([data], np.uint32))
+    return x0[0], x1[0]
+
+
+def _bits(k, shape: tuple[int, ...]) -> np.ndarray:
+    """The 32 random bits a value of a draw of ``shape`` (flat)."""
+    x0, x1 = _bits2(k, int(np.prod(shape, dtype=np.int64)))
+    return x0 ^ x1
+
+
+def _uniform01(k, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.uniform(k, shape, "float32")`` in [0, 1), flat."""
+    return ((_bits(k, shape) >> np.uint32(9)) | np.uint32(0x3F800000)).view(_F) - _F(1)
+
+
+def randint(k, shape: tuple[int, ...], minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32)."""
+    k1, k2 = split(k)
+    hi, lo = _bits(k1, shape), _bits(k2, shape)
+    span = np.uint32(maxval - minval if maxval > minval else 1)
+    mult = np.uint32(2**16) % span
+    with np.errstate(over="ignore"):
+        mult = (mult * mult) % span
+        off = ((hi % span) * mult + lo % span) % span
+    return (np.int32(minval) + off.astype(np.int32)).reshape(shape)
+
+
+def bernoulli(k, p: float, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.bernoulli(k, p, shape)``: a float32 uniform below p."""
+    return (_uniform01(k, shape) < _F(p)).reshape(shape)
+
+
 def normal(k, shape: tuple[int, ...]) -> np.ndarray:
     """``jax.random.normal(k, shape, "float32")``."""
-    n = int(np.prod(shape, dtype=np.int64))
-    x0, x1 = _bits2(k, n)
-    f = (((x0 ^ x1) >> np.uint32(9)) | np.uint32(0x3F800000)).view(_F) - _F(1)
+    f = _uniform01(k, shape)
     lo = np.nextafter(_F(-1), _F(0))
     u = np.maximum(lo, _fma(f, _F(2), lo))
     return (erf_inv(u) * _SQRT2).reshape(shape)

@@ -1496,3 +1496,151 @@ def test_sharded_study_on_two_cards_equals_one(dev):
         names = {n for n, d in launches if d == card}
         assert {"bloom_query_launch", "bloom_intersect_pair_launch"} <= names, (card, names)
         assert any(n.startswith("bloom_insert") for n in names), (card, names)
+
+
+# The enc-dec / VLM families and the training path.
+
+
+def _value_and_grad(model, params, batch):
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    loss = model.loss(tree_map(lambda _: next(it), params), batch)
+    return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.float32, 128),
+                                     (torch.bfloat16, 64), (torch.bfloat16, 128)])
+@pytest.mark.parametrize("kw", [dict(sq=300, sk=300, causal=True, window=0),
+                                dict(sq=300, sk=300, causal=True, window=100),
+                                dict(sq=256, sk=77, causal=False, window=0)],
+                         ids=["causal", "window", "cross"])
+def test_flash_mha_gradient_on_card_equals_cpu(dev, no_tf32, dtype, d, kw):
+    """The B7 autograd function on the card: its forward launches B7 once
+    (no launch in the backward, which differentiates ``mha_chunked``), and
+    its gradients equal the CPU's: float32 within 1e-4 of each gradient's
+    largest entry, bfloat16 within 2^-6 of it (bf16 roundings of the
+    recomputed chunks)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention as A
+
+    gen = torch.Generator().manual_seed(d)
+    q = torch.randn((2, kw["sq"], 8, d), generator=gen).to(dtype)
+    k, v = (torch.randn((2, kw["sk"], 2, d), generator=gen).to(dtype) for _ in range(2))
+    g = torch.randn((2, kw["sq"], 8, d), generator=gen).to(dtype)
+    opts = dict(causal=kw["causal"], window=kw["window"])
+
+    def grads(where):
+        qkv = [t.to(where).requires_grad_() for t in (q, k, v)]
+        out = A.flash_mha(*qkv, **opts)
+        return torch.autograd.grad(out, qkv, g.to(where))
+
+    reset_launch_counts()
+    got = grads(dev)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, b in zip(got, grads("cpu")):
+        scale = float(b.to(torch.float32).abs().max())
+        torch.testing.assert_close(a.cpu().to(torch.float32), b.to(torch.float32),
+                                   rtol=tol, atol=tol * scale)
+    reset_launch_counts()
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "internvl2_26b"])
+def test_frontend_smoke_on_card_equals_cpu(dev, no_tf32, arch):
+    """The enc-dec and VLM smoke configs in float32: the forward on the card
+    (one B7 launch an encoder layer and two a decoder layer, or one a
+    layer) against the CPU's, logits within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.frontends import synth_embeddings
+    from repro_torch.models.model import Model
+    from repro_torch.sim import _jaxrandom
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=torch.float32)
+    model = Model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    key = "frames" if cfg.encoder_layers else "prefix_embeds"
+    emb = synth_embeddings(cfg, 2, _jaxrandom.key(2), 64, device="cpu")
+    reset_launch_counts()
+    got = model.apply(tree_map(lambda t: t.to(dev), cpu), toks.to(dev), **{key: emb.to(dev)})[0]
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == cfg.encoder_layers + (
+        2 if cfg.encoder_layers else 1) * cfg.num_layers
+    want = model.apply(cpu, toks, **{key: emb})[0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    reset_launch_counts()
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "seamless_m4t_large_v2"])
+def test_train_step_on_card_equals_cpu(dev, no_tf32, arch):
+    """One float32 smoke ``make_train_step`` (remat on) on the card against
+    the CPU's: loss and gradient norm within 1e-4, every parameter and
+    moment within 1e-4 of its largest entry (parameters: a twentieth of the
+    learning rate); the card's wq / wk / wv gradients nonzero."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.frontends import synth_embeddings
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sim import _jaxrandom
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype=torch.float32, remat=True)
+    model = Model(cfg)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=4)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    batch = host_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2), 0,
+                       "cpu")
+    if cfg.encoder_layers:
+        batch["frames"] = synth_embeddings(cfg, 2, _jaxrandom.key(0), 64, device="cpu")
+    card_batch = {k: t.to(dev) for k, t in batch.items()}
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    _, grads = _value_and_grad(model, gpu, card_batch)
+    mixer = gpu["stack"]["period"][0]["mixer"]
+    leaves = tree_leaves(gpu)
+    for name in ("wq", "wk", "wv"):
+        idx = next(i for i, t in enumerate(leaves) if t is mixer[name])
+        assert bool((grads[idx] != 0).any()), name
+    step = make_train_step(model, opt)
+    got = step(gpu, adamw.init(gpu, opt), card_batch)
+    want = step(cpu, adamw.init(cpu, opt), batch)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[2][k].cpu(), want[2][k], rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=0.05 * opt.lr)
+    for a, b in zip(tree_leaves([got[1]["mu"], got[1]["nu"]]),
+                    tree_leaves([want[1]["mu"], want[1]["nu"]])):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
+def test_ssm_smoke_trains_on_card(dev, arch):
+    """The SSM and hybrid smoke configs (bf16) train on the card: three
+    ``make_train_step`` steps, finite losses and gradient norms, every
+    parameter leaf changed."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(arch)
+    model = Model(cfg)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=3)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    before = [t.clone() for t in tree_leaves(params)]
+    state = adamw.init(params, opt)
+    step = make_train_step(model, opt)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    for i in range(3):
+        params, state, m = step(params, state, host_batch(data, i, dev))
+        assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"]))
+    assert all(not torch.equal(a, b) for a, b in zip(tree_leaves(params), before))

@@ -21,14 +21,19 @@ for name in names:
     importlib.import_module(name)
 # the walk reaches the study service and its runtime helpers, the MoE
 # family with its capture and the host copy of jax.random's draws, and the
-# SSM / hybrid family beside the lane mesh
+# SSM / hybrid family beside the lane mesh, the enc-dec / VLM family and
+# the training path
 missing = {"repro_torch.runtime.fault_tolerance", *(f"repro_torch.serve.{m}" for m in (
     "chaos", "clock", "coalesce", "policy", "queueing", "request", "retry", "server",
     "warm")), "repro_torch.models.moe", "repro_torch.capture.moe_experts",
     "repro_torch.sim._jaxrandom", "repro_torch.configs.qwen2_moe_a2_7b",
     "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.models.ssm",
     "repro_torch.models.recurrent", "repro_torch.configs.falcon_mamba_7b",
-    "repro_torch.configs.recurrentgemma_2b", "repro_torch.sim.mesh"} - set(names)
+    "repro_torch.configs.recurrentgemma_2b", "repro_torch.sim.mesh",
+    "repro_torch.models.frontends", "repro_torch.configs.seamless_m4t_large_v2",
+    "repro_torch.configs.internvl2_26b", "repro_torch.data.pipeline",
+    "repro_torch.optim.adamw", "repro_torch.checkpoint.manager",
+    "repro_torch.launch.train"} - set(names)
 assert not missing, missing
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)

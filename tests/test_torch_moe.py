@@ -8,8 +8,8 @@ and both ``moe_combine_f32`` settings — outputs, aux losses, the kept
 (token, expert, rank) set and the dropped count at a capacity that drops —,
 ``Model.apply`` with its aux, ``make_prefill_step``, six decode steps with
 their cache, and the serve driver token for token; plus the port's mirrors
-of ``tests/test_arch_smoke.py``'s MoE cases (the forward; the loss waits
-for the training slice) and ``test_decode_step``.
+of ``tests/test_arch_smoke.py``'s MoE cases (the forward; the loss and its
+gradient are in ``tests/test_torch_train.py``) and ``test_decode_step``.
 
 Tolerances (``rtol`` = ``atol``), as ``tests/test_torch_models.py``: 1e-4
 with ``param_dtype=float32``; 0.05 in bfloat16.  Routing is exact: the
@@ -33,7 +33,7 @@ from repro.configs import get_smoke_config as r_get_smoke_config
 from repro.launch.steps import make_prefill_step as r_make_prefill_step
 from repro.models import moe as RM
 from repro.models.model import Model as RModel
-from repro_torch.configs import PORTED, get_config, get_smoke_config
+from repro_torch.configs import ARCHS as T_ARCHS, get_config, get_smoke_config
 from repro_torch.launch import serve as S
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import common as C
@@ -115,7 +115,7 @@ def _layer0_moe(params, jax_tree: bool):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_and_specs_match_reference(arch):
-    assert arch in PORTED
+    assert arch in T_ARCHS
     for t_cfg, r_cfg in ((get_config(arch), r_get_config(arch)),
                          (get_smoke_config(arch), r_get_smoke_config(arch))):
         for f in dataclasses.fields(r_cfg):

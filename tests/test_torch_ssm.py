@@ -8,7 +8,7 @@ decode blocks for six steps from a zero cache, ``Model.apply`` and
 ``make_prefill_step``, six decode steps of the whole model with their
 heterogeneous cache, the serve loop token for token; plus the port's
 mirrors of ``tests/test_arch_smoke.py``'s forward and decode cases for the
-two archs (the train case waits for the training slice) and of
+two archs (the train case is in ``tests/test_torch_train.py``) and of
 ``test_decode_matches_forward_dense``, and decode against the forward past
 recurrentgemma's window (the ring cache wrapping).
 
@@ -36,7 +36,7 @@ from repro.launch.steps import make_prefill_step as r_make_prefill_step
 from repro.models import recurrent as RR
 from repro.models import ssm as RSSM
 from repro.models.model import Model as RModel
-from repro_torch.configs import PORTED, get_config, get_smoke_config
+from repro_torch.configs import ARCHS as T_ARCHS, get_config, get_smoke_config
 from repro_torch.launch import serve as S
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import common as C
@@ -128,7 +128,7 @@ def _layer0_mixer(params, r: bool):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_and_specs_match_reference(arch):
-    assert arch in PORTED
+    assert arch in T_ARCHS
     for t_cfg, r_cfg in ((get_config(arch), r_get_config(arch)),
                          (get_smoke_config(arch), r_get_smoke_config(arch))):
         for f in dataclasses.fields(r_cfg):
