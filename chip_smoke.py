@@ -270,7 +270,9 @@ Phases, in order; any failure exits non-zero before the final line:
    on ``host_batch``'s 1 x 4,096 tokens: exactly 36 sm90 B7 launches in
    each step's forward pass and 36 more in remat's recompute (the backward
    differentiates ``mha_chunked``), losses and gradient norms finite, every
-   parameter leaf changed, step wall, tokens/s and peak memory; then layer
+   parameter leaf changed, step wall, tokens/s and peak memory; a fifth
+   step profiled (idle share, top kernels); attention's forward and
+   forward + backward timed at the step's shape, its share of a step; then layer
    0's attention block in float32 (the general B7 route, one launch) on 256
    tokens: every gradient within 1e-4 (of its largest entry) of the CPU's,
    ``wq`` / ``wk`` / ``wv``'s nonzero;
@@ -3646,7 +3648,10 @@ def train_path() -> tuple[dict, dict]:
     sm90 B7 launch a layer in the forward pass and one more a layer in
     remat's recompute (the backward differentiates ``mha_chunked``, no B7);
     the loss and gradient norm finite.  After the steps every parameter
-    leaf has changed.  Then layer 0's attention block in float32 (the
+    leaf has changed; one more step runs under the profiler (device busy,
+    top kernels), and attention's part of a step is timed at its shape
+    (B7's forward; forward + ``mha_chunked`` backward through the autograd
+    function).  Then layer 0's attention block in float32 (the
     general B7 route; its backward the autograd function's), its gradient
     on ``TRAIN_CHECK_LEN`` tokens against the CPU's.  Returns (summary,
     launch counts of the steps)."""
@@ -3719,14 +3724,38 @@ def train_path() -> tuple[dict, dict]:
                  if torch.equal(a.cpu(), b)]
     check(not unchanged, f"train: parameter leaves {unchanged} unchanged after "
                          f"{TRAIN_STEPS} steps")
-    del before, opt_state
-    gc.collect()
-    torch.cuda.empty_cache()
     step_s = float(np.median(walls[1:]))
     print(f"train: median step {step_s:.4f} s ({TRAIN_BATCH * TRAIN_LEN / step_s:.0f} "
           f"tokens/s; first step {walls[0]:.3f} s); peak memory allocated "
           f"{peak / 2**30:.2f} GiB; all {len(tree_leaves(params))} parameter leaves changed",
           flush=True)
+    # one more step under the profiler (not counted): device busy time, top kernels
+    batch = host_batch(data, TRAIN_STEPS, dev)
+    busy, n_kernels, top = device_busy_s(lambda: train_step(params, opt_state, batch))
+    for t, c, name in top:
+        print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    print(f"train step profiled: device busy {busy:.4f} s in {n_kernels} kernels (idle share "
+          f"{1.0 - busy / step_s:.3f} of the median step)", flush=True)
+    del before, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # attention's part of a step, at the step's shape: B7's forward (run twice a
+    # step, remat) and the autograd function's forward + backward (mha_chunked)
+    gen_dev = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((TRAIN_BATCH, TRAIN_LEN, h, cfg.head_dim), device=dev,
+                           dtype=torch.bfloat16, generator=gen_dev).requires_grad_()
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    go = torch.randn(q.shape, device=dev, dtype=torch.bfloat16, generator=gen_dev)
+    fwd_ms = event_ms(lambda *a: A.flash_mha(*a), [(q, k, v)], 20)
+    fwd_bwd_ms = event_ms(lambda q, k, v, go: torch.autograd.grad(
+        A.flash_mha(q, k, v), (q, k, v), go), [(q, k, v, go)], 5)
+    attn_s = n * (fwd_ms + fwd_bwd_ms) / 1e3
+    print(f"attention at the step's shape, a layer: B7 forward {fwd_ms:.3f} ms, forward + "
+          f"mha_chunked backward {fwd_bwd_ms:.3f} ms; {n} layers x (forward + recompute + "
+          f"backward) = {attn_s:.3f} s, {attn_s / step_s:.3f} of the median step", flush=True)
+    del q, k, v, go
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase(f"{TRAIN_ARCH} layer 0 attention gradient, float32, card against CPU")
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
@@ -3771,6 +3800,11 @@ def train_path() -> tuple[dict, dict]:
                    median_step_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_LEN / step_s,
                    peak_mem_bytes=peak, losses=losses, grad_norms=norms,
                    flash_launches_per_step=dict(forward=n, recompute=n),
+                   profiled_device_busy_s=busy, profiled_kernels=n_kernels,
+                   idle_share=1.0 - busy / step_s,
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top],
+                   attention_layer_ms=dict(b7_forward=fwd_ms, forward_backward=fwd_bwd_ms),
+                   attention_share_of_step=attn_s / step_s,
                    layer0_grad_check=dict(tokens=TRAIN_CHECK_LEN, max_rel=worst,
                                           tol=TRAIN_GRAD_TOL))
     return summary, _sum_counts(step_counts)
