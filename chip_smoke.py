@@ -270,17 +270,21 @@ Phases, in order; any failure exits non-zero before the final line:
    on ``host_batch``'s 1 x 4,096 tokens: exactly 36 sm90 B7 launches in
    each step's forward pass and 36 more in remat's recompute (the backward
    differentiates ``mha_chunked``), losses and gradient norms finite, every
-   parameter leaf changed, step wall, tokens/s and peak memory; a fifth
-   step profiled (idle share, top kernels); attention's forward and
-   forward + backward timed at the step's shape, its share of a step; then layer
-   0's attention block in float32 (the general B7 route, one launch) on 256
-   tokens: every gradient within 1e-4 (of its largest entry) of the CPU's,
+   parameter leaf changed, every B7 call of the forward and the recompute
+   held to its plain version as it runs; three more steps unchecked (step
+   wall, tokens/s, peak memory); an eighth step profiled (idle share, top
+   kernels, attention's device time read from the kernels launched under
+   ``models.attention.PROFILE_RANGES`` and B7's own: the forward and
+   recompute, and the ``mha_chunked`` backward); then layer 0's attention
+   block in float32 (the general B7 route, one launch) on 256 tokens:
+   every gradient within 1e-4 (of its largest entry) of the CPU's,
    ``wq`` / ``wk`` / ``wv``'s nonzero;
 21f. ``launch.train.run`` at smoke size on the card with the reference
    end-to-end test's arguments, in temporary checkpoint directories: a
    clean 24-step run whose loss falls, and one failing at step 16 that
    restores step 8, its 16 losses within the reference test's 0.05 band
-   of the clean run's; one general-route B7 launch a layer a step (112);
+   of the clean run's; one general-route B7 launch a layer a step (112),
+   each held to its plain version as it runs;
 22. capture study — ``benchmarks/fig_capture.py:48``'s fleet (the three
    captured families and their synthetic analogues: ``capture/kv_serve``,
    ``capture/moe_experts``, ``capture/lazy_embed``, ``htap_stream``,
@@ -402,8 +406,10 @@ KV_APP = "capture/kv_serve"
 # |kernel - plain| <= rtol |plain| + row_tol rms(plain row), the RMS taken
 # over each output row's head dim; (rtol, row_tol) by dtype.  In bf16, rtol
 # covers the two outputs' bf16 roundings landing one ulp apart and row_tol
-# the kernel's one rounding site the plain version lacks (P rounded to bf16
-# for the PV product: ~2^-9 of a row's scale per element); a row missing
+# the tensor-core sums' other order (the kernels feed P to the PV product
+# as two bf16 parts, ~2^-17 of P: a single bf16 P, 2^-9, strayed past this
+# tolerance on a training step's activations, whose V has channels far
+# above the output row's RMS); a row missing
 # one KV tile of 64 keys in 4,096 moves by ~0.13 of its RMS, ~8x this
 # tolerance.  In float32 both sides compute in float32 (the on-card tests'
 # pair).
@@ -437,7 +443,8 @@ ENCDEC_ARCH = "seamless_m4t_large_v2"
 VLM_ARCH = "internvl2_26b"
 FRONTEND_SEED = 0        # the jax.random key of the synthetic frontend embeddings
 TRAIN_ARCH = "qwen3-4b"
-TRAIN_STEPS = 4          # make_train_step steps at full width
+TRAIN_STEPS = 4          # make_train_step steps at full width, every B7 call checked
+TRAIN_TIMED_STEPS = 3    # further steps, unchecked, for the step wall
 TRAIN_BATCH, TRAIN_LEN = 1, 4096
 TRAIN_LR = 3e-3          # launch/train.py's default
 TRAIN_CHECK_LEN = 256    # tokens of layer 0's card-against-CPU attention gradient
@@ -1544,20 +1551,53 @@ def signature_caps_phase(K, K8) -> dict:
     return counts
 
 
+def _kernels_by_name(prof, top: int | None) -> tuple[float, int, list]:
+    """(device s, kernels, the ``top`` kernels by name largest first) of a
+    profile; the device's spans of ``record_function`` ranges are no
+    kernels and are left out."""
+    from torch.autograd import DeviceType
+
+    by_name = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)), reverse=True)
+    return sum(t for t, _, _ in by_name), sum(c for _, c, _ in by_name), by_name[:top]
+
+
 def device_busy_s(fn, top: int | None = 8) -> tuple[float, int, list]:
     """Device time of all kernels ``fn()`` runs (``torch.profiler``), their
     number, and the ``top`` by name (all of them for None), largest first."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
-    return sum(t for t, _, _ in by_name), sum(c for _, c, _ in by_name), by_name[:top]
+    return _kernels_by_name(prof, top)
+
+
+def device_busy_by_range_s(fn, ranges: tuple, top: int | None = 8) -> tuple:
+    """:func:`device_busy_s` with host ops recorded too, and a fourth item:
+    for each name in ``ranges``, the device time of the kernels launched
+    under the ``record_function`` ranges of that name (the outermost of
+    them only), in s."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_range = dict.fromkeys(ranges, 0.0)
+    stack = [(e, False) for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.cpu_parent is None]
+    while stack:
+        e, inside = stack.pop()
+        if e.name in by_range and not inside:
+            by_range[e.name] += e.device_time_total / 1e6
+            inside = True
+        stack.extend((c, inside) for c in e.cpu_children)
+    return (*_kernels_by_name(prof, top), by_range)
 
 
 def time_and_profile(fn) -> tuple[float, int, float, int, list, float]:
@@ -3646,12 +3686,14 @@ def train_path() -> tuple[dict, dict]:
     weights, ``TRAIN_STEPS`` steps of ``make_train_step`` on
     ``data.pipeline.host_batch``'s 1 x 4,096 tokens.  Each step: exactly one
     sm90 B7 launch a layer in the forward pass and one more a layer in
-    remat's recompute (the backward differentiates ``mha_chunked``, no B7);
+    remat's recompute (the backward differentiates ``mha_chunked``, no B7),
+    every one held to its plain version as it runs (:class:`CheckedFlashTap`);
     the loss and gradient norm finite.  After the steps every parameter
-    leaf has changed; one more step runs under the profiler (device busy,
-    top kernels), and attention's part of a step is timed at its shape
-    (B7's forward; forward + ``mha_chunked`` backward through the autograd
-    function).  Then layer 0's attention block in float32 (the
+    leaf has changed; ``TRAIN_TIMED_STEPS`` more run unchecked (step wall,
+    tokens/s, peak memory) and one more under the profiler: device busy,
+    top kernels, and attention's device time, the kernels launched under
+    ``models.attention.PROFILE_RANGES`` and B7's own (the forward and
+    recompute; the ``mha_chunked`` backward).  Then layer 0's attention block in float32 (the
     general B7 route; its backward the autograd function's), its gradient
     on ``TRAIN_CHECK_LEN`` tokens against the CPU's.  Returns (summary,
     launch counts of the steps)."""
@@ -3665,13 +3707,14 @@ def train_path() -> tuple[dict, dict]:
     from repro_torch.launch import train as TR
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import attention as A
-    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.common import tree_leaves
     from repro_torch.optim import adamw
 
     phase(f"{TRAIN_ARCH} training ({TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens)")
     dev = torch.device("cuda", 0)
     cfg, model, opt_cfg, _ = TR.build(argparse.Namespace(
-        arch=TRAIN_ARCH, smoke=False, lr=TRAIN_LR, steps=TRAIN_STEPS))
+        arch=TRAIN_ARCH, smoke=False, lr=TRAIN_LR,
+        steps=TRAIN_STEPS + TRAIN_TIMED_STEPS + 1))
     check(cfg.remat and cfg.remat_policy == "nothing" and opt_cfg.moment_dtype ==
           torch.float32, f"{cfg.name}: remat {cfg.remat} ({cfg.remat_policy}), moments "
                          f"{opt_cfg.moment_dtype}")
@@ -3691,17 +3734,25 @@ def train_path() -> tuple[dict, dict]:
     opt_state = adamw.init(params, opt_cfg)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH)
     n = cfg.num_layers
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls, losses, norms, step_counts = [], [], [], []
+    tap = CheckedFlashTap(f"{cfg.name} training")
+    losses, norms, step_counts = [], [], []
+
+    def one_step(i):
+        metrics = train_step(params, opt_state, host_batch(data, i, dev))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"train step {i}: loss {loss}, grad norm {gnorm}")
+        losses.append(loss)
+        norms.append(gnorm)
+        return float(metrics["lr"])
+
     for i in range(TRAIN_STEPS):
-        batch = host_batch(data, i, dev)
         KS.reset_launch_counts()
         t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(params, opt_state, batch)
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        with tap:
+            lr = one_step(i)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
         counts = launch_counts()
         step_counts.append(counts)
         fwd = forward_counts[-1]
@@ -3712,48 +3763,57 @@ def train_path() -> tuple[dict, dict]:
         check(counts["flash_attention_sm90"] == 2 * n and counts["flash_attention_general"] == 0,
               f"train step {i}: {counts['flash_attention_sm90']} sm90 B7 launches a step, want "
               f"{2 * n} ({n} forward, {n} in remat's recompute)")
-        check(math.isfinite(loss) and math.isfinite(gnorm),
-              f"train step {i}: loss {loss}, grad norm {gnorm}")
-        losses.append(loss)
-        norms.append(gnorm)
-        print(f"train step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, lr "
-              f"{float(metrics['lr']):.3e}, {walls[-1]:.3f} s; B7 {n} forward + "
+        print(f"train step {i}: loss {losses[-1]:.4f}, grad norm {norms[-1]:.4f}, lr "
+              f"{lr:.3e}, {wall:.3f} s with every B7 call checked; B7 {n} forward + "
               f"{counts['flash_attention_sm90'] - n} recompute launches", flush=True)
-    peak = torch.cuda.max_memory_allocated()
+    kind = (True, TRAIN_LEN, TRAIN_LEN)
+    check(dict(tap.kinds) == {kind: 2 * n * TRAIN_STEPS},
+          f"train: B7 calls held to plain by kind {dict(tap.kinds)}, want "
+          f"{{{kind}: {2 * n * TRAIN_STEPS}}}")
+    tap.first.clear()
     unchanged = [i for i, (a, b) in enumerate(zip(tree_leaves(params), before))
                  if torch.equal(a.cpu(), b)]
     check(not unchanged, f"train: parameter leaves {unchanged} unchanged after "
                          f"{TRAIN_STEPS} steps")
-    step_s = float(np.median(walls[1:]))
-    print(f"train: median step {step_s:.4f} s ({TRAIN_BATCH * TRAIN_LEN / step_s:.0f} "
-          f"tokens/s; first step {walls[0]:.3f} s); peak memory allocated "
-          f"{peak / 2**30:.2f} GiB; all {len(tree_leaves(params))} parameter leaves changed",
-          flush=True)
-    # one more step under the profiler (not counted): device busy time, top kernels
-    batch = host_batch(data, TRAIN_STEPS, dev)
-    busy, n_kernels, top = device_busy_s(lambda: train_step(params, opt_state, batch))
-    for t, c, name in top:
+    print(f"train: all {len(tree_leaves(params))} parameter leaves changed; "
+          f"{sum(tap.kinds.values())} B7 calls within {tap.excess:.3g} of the tolerance of "
+          f"their plain version (max |diff| {tap.err:.4g})", flush=True)
+    del before
+    # unchecked steps: the step's wall, tokens/s and peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(walls))
+    print(f"train: median step {step_s:.4f} s of {TRAIN_TIMED_STEPS} unchecked "
+          f"({TRAIN_BATCH * TRAIN_LEN / step_s:.0f} tokens/s); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    # one more step under the profiler (not counted): device busy time, top
+    # kernels, and attention's part: the kernels launched under its ranges
+    step_i = TRAIN_STEPS + TRAIN_TIMED_STEPS
+    busy, n_kernels, top, by_range = device_busy_by_range_s(
+        lambda: one_step(step_i), A.PROFILE_RANGES, top=None)
+    for t, c, name in top[:8]:
         print(f"  {t:9.4f} s {c:5d}x  {name[:100]}")
+    # the profiler ties no kernel of a ctypes library to a host range: B7's
+    # own kernels, counted by name, all launch inside the forward range
+    b7 = [(t, c) for t, c, name in top if "flash_attention" in name]
+    b7_s, b7_n = sum(t for t, _ in b7), sum(c for _, c in b7)
+    fwd_s, bwd_s = (by_range[r] for r in A.PROFILE_RANGES)
+    check(b7_n == 2 * n and bwd_s > 0, f"train: the profiled step launched B7 {b7_n} times "
+                                       f"(want {2 * n}); ranges {by_range}")
+    fwd_s += b7_s
+    attn_s = fwd_s + bwd_s
     print(f"train step profiled: device busy {busy:.4f} s in {n_kernels} kernels (idle share "
-          f"{1.0 - busy / step_s:.3f} of the median step)", flush=True)
-    del before, opt_state, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    # attention's part of a step, at the step's shape: B7's forward (run twice a
-    # step, remat) and the autograd function's forward + backward (mha_chunked)
-    gen_dev = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = (torch.randn((TRAIN_BATCH, TRAIN_LEN, h, cfg.head_dim), device=dev,
-                           dtype=torch.bfloat16, generator=gen_dev).requires_grad_()
-               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
-    go = torch.randn(q.shape, device=dev, dtype=torch.bfloat16, generator=gen_dev)
-    fwd_ms = event_ms(lambda *a: A.flash_mha(*a), [(q, k, v)], 20)
-    fwd_bwd_ms = event_ms(lambda q, k, v, go: torch.autograd.grad(
-        A.flash_mha(q, k, v), (q, k, v), go), [(q, k, v, go)], 5)
-    attn_s = n * (fwd_ms + fwd_bwd_ms) / 1e3
-    print(f"attention at the step's shape, a layer: B7 forward {fwd_ms:.3f} ms, forward + "
-          f"mha_chunked backward {fwd_bwd_ms:.3f} ms; {n} layers x (forward + recompute + "
-          f"backward) = {attn_s:.3f} s, {attn_s / step_s:.3f} of the median step", flush=True)
-    del q, k, v, go
+          f"{1.0 - busy / step_s:.3f} of the median step); attention {attn_s:.4f} s of it "
+          f"({attn_s / busy:.3f}): B7 forward + recompute {fwd_s:.4f} s (B7's kernels "
+          f"{b7_s:.4f} s), mha_chunked backward {bwd_s:.4f} s", flush=True)
+    del opt_state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3795,16 +3855,19 @@ def train_path() -> tuple[dict, dict]:
     print(f"layer 0 attention block, float32, {TRAIN_CHECK_LEN} tokens: every gradient "
           f"({', '.join(cpu)}) within {worst:.3g} (of its largest entry) of the CPU's; wq / wk "
           f"/ wv gradients nonzero on the card", flush=True)
-    summary = dict(arch=cfg.name, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_LEN,
-                   lr=TRAIN_LR, remat=cfg.remat, moment_dtype="float32", step_walls_s=walls,
+    summary = dict(arch=cfg.name, steps=TRAIN_STEPS, timed_steps=TRAIN_TIMED_STEPS,
+                   batch=TRAIN_BATCH, seq=TRAIN_LEN, lr=TRAIN_LR, remat=cfg.remat,
+                   moment_dtype="float32", step_walls_s=walls,
                    median_step_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_LEN / step_s,
                    peak_mem_bytes=peak, losses=losses, grad_norms=norms,
                    flash_launches_per_step=dict(forward=n, recompute=n),
+                   flash_checked=dict(calls=sum(tap.kinds.values()), max_abs_err=tap.err,
+                                      tolerance_share=tap.excess),
                    profiled_device_busy_s=busy, profiled_kernels=n_kernels,
                    idle_share=1.0 - busy / step_s,
-                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top],
-                   attention_layer_ms=dict(b7_forward=fwd_ms, forward_backward=fwd_bwd_ms),
-                   attention_share_of_step=attn_s / step_s,
+                   top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top[:8]],
+                   attention_device_s=dict(forward=fwd_s, backward=bwd_s, b7_kernels=b7_s),
+                   attention_share_of_busy=attn_s / busy,
                    layer0_grad_check=dict(tokens=TRAIN_CHECK_LEN, max_rel=worst,
                                           tol=TRAIN_GRAD_TOL))
     return summary, _sum_counts(step_counts)
@@ -3814,7 +3877,8 @@ def train_run_path() -> tuple[dict, dict]:
     """``launch.train.run`` at smoke size on the card with the reference
     end-to-end test's arguments: a clean 24-step run, then one that fails at
     step ``TRAIN_FAIL_AT`` and restarts from its latest checkpoint (step
-    ``TRAIN_RESTORED``) in temporary checkpoint directories.  The clean
+    ``TRAIN_RESTORED``) in temporary checkpoint directories, every B7 call
+    held to its plain version as it runs.  The clean
     run's loss falls, and the restarted run's 16 losses lie within the
     reference test's band of the clean run's.  Returns (summary, launch
     counts of both runs)."""
@@ -3828,8 +3892,9 @@ def train_run_path() -> tuple[dict, dict]:
 
     phase(f"launch.train.run at smoke size on the card, --fail-at {TRAIN_FAIL_AT}")
     KS.reset_launch_counts()
+    tap = CheckedFlashTap("train run")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, tap:
         clean = run(argparse.Namespace(**TRAIN_SMOKE_ARGS, ckpt_dir=f"{tmp}/clean",
                                        fail_at=None, device="cuda"))
         failed = run(argparse.Namespace(**TRAIN_SMOKE_ARGS, ckpt_dir=f"{tmp}/failed",
@@ -3853,12 +3918,18 @@ def train_run_path() -> tuple[dict, dict]:
     check(counts["flash_attention_general"] == want and counts["flash_attention_sm90"] == 0,
           f"train run: {counts['flash_attention_general']} general / "
           f"{counts['flash_attention_sm90']} sm90 B7 launches, want {want} general")
+    seq = TRAIN_SMOKE_ARGS["seq"]
+    check(dict(tap.kinds) == {(True, seq, seq): want},
+          f"train run: B7 calls held to plain by kind {dict(tap.kinds)}, want {want}")
     print(f"train run: clean loss {clean['first_loss']:.4f} -> {clean['last_loss']:.4f}; "
           f"failed at {TRAIN_FAIL_AT}, restored step {failed['restored_step']}, largest gap "
-          f"to the clean run {gap.max():.4f}; {wall:.2f} s for both; B7 launches {want}",
-          flush=True)
+          f"to the clean run {gap.max():.4f}; {wall:.2f} s for both, every call checked; "
+          f"B7 launches {want}, within {tap.excess:.3g} of the tolerance of their plain "
+          f"version", flush=True)
     return dict(clean_losses=clean["losses"], restarted_losses=failed["losses"],
                 restored_step=failed["restored_step"], max_gap=float(gap.max()),
+                flash_checked=dict(calls=want, max_abs_err=tap.err,
+                                   tolerance_share=tap.excess),
                 wall_s=wall), counts
 
 

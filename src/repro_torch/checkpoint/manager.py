@@ -13,8 +13,9 @@ package restores into the other's tree of the same structure.  bfloat16
 leaves are widened to float32 on save (lossless; ``np.save`` has no
 bfloat16 without ``ml_dtypes``, which the port does not need) and
 ``restore`` casts each leaf back to the dtype and device of the tree it
-restores into.  Async: the device-to-host copy is synchronous (a
-consistent snapshot), the file writes run on a worker thread so the train
+restores into.  Async: the copy to host memory is synchronous and owns
+its memory (a consistent snapshot, even of a CPU tree that the train step
+then updates in place), the file writes run on a worker thread so the train
 loop continues; ``wait()`` joins before the next save.  The reference's
 re-sharding restore (``shardings``) is not ported: the port restores onto
 the like tree's device.
@@ -65,12 +66,12 @@ def _treedef(tree) -> str:
 
 
 def _to_numpy(x) -> np.ndarray:
+    """A host copy of ``x`` that owns its memory (bfloat16 widened), so a
+    later in-place update of ``x`` cannot reach a pending write."""
     if isinstance(x, torch.Tensor):
-        x = x.detach()
-        if x.dtype == torch.bfloat16:
-            x = x.to(torch.float32)
-        return x.cpu().numpy()
-    return np.asarray(x)
+        dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+        return x.detach().to("cpu", dtype, copy=True).numpy()
+    return np.array(x, copy=True)
 
 
 class CheckpointManager:
@@ -83,7 +84,7 @@ class CheckpointManager:
     # ---- save -------------------------------------------------------------
 
     def save(self, step: int, tree, blocking: bool = False) -> None:
-        """Snapshot ``tree`` at ``step``. The device-to-host copy happens
+        """Snapshot ``tree`` at ``step``. The copy to host memory happens
         here (a consistent snapshot); file I/O is async unless
         ``blocking``."""
         self.wait()

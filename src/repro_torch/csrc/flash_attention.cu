@@ -45,11 +45,13 @@
 //   element); masks are computed only in the tiles that straddle Sk, the
 //   diagonal or the window edge of the m tile's rows, and O is rescaled
 //   only when some row of the warp has a new max.
-// - P is rounded to bf16 and the S C-fragments become the A fragments of
-//   the PV product in registers (the C layout of two adjacent n8 tiles is
-//   the A layout of one k16 slice), so P never touches shared memory.  This
-//   rounding is the one site the TPU kernel lacks (it keeps P in float32);
-//   l sums P before the rounding.
+// - The S C-fragments become the A fragments of the PV product in registers
+//   (the C layout of two adjacent n8 tiles is the A layout of one k16
+//   slice), so P never touches shared memory.  P goes in as two bf16 parts,
+//   hi = bf16(P) and lo = bf16(P - hi), two products into the same O: hi +
+//   lo holds P to ~2^-17, so PV keeps the TPU kernel's float32 P (a single
+//   bf16 P, 2^-9, strays past the bf16 tolerance where V has channels far
+//   above the output row's RMS).
 // - O (16 MT x D a warp, float32) stays in registers for the whole KV loop.
 // - Head dims come in bands, each a template instance that unrolls over its
 //   largest D (a 16-column chunk past the call's D is skipped): D <= 128
@@ -146,6 +148,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// What pack_bf16(lo, hi) == packed rounded away, itself rounded to bf16.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t packed) {
+  const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+  return pack_bf16(lo - r.x, hi - r.y);
 }
 
 // Stage rows [row0, row0 + rows) of a (limit, D) slice with row stride
@@ -367,13 +375,17 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // fragment feeds MT products
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MT][4];
+      uint32_t a[MT][4], ar[MT][4];  // bf16(P) and bf16(P - bf16(P))
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        const float x[8] = {s[mt][2 * kk][0], s[mt][2 * kk][1], s[mt][2 * kk][2],
+                            s[mt][2 * kk][3], s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1],
+                            s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[mt][i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+          ar[mt][i] = pack_bf16_rest(x[2 * i], x[2 * i + 1], a[mt][i]);
+        }
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -383,7 +395,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                     c * 16 + (lane >> 4) * 8);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][2 * c], ar[mt], bv[0], bv[1]);
             mma_bf16(o[mt][2 * c], a[mt], bv[0], bv[1]);
+            mma_bf16(o[mt][2 * c + 1], ar[mt], bv[2], bv[3]);
             mma_bf16(o[mt][2 * c + 1], a[mt], bv[2], bv[3]);
           }
         }

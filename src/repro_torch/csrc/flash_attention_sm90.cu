@@ -32,10 +32,14 @@
 //   the softmax is one FMA (scale * log2 e folded in) and one exp2f an
 //   element, masked only in the tiles that straddle the diagonal, the
 //   window edge or Sk;
-// - P is rounded to bf16 in registers and used directly as the A operand of
-//   the PV product (the accumulator's fragment layout is the A fragment
-//   layout of a 16-bit wgmma): the one rounding site flash_attention.cu
-//   also has and the plain version lacks; l sums P before the rounding;
+// - P goes to the PV product from registers as two bf16 parts, hi =
+//   bf16(P) and lo = bf16(P - hi), each the A operand of a wgmma into the
+//   same accumulator (the accumulator's fragment layout is the A fragment
+//   layout of a 16-bit wgmma): hi + lo holds P to ~2^-17, so PV keeps the
+//   TPU kernel's float32 P.  A single bf16 P (2^-9) strayed past the bf16
+//   tolerance on a training step's activations, whose V has channels far
+//   above the output row's RMS; the second product makes the tensor-core
+//   work half as much again;
 // - both products are wgmma: S = Q K^T is m64nBKk16 with Q and K read from
 //   shared memory through descriptors (K-major, 128-byte swizzle), O += P V
 //   is m64nDk16 with P from registers and V read MN-major (the transpose
@@ -190,6 +194,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// What pack_bf16(lo, hi) == packed rounded away, itself rounded to bf16.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t packed) {
+  const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed));
+  return pack_bf16(lo - r.x, hi - r.y);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -518,7 +528,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const float al_b = m_b == -INFINITY ? 0.0f : exp2f(m_b * scale_log2 - ms_b);
     m_a = mn_a;
     m_b = mn_b;
-    uint32_t p[kBK / 4];  // P in bf16 pairs: the A fragments of the PV product
+    uint32_t p[kBK / 4];   // bf16(P) in pairs: the A fragments of the PV product
+    uint32_t pr[kBK / 4];  // bf16(P - bf16(P)) in pairs: those of the second one
     float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
@@ -530,6 +541,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       sum_b += p2 + p3;
       p[2 * j] = pack_bf16(p0, p1);
       p[2 * j + 1] = pack_bf16(p2, p3);
+      pr[2 * j] = pack_bf16_rest(p0, p1, p[2 * j]);
+      pr[2 * j + 1] = pack_bf16_rest(p2, p3, p[2 * j + 1]);
     }
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
@@ -541,21 +554,24 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       o[4 * j + 3] *= al_b;
     }
 
-    // O += P V, 16 keys a step: P's fragments for keys [16 kk, 16 kk + 16)
-    // are accumulator groups 2 kk and 2 kk + 1.
+    // O += P V as hi V + lo V, 16 keys a step: P's fragments for keys
+    // [16 kk, 16 kk + 16) are accumulator groups 2 kk and 2 kk + 1.
     const uint32_t v_st = base + L::kV + stage * L::kTileBytes;
     fence_regs(o);
     fence_regs(p);
+    fence_regs(pr);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t db = desc_sw128(v_st + kk * 16 * kRowBytes, kBK * kRowBytes, 1024);
+      wgmma_rs(o, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2], pr[4 * kk + 3], db);
       wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], db);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
     fence_regs(p);
+    fence_regs(pr);
     mbar_arrive(bar_empty + 8 * stage);  // this thread is done with the stage
   }
 

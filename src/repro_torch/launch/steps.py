@@ -15,18 +15,20 @@ from repro_torch.optim import adamw
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "lr"})``: the loss and its gradient with respect
-    to every parameter leaf (zeros for a leaf the loss does not reach, as
-    ``jax.value_and_grad`` gives), then one AdamW update."""
+    """``train_step(params, opt_state, batch) -> {"loss", "grad_norm",
+    "lr"}``: the loss and its gradient with respect to every parameter leaf
+    (zeros for a leaf the loss does not reach, as ``jax.value_and_grad``
+    gives), then one AdamW update written into ``params`` and
+    ``opt_state`` (:func:`adamw.step_`), where the reference's step
+    returns new trees."""
     def train_step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss = model.loss(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = tree_unflatten(params, (torch.zeros_like(p) if g is None else g
                                         for p, g in zip(leaves, grads)))
-        params, opt_state, metrics = adamw.step(params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss.detach(), **metrics}
+        metrics = adamw.step_(params, grads, opt_state, opt_cfg)
+        return {"loss": loss.detach(), **metrics}
     return train_step
 
 

@@ -9,8 +9,9 @@ port's addition, the reference runs where JAX does).  ``--fail-at``
 injects a simulated failure to exercise checkpoint/restart: the run
 restarts in-process from the latest checkpoint.  Parameters come from a
 seeded ``torch.Generator`` on the device (the reference's distributions,
-not its ``jax.random`` numbers); ``run(args, params=...)`` takes a tree
-(e.g. from ``params_from_jax``) instead.  Batches and frontend embeddings
+not its ``jax.random`` numbers).  The train step updates the parameters
+and the optimizer state in place (:func:`repro_torch.launch.steps
+.make_train_step`).  Batches and frontend embeddings
 are the reference's, bit for bit (``data.pipeline.host_batch``,
 ``models.frontends.synth_embeddings``).
 """
@@ -44,14 +45,12 @@ def build(args):
     return cfg, model, opt_cfg, train_step
 
 
-def run(args, params: dict | None = None) -> dict:
+def run(args) -> dict:
     dev = resolve_device(getattr(args, "device", None))
     cfg, model, opt_cfg, train_step = build(args)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch, seed=args.seed)
-    init_params = params
-    if params is None:
-        params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     opt_state = adamw.init(params, opt_cfg)
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
@@ -71,7 +70,7 @@ def run(args, params: dict | None = None) -> dict:
             # a real cluster would crash here; we restart in-process
             args2 = argparse.Namespace(**vars(args))
             args2.fail_at = None
-            return run(args2, init_params)
+            return run(args2)
 
         batch = host_batch(data_cfg, step, dev)
         if cfg.encoder_layers > 0:
@@ -82,7 +81,7 @@ def run(args, params: dict | None = None) -> dict:
                 cfg, data_cfg.host_batch, _jaxrandom.key(step), args.seq, dev)
 
         t0 = time.time()
-        params, opt_state, metrics = train_step(params, opt_state, batch)
+        metrics = train_step(params, opt_state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
         hb.beat(0, step)

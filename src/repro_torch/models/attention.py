@@ -15,7 +15,8 @@ hand-written CUDA kernel, on a CPU tensor its plain version, the TPU
 kernel's float32 math (ROADMAP §C) — and its backward recomputes
 ``mha_chunked`` on the saved q, k and v and differentiates it, the
 gradient the reference's ``jax.value_and_grad`` takes (the TPU kernel has
-no backward).
+no backward).  Both run inside a ``torch.profiler.record_function`` range
+(:data:`PROFILE_RANGES`), so a profile can read attention's device time.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import common as C
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+# the profiler ranges of :class:`_FlashMHA`'s forward and backward
+PROFILE_RANGES = ("flash_mha.forward", "flash_mha.backward")
 
 
 def _expand_kv(k: torch.Tensor, q_heads: int) -> torch.Tensor:
@@ -120,11 +123,12 @@ class _FlashMHA(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return flash.mha(q, k, v, causal=causal, window=window)
+        with torch.profiler.record_function(PROFILE_RANGES[0]):
+            return flash.mha(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.enable_grad():
+        with torch.profiler.record_function(PROFILE_RANGES[1]), torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = mha_chunked(*qkv, causal=ctx.causal, window=ctx.window)
             dq, dk, dv = torch.autograd.grad(out, qkv, grad)

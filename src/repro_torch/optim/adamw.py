@@ -5,12 +5,15 @@ Moments live in ``cfg.moment_dtype`` (float32 by default; bfloat16 for the
 340B config, halving optimizer memory).  ``init`` / ``step`` over trees of
 tensors (nested dicts and lists), each leaf updated in float32 and cast
 back to its dtype, in the reference's arithmetic; decoupled weight decay on
-matrices only (ndim >= 2).  ``step`` returns the new parameters and state
-as the reference does, but writes them into the tensors it was given, as a
-jitted step with donated buffers does: a full-width step would otherwise
-hold the old and the new moments at once (2 x 32 GB for qwen3-4b).  The
-step counter, the learning rate and the gradient norm stay 0-dim tensors
-on the parameters' device, so a step never waits on the device.
+matrices only (ndim >= 2).  Where the reference's ``step`` returns new
+parameters and state, the port's :func:`step_` writes them into the
+tensors it is given (the parameters, both moments and the step counter)
+and returns only the metrics, as a jitted step with donated buffers
+would: a full-width step would otherwise hold the old and the new moments
+at once (2 x 32 GB for qwen3-4b).  Clone a tree whose values must outlive
+the step.  The step counter, the learning rate and the gradient norm are
+0-dim tensors on the parameters' device, so a step never waits on the
+device.
 ``abstract_state`` (the dry run's) is not ported.
 """
 
@@ -58,11 +61,11 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def step(params, grads, state: dict, cfg: AdamWConfig):
-    """One AdamW update, written into ``params`` and ``state``'s moments.
-    Returns (new_params, new_state, metrics): the same tensors, updated,
-    and a new step counter."""
-    count = state["step"] + 1
+def step_(params, grads, state: dict, cfg: AdamWConfig) -> dict:
+    """One AdamW update in place: ``params``, ``state["mu"]``,
+    ``state["nu"]`` and ``state["step"]`` are overwritten.  Returns the
+    metrics ``{"grad_norm", "lr"}``."""
+    count = state["step"].add_(1)
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = _schedule(count, cfg)
@@ -83,5 +86,4 @@ def step(params, grads, state: dict, cfg: AdamWConfig):
         if p.dim() >= 2:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * delta)
-    return params, {"mu": state["mu"], "nu": state["nu"], "step": count}, {
-        "grad_norm": gnorm, "lr": lr}
+    return {"grad_norm": gnorm, "lr": lr}

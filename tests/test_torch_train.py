@@ -27,6 +27,7 @@ import argparse
 import dataclasses
 import functools
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -308,7 +309,7 @@ def test_adamw_steps_match_reference(moments):
             rng.standard_normal(p.shape) * (30 if i == 2 else 1), p.dtype), r_params)
         t_grads = params_from_jax(jax.tree.map(np.asarray, r_grads), "cpu")
         r_params, r_state, r_m = radamw.step(r_params, r_grads, r_state, r_cfg)
-        t_params, t_state, t_m = adamw.step(t_params, t_grads, t_state, t_cfg)
+        t_m = adamw.step_(t_params, t_grads, t_state, t_cfg)
         for k in ("grad_norm", "lr"):
             np.testing.assert_allclose(float(t_m[k]), float(r_m[k]), rtol=1e-6)
     assert int(t_state["step"]) == int(r_state["step"]) == 6
@@ -325,14 +326,14 @@ def test_adamw_reduces_quadratic():
     state = adamw.init(params, cfg)
     l0 = float(torch.sum(params["w"] ** 2))
     for _ in range(50):
-        params, state, _ = adamw.step(params, {"w": 2 * params["w"]}, state, cfg)
+        adamw.step_(params, {"w": 2 * params["w"]}, state, cfg)
     assert float(torch.sum(params["w"] ** 2)) < 0.1 * l0
 
 
 def test_adamw_clips():
     cfg = adamw.AdamWConfig(clip_norm=1.0)
     params = {"w": torch.zeros((2,))}
-    _, _, m = adamw.step(params, {"w": torch.tensor([1e6, 1e6])}, adamw.init(params, cfg), cfg)
+    m = adamw.step_(params, {"w": torch.tensor([1e6, 1e6])}, adamw.init(params, cfg), cfg)
     assert float(m["grad_norm"]) > 1e5  # reported pre-clip
 
 
@@ -415,6 +416,32 @@ def test_checkpoint_async(tmp_path):
     assert mgr.latest_step() == 1
 
 
+def test_checkpoint_async_snapshot_survives_in_place_update(tmp_path, monkeypatch):
+    """An async save holds the values the tree had when ``save`` returned:
+    the file writes are held back until the train step has updated the
+    parameters, the moments and the step counter in place."""
+    cfg = adamw.AdamWConfig(lr=0.1, warmup_steps=1)
+    params = {"w": torch.ones((3, 4)), "b": torch.ones((4,), dtype=torch.bfloat16)}
+    state = adamw.init(params, cfg)
+    adamw.step_(params, C.tree_map(torch.ones_like, params), state, cfg)
+    tree = {"params": params, "opt": state}
+    want = C.tree_map(torch.clone, tree)
+    updated, save = threading.Event(), np.save
+
+    def held_save(*a, **kw):
+        assert updated.wait(timeout=30)
+        return save(*a, **kw)
+
+    monkeypatch.setattr(np, "save", held_save)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree, blocking=False)
+    adamw.step_(params, C.tree_map(torch.ones_like, params), state, cfg)
+    assert not torch.equal(params["w"], want["params"]["w"])
+    updated.set()
+    mgr.wait()
+    _equal_bits(mgr.restore(1, tree), want)
+
+
 def test_checkpoint_atomic_no_partial(tmp_path):
     """A .tmp directory must never be visible as a restorable step."""
     mgr = CheckpointManager(str(tmp_path))
@@ -441,7 +468,7 @@ def test_train_step_matches_reference():
     data = RDataConfig(vocab_size=t_model.cfg.vocab_size, seq_len=S, global_batch=B)
     for step in range(3):
         r_params, r_state, r_m = r_step(r_params, r_state, r_host_batch(data, step))
-        t_params, t_state, t_m = t_step(t_params, t_state, host_batch(
+        t_m = t_step(t_params, t_state, host_batch(
             DataConfig(**dataclasses.asdict(data)), step, "cpu"))
         for k in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(float(t_m[k]), float(r_m[k]), rtol=1e-4)
