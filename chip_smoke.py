@@ -20,6 +20,14 @@ Phases, in order; any failure exits non-zero before the final line:
    head dim (registers and local memory, i.e. spills and stack, a thread;
    static and dynamic shared memory a block); then the card's launch
    floor: a one-element elementwise op timed as the kernels are;
+2a. dry run started — ``DRYRUN_SCRIPT`` in a process of its own (no CUDA
+   device visible to it; its fake process group is global to its
+   process), beside the phases below: ``launch.dryrun.lower_cell`` for
+   qwen3-4b ``train_4k`` and ``prefill_32k`` at full width on the fake
+   (16, 16) and (2, 16, 16) meshes, ``roofline.analysis.analyze_cell``
+   for ``train_4k``, and the card's own training cell (1 x 4,096 tokens)
+   on a one-rank mesh; its output and errors go to temporary files (a
+   pipe left unread could fill and stall it), read in phase 22a;
 3. one phase per Bloom kernel of the Fig. 7 path (``h3_hash``,
    ``bloom_insert``, ``bloom_query``, ``bloom_intersect``) — each against
    its plain PyTorch version on the card on that path's data (the HTAP
@@ -279,6 +287,15 @@ Phases, in order; any failure exits non-zero before the final line:
    block in float32 (the general B7 route, one launch) on 256 tokens:
    every gradient within 1e-4 (of its largest entry) of the CPU's,
    ``wq`` / ``wk`` / ``wv``'s nonzero;
+21e'. qwen3-4b training under ``remat_policy="dots"`` (the products with
+   no batch dimension saved): phase 21e's steps (no profile, no layer-0
+   gradient) from the same seeded parameters and batches, its checks
+   (36 + 36 B7 launches a step, every B7 call of the 4 checked steps held
+   to its plain version); the losses and gradient norms of all 7 steps
+   equal to phase 21e's bit for bit (the backward reads the saved products
+   where 21e recomputes them), more memory allocated when the forward ends
+   than phase 21e's (the saved products); median wall and peak memory
+   beside phase 21e's;
 21f. ``launch.train.run`` at smoke size on the card with the reference
    end-to-end test's arguments, in temporary checkpoint directories: a
    clean 24-step run whose loss falls, and one failing at step 16 that
@@ -294,6 +311,13 @@ Phases, in order; any failure exits non-zero before the final line:
    version); batch == sequential == one ``device="cpu"`` run of the port
    on every field; then ``capture/moe_experts``'s trace on the card against
    its CPU trace, field for field;
+22a. dry run read — the process of phase 2a: every cell traced with its
+   per-device FLOPs, bytes accessed, argument / temp bytes and collective
+   bytes by kind printed, the roofline's three terms, and the card's
+   training cell: its argument bytes equal to the bytes of phase 21e's
+   live parameters, moments, step counter and batch exactly, its
+   predicted peak (argument + temp bytes) printed beside phase 21e's
+   ``torch.cuda.max_memory_allocated`` with their ratio;
 23. the ``kernels`` JSON line (ten kernels, launches by path including the
    extended fleet's, the M = 64 Study's, the study service's legs, the MoE
    paths', the lane mesh's, the SSM / hybrid paths', the enc-dec / VLM
@@ -453,6 +477,39 @@ TRAIN_GRAD_TOL = 1e-4    # float32, TF32 off: rtol, and atol as a share of the l
 TRAIN_SMOKE_ARGS = dict(arch="qwen3-4b", smoke=True, steps=24, batch=2, seq=64, lr=5e-3,
                         seed=0, log_every=100, ckpt_every=8)
 TRAIN_FAIL_AT, TRAIN_RESTORED, TRAIN_BAND = 16, 8, 0.05
+# The dry run (repro_torch.launch.dryrun) runs in a process of its own from
+# the start, beside the card phases (the fake process group it starts is
+# global to its process); its result is read at the end.
+DRYRUN_ARCH = "qwen3_4b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_SCRIPT = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as M
+from repro_torch.roofline import analysis as RA
+arch, shapes, batch, seq = sys.argv[1], sys.argv[2].split(","), int(sys.argv[3]), int(sys.argv[4])
+out = {"cells": []}
+for multi_pod in (False, True):
+    for shape in shapes:
+        t0 = time.perf_counter()
+        res, _ = D.lower_cell(arch, shape, multi_pod=multi_pod)
+        res["wall_s"] = time.perf_counter() - t0
+        out["cells"].append(res)
+t0 = time.perf_counter()
+out["analysis"] = RA.analyze_cell(arch, shapes[0])
+out["analysis"]["wall_s"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+mesh = D.fake_mesh((1, 1), ("data", "model"))
+card = D.lower_shape(get_config(arch), ShapeSpec("card_train", seq, batch, "train"), mesh,
+                     M.LOGICAL_RULES_SINGLE)
+card["wall_s"] = time.perf_counter() - t0
+out["card_cell"] = card
+print(json.dumps(out))
+"""
 FIG7_PROFILE_WORKLOADS = ("pagerank-arxiv", "htap128")
 # benchmarks/fig_capture.py:48: the three captured families, then the
 # synthetic analogue of each
@@ -3680,9 +3737,99 @@ def _sum_counts(runs: list[dict]) -> dict:
     return dict(out)
 
 
-def train_path() -> tuple[dict, dict]:
+def start_dryrun() -> subprocess.Popen:
+    """Start the dry-run process (:data:`DRYRUN_SCRIPT`): no CUDA device
+    visible to it, one thread, lowered priority, so the card phases beside
+    it keep their host; its output and errors to temporary files
+    (``proc.out`` and ``proc.err``), which nothing has to drain while it
+    runs."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    phase(f"dry run started in its own process ({DRYRUN_ARCH} "
+          f"{', '.join(DRYRUN_SHAPES)} on the 16 x 16 and 2 x 16 x 16 fake meshes, the "
+          f"roofline of {DRYRUN_SHAPES[0]}, the card's training cell on one rank)")
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SCRIPT, DRYRUN_ARCH, ",".join(DRYRUN_SHAPES),
+         str(TRAIN_BATCH), str(TRAIN_LEN)],
+        env=env, cwd=str(ROOT), stdout=out, stderr=err, text=True,
+        preexec_fn=lambda: os.nice(10))
+    proc.out, proc.err = out, err
+    return proc
+
+
+def _read_dryrun(proc: subprocess.Popen) -> tuple[str, str]:
+    """The dry-run process's output and errors, its files closed."""
+    texts = []
+    for f in (proc.out, proc.err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return texts[0], texts[1]
+
+
+def dryrun_phase(proc: subprocess.Popen, training: dict) -> dict:
+    """Read the dry-run process: every cell traced, with per-device FLOPs,
+    bytes and memory; the roofline's three terms; and the card's own
+    training cell on a one-rank mesh, whose argument bytes must equal the
+    bytes of the training phase's live parameters, moments, step counter
+    and batch exactly.  Its predicted peak (argument + temp bytes) is
+    printed beside the training phase's ``torch.cuda.max_memory_allocated``."""
+    phase("dry run (read)")
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        _read_dryrun(proc)
+        raise SmokeFailure(f"dry run: no result in {DRYRUN_TIMEOUT_S} s")
+    out, err = _read_dryrun(proc)
+    check(proc.returncode == 0, f"dry run failed (exit {proc.returncode}): {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    for c in res["cells"]:
+        m = c["memory"]
+        check(c["flops"] > 0 and c["bytes_accessed"] > 0 and m["argument_size_in_bytes"] > 0,
+              f"dry run {c['shape']} on {c['mesh']}: {c}")
+        print(f"dry run {c['arch']} {c['shape']} {c['mesh']}: {c['wall_s']:.1f} s; per device "
+              f"{c['flops']:.4e} FLOP, {c['bytes_accessed']:.4e} bytes accessed, arguments "
+              f"{m['argument_size_in_bytes'] / 2**30:.3f} GiB, temp "
+              f"{m['temp_size_in_bytes'] / 2**30:.3f} GiB, collectives "
+              f"{c['collectives']['total'] / 2**30:.3f} GiB "
+              f"({', '.join(k for k in c['collectives'] if k != 'total')})", flush=True)
+    a = res["analysis"]
+    print(f"roofline {a['arch']} {a['shape']} {a['mesh']} ({a['wall_s']:.1f} s): compute "
+          f"{a['t_compute_s'] * 1e3:.2f} ms, memory {a['t_memory_s'] * 1e3:.2f} ms, collective "
+          f"{a['t_collective_s'] * 1e3:.2f} ms (dominant {a['dominant']}); useful "
+          f"{a['useful_ratio']:.3f}, roofline fraction {a['roofline_fraction']:.3f}", flush=True)
+    card = res["card_cell"]
+    m = card["memory"]
+    check(m["argument_size_in_bytes"] == training["argument_bytes"],
+          f"dry run of the card's training cell: {m['argument_size_in_bytes']} argument bytes, "
+          f"the training phase's live parameters, moments and batch hold "
+          f"{training['argument_bytes']}")
+    predicted = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+    measured = training["peak_mem_bytes"]
+    print(f"dry run of the card's training cell ({TRAIN_BATCH} x {TRAIN_LEN}, one rank, "
+          f"{card['wall_s']:.1f} s): argument bytes {m['argument_size_in_bytes']} = the live "
+          f"tensors' exactly; predicted peak {predicted / 2**30:.2f} GiB (arguments + "
+          f"{m['temp_size_in_bytes'] / 2**30:.2f} GiB temp) against "
+          f"torch.cuda.max_memory_allocated {measured / 2**30:.2f} GiB, ratio "
+          f"{predicted / measured:.3f}; {card['flops']:.4e} FLOP", flush=True)
+    return dict(cells=res["cells"], analysis=a, card_cell=card,
+                card_predicted_peak_bytes=predicted, card_measured_peak_bytes=measured,
+                card_peak_ratio=predicted / measured)
+
+
+def _tensor_bytes(*trees) -> int:
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for tree in trees for t in tree_leaves(tree))
+
+
+def train_path(policy: str = "nothing") -> tuple[dict, dict]:
     """qwen3-4b trained at full width and depth on the card: ``launch.train
-    .build``'s model and AdamW (float32 moments, remat on), seeded bf16
+    .build``'s model and AdamW (float32 moments, remat on, under
+    ``remat_policy=policy``), seeded bf16
     weights, ``TRAIN_STEPS`` steps of ``make_train_step`` on
     ``data.pipeline.host_batch``'s 1 x 4,096 tokens.  Each step: exactly one
     sm90 B7 launch a layer in the forward pass and one more a layer in
@@ -3690,7 +3837,8 @@ def train_path() -> tuple[dict, dict]:
     every one held to its plain version as it runs (:class:`CheckedFlashTap`);
     the loss and gradient norm finite.  After the steps every parameter
     leaf has changed; ``TRAIN_TIMED_STEPS`` more run unchecked (step wall,
-    tokens/s, peak memory) and one more under the profiler: device busy,
+    tokens/s, peak memory, memory allocated when the forward ends).  Under
+    ``"nothing"`` only: one more step under the profiler: device busy,
     top kernels, and attention's device time, the kernels launched under
     ``models.attention.PROFILE_RANGES`` and B7's own (the forward and
     recompute; the ``mha_chunked`` backward).  Then layer 0's attention block in float32 (the
@@ -3708,40 +3856,49 @@ def train_path() -> tuple[dict, dict]:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import attention as A
     from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
     from repro_torch.optim import adamw
 
-    phase(f"{TRAIN_ARCH} training ({TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens)")
+    phase(f"{TRAIN_ARCH} training, remat_policy={policy!r} ({TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_LEN} tokens)")
     dev = torch.device("cuda", 0)
     cfg, model, opt_cfg, _ = TR.build(argparse.Namespace(
         arch=TRAIN_ARCH, smoke=False, lr=TRAIN_LR,
         steps=TRAIN_STEPS + TRAIN_TIMED_STEPS + 1))
-    check(cfg.remat and cfg.remat_policy == "nothing" and opt_cfg.moment_dtype ==
+    if policy != cfg.remat_policy:
+        cfg = dataclasses.replace(cfg, remat_policy=policy)
+        model = Model(cfg)
+    check(cfg.remat and cfg.remat_policy == policy and opt_cfg.moment_dtype ==
           torch.float32, f"{cfg.name}: remat {cfg.remat} ({cfg.remat_policy}), moments "
                          f"{opt_cfg.moment_dtype}")
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     before = [t.cpu() for t in tree_leaves(params)]
-    forward_counts = []
+    forward_counts, forward_mem = [], []
 
     class Counted:
-        """``model`` whose ``loss`` notes the launches of the forward pass."""
+        """``model`` whose ``loss`` notes the launches of the forward pass
+        and the memory allocated when it ends (what the backward holds)."""
         @staticmethod
         def loss(p, batch):
             out = model.loss(p, batch)
             forward_counts.append(launch_counts())
+            forward_mem.append(torch.cuda.memory_allocated())
             return out
 
     train_step = make_train_step(Counted, opt_cfg)
     opt_state = adamw.init(params, opt_cfg)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_LEN, global_batch=TRAIN_BATCH)
+    # what the step takes: parameters, moments, step counter and one batch
+    argument_bytes = _tensor_bytes(params, opt_state, host_batch(data, 0, dev))
     n = cfg.num_layers
-    tap = CheckedFlashTap(f"{cfg.name} training")
+    tap = CheckedFlashTap(f"{cfg.name} training, remat {policy!r}")
     losses, norms, step_counts = [], [], []
 
     def one_step(i):
         metrics = train_step(params, opt_state, host_batch(data, i, dev))
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         check(math.isfinite(loss) and math.isfinite(gnorm),
-              f"train step {i}: loss {loss}, grad norm {gnorm}")
+              f"train ({policy}) step {i}: loss {loss}, grad norm {gnorm}")
         losses.append(loss)
         norms.append(gnorm)
         return float(metrics["lr"])
@@ -3757,25 +3914,25 @@ def train_path() -> tuple[dict, dict]:
         step_counts.append(counts)
         fwd = forward_counts[-1]
         check(fwd["flash_attention_sm90"] == n and fwd["flash_attention_general"] == 0,
-              f"train step {i}: {fwd['flash_attention_sm90']} sm90 / "
+              f"train ({policy}) step {i}: {fwd['flash_attention_sm90']} sm90 / "
               f"{fwd['flash_attention_general']} general B7 launches in the forward pass, "
               f"want exactly {n} sm90 (one a layer)")
         check(counts["flash_attention_sm90"] == 2 * n and counts["flash_attention_general"] == 0,
-              f"train step {i}: {counts['flash_attention_sm90']} sm90 B7 launches a step, want "
-              f"{2 * n} ({n} forward, {n} in remat's recompute)")
-        print(f"train step {i}: loss {losses[-1]:.4f}, grad norm {norms[-1]:.4f}, lr "
-              f"{lr:.3e}, {wall:.3f} s with every B7 call checked; B7 {n} forward + "
+              f"train ({policy}) step {i}: {counts['flash_attention_sm90']} sm90 B7 launches a "
+              f"step, want {2 * n} ({n} forward, {n} in remat's recompute)")
+        print(f"train ({policy}) step {i}: loss {losses[-1]:.4f}, grad norm {norms[-1]:.4f}, "
+              f"lr {lr:.3e}, {wall:.3f} s with every B7 call checked; B7 {n} forward + "
               f"{counts['flash_attention_sm90'] - n} recompute launches", flush=True)
     kind = (True, TRAIN_LEN, TRAIN_LEN)
     check(dict(tap.kinds) == {kind: 2 * n * TRAIN_STEPS},
-          f"train: B7 calls held to plain by kind {dict(tap.kinds)}, want "
+          f"train ({policy}): B7 calls held to plain by kind {dict(tap.kinds)}, want "
           f"{{{kind}: {2 * n * TRAIN_STEPS}}}")
     tap.first.clear()
     unchanged = [i for i, (a, b) in enumerate(zip(tree_leaves(params), before))
                  if torch.equal(a.cpu(), b)]
-    check(not unchanged, f"train: parameter leaves {unchanged} unchanged after "
+    check(not unchanged, f"train ({policy}): parameter leaves {unchanged} unchanged after "
                          f"{TRAIN_STEPS} steps")
-    print(f"train: all {len(tree_leaves(params))} parameter leaves changed; "
+    print(f"train ({policy}): all {len(tree_leaves(params))} parameter leaves changed; "
           f"{sum(tap.kinds.values())} B7 calls within {tap.excess:.3g} of the tolerance of "
           f"their plain version (max |diff| {tap.err:.4g})", flush=True)
     del before
@@ -3790,9 +3947,25 @@ def train_path() -> tuple[dict, dict]:
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     step_s = float(np.median(walls))
-    print(f"train: median step {step_s:.4f} s of {TRAIN_TIMED_STEPS} unchecked "
+    print(f"train ({policy}): median step {step_s:.4f} s of {TRAIN_TIMED_STEPS} unchecked "
           f"({TRAIN_BATCH * TRAIN_LEN / step_s:.0f} tokens/s); peak memory allocated "
-          f"{peak / 2**30:.2f} GiB", flush=True)
+          f"{peak / 2**30:.2f} GiB; allocated when the forward ends "
+          f"{forward_mem[-1] / 2**30:.2f} GiB", flush=True)
+    summary = dict(arch=cfg.name, policy=policy, steps=TRAIN_STEPS,
+                   timed_steps=TRAIN_TIMED_STEPS, batch=TRAIN_BATCH, seq=TRAIN_LEN, lr=TRAIN_LR,
+                   remat=cfg.remat, argument_bytes=argument_bytes,
+                   forward_end_mem_bytes=forward_mem[-1], moment_dtype="float32",
+                   step_walls_s=walls, median_step_s=step_s,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_LEN / step_s,
+                   peak_mem_bytes=peak, losses=losses, grad_norms=norms,
+                   flash_launches_per_step=dict(forward=n, recompute=n),
+                   flash_checked=dict(calls=sum(tap.kinds.values()), max_abs_err=tap.err,
+                                      tolerance_share=tap.excess))
+    if policy != "nothing":
+        del params, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return summary, _sum_counts(step_counts)
     # one more step under the profiler (not counted): device busy time, top
     # kernels, and attention's part: the kernels launched under its ranges
     step_i = TRAIN_STEPS + TRAIN_TIMED_STEPS
@@ -3855,15 +4028,7 @@ def train_path() -> tuple[dict, dict]:
     print(f"layer 0 attention block, float32, {TRAIN_CHECK_LEN} tokens: every gradient "
           f"({', '.join(cpu)}) within {worst:.3g} (of its largest entry) of the CPU's; wq / wk "
           f"/ wv gradients nonzero on the card", flush=True)
-    summary = dict(arch=cfg.name, steps=TRAIN_STEPS, timed_steps=TRAIN_TIMED_STEPS,
-                   batch=TRAIN_BATCH, seq=TRAIN_LEN, lr=TRAIN_LR, remat=cfg.remat,
-                   moment_dtype="float32", step_walls_s=walls,
-                   median_step_s=step_s, tokens_per_s=TRAIN_BATCH * TRAIN_LEN / step_s,
-                   peak_mem_bytes=peak, losses=losses, grad_norms=norms,
-                   flash_launches_per_step=dict(forward=n, recompute=n),
-                   flash_checked=dict(calls=sum(tap.kinds.values()), max_abs_err=tap.err,
-                                      tolerance_share=tap.excess),
-                   profiled_device_busy_s=busy, profiled_kernels=n_kernels,
+    summary.update(profiled_device_busy_s=busy, profiled_kernels=n_kernels,
                    idle_share=1.0 - busy / step_s,
                    top=[dict(kernel=k[:80], s=t, count=c) for t, c, k in top[:8]],
                    attention_device_s=dict(forward=fwd_s, backward=bwd_s, b7_kernels=b7_s),
@@ -3871,6 +4036,32 @@ def train_path() -> tuple[dict, dict]:
                    layer0_grad_check=dict(tokens=TRAIN_CHECK_LEN, max_rel=worst,
                                           tol=TRAIN_GRAD_TOL))
     return summary, _sum_counts(step_counts)
+
+
+def train_dots_path(nothing: dict) -> tuple[dict, dict]:
+    """:func:`train_path` under ``remat_policy="dots"`` (the products with no
+    batch dimension saved, everything else recomputed), beside the
+    ``"nothing"`` phase's summary: from the same seeded parameters and the
+    same batches, every step's loss and gradient norm (the checked steps'
+    and the unchecked ones') equal ``"nothing"``'s bit for bit (the
+    gradient flows through the saved products where ``"nothing"``
+    recomputes them), and more memory is held when the forward ends (the
+    saved products).  Prints both policies' median step and peak memory."""
+    dots, counts = train_path("dots")
+    k = len(dots["losses"])
+    for key in ("losses", "grad_norms"):
+        got, want = dots[key], nothing[key][:k]
+        check(got == want, f"train, remat 'dots': {key} {got!r}, 'nothing''s {want!r} (same "
+                           f"parameters and batches): not bit for bit")
+    fwd, nothing_fwd = dots["forward_end_mem_bytes"], nothing["forward_end_mem_bytes"]
+    check(fwd > nothing_fwd, f"train, remat 'dots': {fwd} bytes held when the forward ends, "
+                             f"'nothing' holds {nothing_fwd}: no product was saved")
+    print(f"train, remat 'dots': the losses and gradient norms of all {k} steps equal "
+          f"'nothing''s bit for bit; median step {dots['median_step_s']:.4f} s against "
+          f"{nothing['median_step_s']:.4f} s, peak memory {dots['peak_mem_bytes'] / 2**30:.2f} "
+          f"against {nothing['peak_mem_bytes'] / 2**30:.2f} GiB, held when the forward ends "
+          f"{fwd / 2**30:.2f} against {nothing_fwd / 2**30:.2f} GiB", flush=True)
+    return dots, counts
 
 
 def train_run_path() -> tuple[dict, dict]:
@@ -4000,9 +4191,11 @@ def capture_study_path() -> tuple[dict, dict]:
 
 
 def main() -> int:
+    dryrun = None
     try:
         card = environment()
         K = build()
+        dryrun = start_dryrun()
         import torch
 
         from repro_torch.configs import get_config
@@ -4106,14 +4299,21 @@ def main() -> int:
         training, train_counts = train_path()
         gc.collect()
         torch.cuda.empty_cache()
+        training_dots, train_dots_counts = train_dots_path(training)
         train_run, train_run_counts = train_run_path()
         capstudy_counts, capstudy_walls = capture_study_path()
+        dry = dryrun_phase(dryrun, training)
         for name in ("h3_hash", "bloom_query", "bloom_query_onehot", "bloom_insert",
                      "bloom_insert_onehot", "bloom_intersect"):
             stats[name]["launch_floor_ms"] = floor_ms
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        if dryrun is not None and dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
+            _read_dryrun(dryrun)
     by_path = {"fig7_batch": counts["batch"], "fig7_sequential": counts["sequential"],
                "fig7x_batch": fig7x_counts["batch"],
                "fig7x_sequential": fig7x_counts["sequential"],
@@ -4134,7 +4334,8 @@ def main() -> int:
                "mamba_prefill": mamba_prefill_counts, "mamba_serve": mamba_serve_counts,
                "hybrid_prefill": hybrid_prefill_counts, "hybrid_serve": hybrid_serve_counts,
                "encdec_prefill": encdec_counts, "vlm_prefill": vlm_counts,
-               "qwen3_train": train_counts, "train_run_smoke": train_run_counts,
+               "qwen3_train": train_counts, "qwen3_train_dots": train_dots_counts,
+               "train_run_smoke": train_run_counts,
                "capture_study_batch": capstudy_counts["batch"],
                "capture_study_sequential": capstudy_counts["sequential"]}
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
@@ -4155,6 +4356,7 @@ def main() -> int:
                       "mamba_serve": mamba_serving, "hybrid_prefill": hybrid_prefill,
                       "hybrid_serve": hybrid_serving, "encdec_prefill": encdec_prefill,
                       "vlm_prefill": vlm_prefill, "qwen3_train": training,
+                      "qwen3_train_dots": training_dots, "dryrun": dry,
                       "train_run_smoke": train_run,
                       "capture_study_wall_s": capstudy_walls}))
     print(json.dumps({"kernels": kernels}))

@@ -8,12 +8,15 @@ Every architecture of the reference in :data:`ARCHS`, each with its
 ``qwen2_moe_a2_7b`` and ``moonshot_v1_16b_a3b``; the SSM
 ``falcon_mamba_7b`` and the hybrid ``recurrentgemma_2b``; the
 encoder-decoder ``seamless_m4t_large_v2`` and the VLM ``internvl2_26b``.
-The input shapes of the dry run (``SHAPES``, ``shapes_for``,
-``all_cells``) are not ported.
+The four input shapes of the dry run are defined here (``SHAPES``); per
+arch, ``long_500k`` runs only on sub-quadratic backbones, and every arch
+has a decoder, so the decode shape applies everywhere (``shapes_for``,
+``all_cells``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.common import ModelConfig
@@ -35,6 +38,22 @@ ARCHS = (
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 def _module(name: str):
     key = name.replace("-", "_").replace(".", "_")
     key = ALIASES.get(name, key)
@@ -49,3 +68,16 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def shapes_for(cfg: ModelConfig) -> list[str]:
+    """Applicable shape cells for an arch."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        out.append("long_500k")  # needs sub-quadratic attention
+    return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) dry-run cell."""
+    return [(a, s) for a in ARCHS for s in shapes_for(get_config(a))]

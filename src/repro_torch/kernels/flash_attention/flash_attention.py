@@ -165,8 +165,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     be a multiple of 16 whose tiles fit a block's shared memory (up to 320
     in bfloat16, 208 in float32); each launcher refuses what it cannot
     take, and a grid it cannot launch, and the wrapper raises.  The general
-    route computes float32 exactly (no TF32); in bfloat16 both routes round
-    P to bfloat16 for the PV product."""
+    route computes float32 exactly (no TF32); in bfloat16 both routes feed
+    P to the PV product as two bfloat16 parts, hi = bf16(P) and lo =
+    bf16(P - hi), so P keeps float32's accuracy there."""
     return _flash_attention(q, k, v, causal=causal, window=window)
 
 

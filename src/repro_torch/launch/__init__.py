@@ -1,2 +1,2 @@
-"""Step functions, the trainer and the token-serving loop (PyTorch port of
-:mod:`repro.launch`; the dry run and the mesh helpers are not ported)."""
+"""Step functions, the trainer, the token-serving loop, the production mesh
+and the dry run (PyTorch port of :mod:`repro.launch`)."""

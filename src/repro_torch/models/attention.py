@@ -95,10 +95,10 @@ def mha_chunked(
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(torch.float32)) * scale
         mask = torch.ones((sq, kv_chunk), dtype=torch.bool, device=dev)
         if causal:
-            mask &= k_pos[None, :] <= q_pos[:, None]
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
             if window > 0:
-                mask &= k_pos[None, :] > (q_pos[:, None] - window)
-        mask &= valid[None, :]
+                mask = mask & (k_pos[None, :] > (q_pos[:, None] - window))
+        mask = mask & valid[None, :]
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         # guard fully-masked rows (exp(NEG_INF - NEG_INF) would be NaN)
@@ -128,11 +128,42 @@ class _FlashMHA(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.profiler.record_function(PROFILE_RANGES[1]), torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = mha_chunked(*qkv, causal=ctx.causal, window=ctx.window)
-            dq, dk, dv = torch.autograd.grad(out, qkv, grad)
+        with torch.profiler.record_function(PROFILE_RANGES[1]):
+            dq, dk, dv = C.local_region("flash_mha.backward", _mha_chunked_grad,
+                                        *ctx.saved_tensors, grad, ctx.causal, ctx.window,
+                                        whole=(1,))
         return dq, dk, dv, None, None
+
+
+def _mha_chunked_grad(q, k, v, grad, causal: bool, window: int):
+    """(dq, dk, dv) of ``mha_chunked`` at (q, k, v) against ``grad``.  Batch
+    and heads are independent, so under a sharding context it runs on each
+    rank's shards whole along the sequence (:func:`C.local_region`)."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = mha_chunked(*qkv, causal=causal, window=window)
+        return torch.autograd.grad(out, qkv, grad)
+
+
+def _kv_for_sharded_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Under a :func:`~repro_torch.models.common.sharding_ctx` whose rules
+    shard the query heads but not the kv heads (8 kv heads on a 16-wide
+    ``model`` axis), k and v with each kv head repeated for its query
+    heads, as the reference's ``mha_chunked`` repeats them, so B7's heads
+    shard with q's; otherwise k and v themselves."""
+    if C.active_mesh() is None or k.shape[2] == q.shape[2]:
+        return k, v
+    b, s, hkv, d = k.shape
+    hq = q.shape[2]
+    if C.logical_to_spec((None, None, "heads", None), (b, s, hq, d)) == \
+            C.logical_to_spec((None, None, "kv_heads", None), (b, s, hkv, d)):
+        return k, v
+
+    def rep(t):
+        t = C.local_region("attention.repeat_kv", _expand_kv, t, hq)
+        return C.constrain(t, "batch", "seq", "heads", None)
+
+    return rep(k), rep(v)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -184,8 +215,12 @@ def attn_block(p, x: torch.Tensor, cfg: C.ModelConfig, *, window: int = 0,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, h, cfg, positions)
+    q = C.constrain(q, "batch", "seq", "heads", None)
+    k = C.constrain(k, "batch", "seq", "kv_heads", None)
+    k, v = _kv_for_sharded_heads(q, k, v)
     out = flash_mha(q, k, v, causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return C.constrain(out, "batch", "seq", "embed")
 
 
 def cross_attn_block(p, x: torch.Tensor, enc_kv, cfg: C.ModelConfig) -> torch.Tensor:
@@ -193,9 +228,10 @@ def cross_attn_block(p, x: torch.Tensor, enc_kv, cfg: C.ModelConfig) -> torch.Te
     precomputed from the encoder (:func:`encoder_kv`); non-causal."""
     h = C.rms_norm(x, p["norm"])
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k, v = enc_kv
+    k, v = _kv_for_sharded_heads(q, *enc_kv)
     out = flash_mha(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return C.constrain(out, "batch", "seq", "embed")
 
 
 def encoder_kv(p, enc_out: torch.Tensor, cfg: C.ModelConfig):
@@ -237,7 +273,7 @@ def _direct_decode_attention(q, k, v, cache_len, *, window: int = 0,
         valid = k_pos >= 0
     mask = valid & (k_pos <= cache_len)
     if window > 0:
-        mask &= k_pos > (cache_len - window)
+        mask = mask & (k_pos > (cache_len - window))
     s = torch.einsum("bqhgd,bkhd->bhgqk", q5.to(torch.float32),
                      k.to(torch.float32)) * (d ** -0.5)
     s = torch.where(mask[None, None, None, None, :], s, NEG_INF)
@@ -245,6 +281,17 @@ def _direct_decode_attention(q, k, v, cache_len, *, window: int = 0,
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
                        v.to(torch.float32))
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _decode_chunked(q, cache_k, cache_v, clen: int, window: int,
+                    cache_pos: torch.Tensor | None) -> torch.Tensor:
+    """The new token's ``mha_chunked`` over the cache (``clen + 1`` valid
+    slots, or the ring's ``cache_pos``)."""
+    if cache_pos is not None:
+        return mha_chunked(q, cache_k, cache_v, causal=True, window=window,
+                           q_offset=clen, kv_chunk=4096, k_positions=cache_pos)
+    return mha_chunked(q, cache_k, cache_v, causal=True, window=window,
+                       q_offset=clen, kv_chunk=4096, kv_valid_len=clen + 1)
 
 
 def attn_decode_block(p, x: torch.Tensor, cache_k: torch.Tensor,
@@ -271,17 +318,13 @@ def attn_decode_block(p, x: torch.Tensor, cache_k: torch.Tensor,
     cache_v[:, slot] = v[:, 0]
     if cache_pos is not None:
         cache_pos[slot] = clen
-        if cfg.decode_direct_attn:
-            out = _direct_decode_attention(q, cache_k, cache_v, clen, window=window,
-                                           k_positions=cache_pos)
-        else:
-            out = mha_chunked(q, cache_k, cache_v, causal=True, window=window,
-                              q_offset=clen, kv_chunk=4096, k_positions=cache_pos)
+    if cfg.decode_direct_attn:
+        out = _direct_decode_attention(q, cache_k, cache_v, clen, window=window,
+                                       k_positions=cache_pos)
     else:
-        if cfg.decode_direct_attn:
-            out = _direct_decode_attention(q, cache_k, cache_v, clen, window=window)
-        else:
-            out = mha_chunked(q, cache_k, cache_v, causal=True, window=window,
-                              q_offset=clen, kv_chunk=4096, kv_valid_len=clen + 1)
+        # under a sharding context, batch-parallel over the whole cache: a
+        # sequence-sharded cache is gathered once a layer, not once a chunk
+        out = C.local_region("attention.decode_chunked", _decode_chunked, q, cache_k,
+                             cache_v, clen, window, cache_pos, whole=(1, 2))
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, cache_k, cache_v, cache_pos
+    return C.constrain(out, "batch", None, "embed"), cache_k, cache_v, cache_pos

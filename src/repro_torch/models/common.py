@@ -11,21 +11,269 @@ activations, masks and the cross entropy.
   arrays across bit for bit where a test needs the same weights.
 * **bf16 by default** (``param_dtype``) with float32 norm and RoPE math,
   cast back to the input's dtype, as the reference computes them.
-* The reference's logical-axis sharding machinery (``constrain``,
-  ``sharding_ctx``, ``param_shardings``, ``abstract_params``) carries mesh
-  shardings that the one-card port has no use for and is not ported
-  (ROADMAP §C).
+* **Sharding by constraint.** Parameters and activations name *logical
+  axes*; a rule set maps them to mesh axes (the reference's MaxText
+  pattern; the launch mesh's rules are in ``repro_torch.launch.mesh``).
+  :func:`param_shardings` resolves each parameter to DTensor placements,
+  one per mesh dim, and :func:`abstract_params` gives meta tensors for the
+  dry run (no allocation).  Inside a :func:`sharding_ctx`, :func:`constrain`
+  redistributes a DTensor activation to its logical axes' placements (the
+  reference's ``with_sharding_constraint``); outside one it returns its
+  input at the cost of one attribute read, so the card paths run the same
+  code.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis machinery
+# ---------------------------------------------------------------------------
+
+# Default logical-axis -> mesh-axis rules (single-pod).  The launcher swaps in
+# multi-pod rules (see repro_torch.launch.mesh.LOGICAL_RULES_*).
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("data",),
+    "embed": ("data",),      # FSDP: shard the d_model dim of weights over data
+    "embed_table": ("data",),  # the token-embedding's d dim (separable knob)
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "expert": ("model",),
+    "seq": None,             # activations: sequence dim (SP shards this)
+    "seq_sp": ("model",),    # sequence-parallel boundary activations
+    "kv_seq": ("model",),    # decode KV cache: sequence dim
+    "rnn": ("model",),       # recurrent/SSM channel dim
+    "state": None,           # SSM state dim (16) — too small to shard
+    "layers": None,
+    "conv": None,
+    None: None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's dim sizes and names with no devices and no process group
+    (``jax.sharding.AbstractMesh``'s counterpart): enough to resolve
+    placements and shard shapes.  Its attributes are the ones the port
+    reads from a ``DeviceMesh``."""
+
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or :class:`AbstractMesh`."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+class _ShardCtx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: dict[str, Any] = dict(DEFAULT_RULES)
+        self.regions: dict[str, int] = {}
+
+
+_CTX = _ShardCtx()
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, rules: dict[str, Any] | None = None):
+    """Activate a mesh + logical-rule set for constrain()/logical_to_spec()."""
+    prev = (_CTX.mesh, _CTX.rules, _CTX.regions)
+    _CTX.mesh = mesh
+    _CTX.rules = {**DEFAULT_RULES, **(rules or {})}
+    _CTX.regions = {}
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules, _CTX.regions = prev
+
+
+def active_mesh():
+    """The mesh of the innermost :func:`sharding_ctx`, or None."""
+    return _CTX.mesh
+
+
+def _resolve_axes(logical_axes: tuple[Any, ...], rules, mesh,
+                  shape: tuple[int, ...] | None = None) -> tuple:
+    """Logical axes -> a partition spec: one entry a tensor dim, None or
+    the tuple of mesh axes it shards over (``jax.sharding.PartitionSpec``'s
+    entries).  A mesh axis is only assigned to a dim when the dim size is
+    divisible by the (cumulative) axis size, and each mesh axis is used
+    once — e.g. a GQA model with 8 KV heads on a 16-way model axis simply
+    replicates its KV projections instead of failing to shard."""
+    sizes = mesh_axes(mesh)
+    used: set[str] = set()
+    out = []
+    for i, ax in enumerate(logical_axes):
+        mesh_ax = rules.get(ax, None)
+        if mesh_ax is None:
+            out.append(None)
+            continue
+        if isinstance(mesh_ax, str):
+            mesh_ax = (mesh_ax,)
+        picked: list[str] = []
+        size = 1
+        for m in mesh_ax:
+            if m not in sizes or m in used:
+                continue
+            nxt = size * sizes[m]
+            if shape is not None and shape[i] % nxt != 0:
+                continue
+            picked.append(m)
+            size = nxt
+        used.update(picked)
+        out.append(tuple(picked) if picked else None)
+    return tuple(out)
+
+
+def spec_placements(spec: tuple, mesh) -> tuple:
+    """A partition spec as DTensor placements, one per mesh dim: ``Shard(i)``
+    where tensor dim ``i`` lists the mesh axis, ``Replicate()`` elsewhere.
+    A dim sharded over several mesh axes splits in mesh-dim order, as the
+    reference's ``("pod", "data")`` does."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    owner = {m: i for i, axes in enumerate(spec) if axes for m in axes}
+    return tuple(Shard(owner[m]) if m in owner else Replicate()
+                 for m in mesh.mesh_dim_names)
+
+
+def shard_shape(shape: tuple[int, ...], mesh, placements) -> tuple[int, ...]:
+    """The shape of the first shard of a ``shape`` tensor under
+    ``placements`` on ``mesh`` (``NamedSharding.shard_shape``): each
+    ``Shard(i)`` divides dim i by its mesh dim's size, rounding up as
+    ``torch.chunk`` does."""
+    out = list(shape)
+    for size, p in zip(tuple(mesh.shape), placements):
+        if p.is_shard():
+            out[p.dim] = -(-out[p.dim] // size)
+    return tuple(out)
+
+
+def logical_to_spec(logical_axes: tuple[Any, ...],
+                    shape: tuple[int, ...] | None = None) -> tuple:
+    """The placements of ``logical_axes`` under the active
+    :func:`sharding_ctx`, one per mesh dim; ``()`` outside one."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None:
+        return ()
+    return spec_placements(_resolve_axes(tuple(logical_axes), rules, mesh, shape), mesh)
+
+
+def local_region(name: str, fn: Callable, *args, whole: tuple[int, ...] = (),
+                 replicate: bool = False):
+    """``fn(*args)``, for a function written for plain tensors (an op with
+    no DTensor rule, or in-place writes into slices).  Under a
+    :func:`sharding_ctx` with DTensor arguments it runs on each rank's
+    local shards (``local_map``'s pattern).  The first DTensor argument's
+    placements, partial sums reduced and made whole along the tensor dims
+    ``whole`` (``fn`` must act on every index of the other sharded dims on
+    its own, as a scan over dim 1 does), are given to every DTensor
+    argument of its rank and to every tensor output of its rank; other
+    arguments keep their placements, partial sums reduced (a weight whose
+    channels shard as the activation's do); other outputs are replicated.
+    ``replicate`` replicates everything.  ``name`` is counted in the context's :func:`regions`, so
+    a dry run lists where it left DTensor."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    _CTX.regions[name] = _CTX.regions.get(name, 0) + 1
+    replicated = (Replicate(),) * mesh.ndim
+
+    def made_whole(placements):
+        if replicate:
+            return replicated
+        return tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim in whole) else p
+                     for p in placements)
+
+    def reduced(placements):
+        return replicated if replicate else tuple(
+            Replicate() if p.is_partial() else p for p in placements)
+
+    ndim, placements = dts[0].ndim, made_whole(dts[0].placements)
+
+    def to_local(a):
+        if not isinstance(a, DTensor):
+            return a
+        want = placements if a.ndim == ndim else reduced(a.placements)
+        return a.redistribute(mesh, want).to_local()
+
+    def from_local(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return DTensor.from_local(t, mesh, placements if t.ndim == ndim else replicated,
+                                  run_check=False)
+
+    return tree_map(from_local, fn(*(to_local(a) for a in args)))
+
+
+def gather_fsdp(tree):
+    """Under a :func:`sharding_ctx`: every DTensor parameter of ``tree``
+    made whole along the mesh axes its ``embed`` / ``embed_table`` dims
+    shard over (FSDP: a layer's weights are gathered while it computes, and
+    the backward of the gather reduce-scatters their gradients), so the
+    products shard over the batch and not over d_model.  Outside one,
+    ``tree`` itself."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate
+
+    axes: set[str] = set()
+    for name in ("embed", "embed_table"):
+        v = _CTX.rules.get(name)
+        axes |= {v} if isinstance(v, str) else set(v or ())
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        want = tuple(Replicate() if n in axes and p.is_shard() else p
+                     for n, p in zip(mesh.mesh_dim_names, t.placements))
+        return t if want == tuple(t.placements) else t.redistribute(mesh, want)
+
+    return tree_map(one, tree)
+
+
+def regions() -> dict[str, int]:
+    """Calls of each :func:`local_region` inside the active
+    :func:`sharding_ctx` so far."""
+    return dict(_CTX.regions)
+
+
+def constrain(x: torch.Tensor, *logical_axes: Any) -> torch.Tensor:
+    """Redistribute ``x`` to its logical axes' placements under the active
+    :func:`sharding_ctx` (``with_sharding_constraint``; a plain tensor
+    counts as replicated, as DTensor's implicit replication takes it);
+    without one, ``x`` itself."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    placements = logical_to_spec(logical_axes, tuple(x.shape))
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +358,21 @@ def init_params(spec_tree, generator: torch.Generator):
     leaf by leaf in tree order from the one generator (the reference splits
     one key per leaf: the numbers differ, the distributions do not)."""
     return tree_map(lambda s: _materialize(s, generator), spec_tree, is_spec_leaf)
+
+
+def abstract_params(spec_tree):
+    """Meta tensors of each ParamSpec's shape and dtype, for the dry run
+    (never allocates)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                    spec_tree, is_spec_leaf)
+
+
+def param_shardings(spec_tree, mesh, rules: dict[str, Any] | None = None):
+    """The DTensor placements of every ParamSpec, resolved from its logical
+    axes (one placement a mesh dim)."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return tree_map(lambda s: spec_placements(_resolve_axes(s.axes, rules, mesh, s.shape), mesh),
+                    spec_tree, is_spec_leaf)
 
 
 def param_count(spec_tree) -> int:
@@ -306,7 +569,7 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) ->
     """(q, k) bool mask: causal, optionally limited to a trailing window."""
     m = k_pos[None, :] <= q_pos[:, None]
     if window > 0:
-        m &= k_pos[None, :] > (q_pos[:, None] - window)
+        m = m & (k_pos[None, :] > (q_pos[:, None] - window))
     return m
 
 
@@ -317,6 +580,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int) -
         neg = torch.finfo(torch.float32).min
         pad_mask = torch.arange(logits.shape[-1], device=logits.device) >= vocab_real
         logits = torch.where(pad_mask, neg, logits)
+    if _CTX.mesh is not None:
+        return torch.mean(constrain(_sharded_xent_terms(logits, labels), "batch", "seq"))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None].to(torch.int64), dim=-1)[..., 0]
     return torch.mean(logz - gold)
+
+
+def _sharded_xent_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logz - gold for float32 logits whose vocab dim may be sharded (under
+    a :func:`sharding_ctx`), in ops that reduce a sharded dim by partial
+    results: the max, then the sum of exponentials, each reduced over the
+    ranks (``logsumexp`` would gather the logits); the gold logit as the
+    sum of the row masked to its label (the gather's gradient would
+    scatter into a replicated zeros of the global logits' shape).  The
+    same values as the dense form: one nonzero term a row."""
+    def whole(t):  # a row's (B, S, 1) statistic, on every rank of the vocab's axis
+        return constrain(t, "batch", "seq", None)
+
+    m = whole(logits.amax(dim=-1, keepdim=True))
+    m = torch.where(torch.isinf(m), 0.0, m)
+    logz = torch.log(whole(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True))) + m
+    # the ids as (B, 1, V), sharded on batch and vocab: the comparison
+    # follows the operand with the most shards, so the (B, S, V) mask and
+    # its gradient's ``where`` keep the vocab sharded (ids of shape (V,)
+    # tie with the labels, and some torch versions then follow the labels
+    # and build the mask at the whole vocab)
+    vocab_ids = torch.arange(logits.shape[-1], device=logits.device)
+    vocab_ids = constrain(vocab_ids.expand(labels.shape[0], 1, -1), "batch", None, "vocab")
+    hit = vocab_ids == labels[..., None]
+    gold = whole(torch.where(hit, logits, 0.0).sum(dim=-1, keepdim=True))
+    return (logz - gold)[..., 0]

@@ -4,8 +4,8 @@
 only; the frontend supplies precomputed frame / patch embeddings.  These
 helpers give the stub's token count and a deterministic synthetic
 embedding drawn as the reference draws it (``jax.random.normal`` through
-:mod:`repro_torch.sim._jaxrandom`, bit for bit).  The dry run's
-``frontend_spec`` is not ported.
+:mod:`repro_torch.sim._jaxrandom`, bit for bit); ``frontend_spec`` is the
+dry run's stand-in for them (a meta tensor, no allocation).
 """
 
 from __future__ import annotations
@@ -26,6 +26,16 @@ def frontend_tokens(cfg: C.ModelConfig, seq_len: int | None = None) -> int:
         # encoder input: audio frames downsampled 4x from a nominal window
         return (seq_len or 1024) // cfg.audio_downsample
     return 0
+
+
+def frontend_spec(cfg: C.ModelConfig, batch: int,
+                  seq_len: int | None = None) -> torch.Tensor | None:
+    """A meta tensor of the precomputed embeddings' shape and dtype (the
+    dry run's input; the reference's ``ShapeDtypeStruct``)."""
+    n = frontend_tokens(cfg, seq_len)
+    if n == 0:
+        return None
+    return torch.empty((batch, n, cfg.d_model), dtype=torch.bfloat16, device="meta")
 
 
 def synth_embeddings(cfg: C.ModelConfig, batch: int, key, seq_len: int | None = None,

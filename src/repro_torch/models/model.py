@@ -24,8 +24,9 @@ dense cross entropy, or ``chunked_xent`` where ``cfg.loss_chunk`` is set,
 plus the weighted MoE aux losses; autograd differentiates it.  The decode
 cache is the reference's heterogeneous one: ``kv`` for attention layers,
 ``ssm`` {conv, ssm} for Mamba layers, ``rec`` {conv, h} for RG-LRU layers.
-``abstract``, ``shardings`` and ``input_specs`` (the dry-run and mesh
-helpers) are not ported.
+The dry-run helpers give meta tensors where the reference gives
+``ShapeDtypeStruct``s (``abstract``, ``input_specs``) and DTensor
+placements where it gives ``NamedSharding``s (``shardings``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import common as C
+from repro_torch.models import frontends as F
 from repro_torch.models import transformer as T
 
 MOE_AUX_WEIGHT = 0.01
@@ -54,6 +56,14 @@ class Model:
         """Seeded init on ``generator.device`` (the reference's
         distributions; not its ``jax.random`` numbers)."""
         return C.init_params(self.param_specs(), generator)
+
+    def abstract(self) -> dict:
+        """Meta tensors of every parameter (the dry run's; no allocation)."""
+        return C.abstract_params(self.param_specs())
+
+    def shardings(self, mesh, rules=None):
+        """Every parameter's DTensor placements on ``mesh``."""
+        return C.param_shardings(self.param_specs(), mesh, rules)
 
     def param_count(self) -> int:
         return C.param_count(self.param_specs())
@@ -96,6 +106,32 @@ class Model:
     def prefill(self, params, tokens):
         """Prefill forward (logits only, as the reference's)."""
         return self.apply(params, tokens)
+
+    # ---- dry-run inputs ----------------------------------------------------
+
+    def input_specs(self, shape_name: str, seq_len: int, global_batch: int,
+                    mode: str) -> dict:
+        """Meta-tensor stand-ins for every model input (no allocation).
+
+        mode: 'train' -> {tokens, labels, ...}; 'prefill' -> {tokens, ...};
+        'decode' -> {token, cache}, the cache's ``len`` a host int32 scalar
+        as :func:`~repro_torch.models.transformer.init_cache` makes it."""
+        cfg = self.cfg
+        if mode in ("train", "prefill"):
+            def ids():
+                return torch.empty((global_batch, seq_len), dtype=torch.int32, device="meta")
+            specs = {"tokens": ids()}
+            if mode == "train":
+                specs["labels"] = ids()
+            if cfg.encoder_layers > 0:
+                specs["frames"] = F.frontend_spec(cfg, global_batch, seq_len)
+            elif cfg.frontend is not None:
+                specs["prefix_embeds"] = F.frontend_spec(cfg, global_batch, seq_len)
+            return specs
+        if mode == "decode":
+            return {"token": torch.empty((global_batch, 1), dtype=torch.int32, device="meta"),
+                    "cache": T.init_cache(cfg, global_batch, seq_len, device="meta")}
+        raise ValueError(mode)
 
 
 def params_from_jax(tree, device) -> dict:

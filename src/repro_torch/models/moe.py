@@ -15,8 +15,8 @@ shared experts + routed top-k with capacity.
 
 ``"ep"`` is the reference's expert-parallel ``shard_map`` formulation; it
 needs a mesh, and without one the reference falls through to the local
-formulation, as the one-card port always does (the launch mesh is a later
-slice, ROADMAP queue A, "A11 (dry run and launch mesh)").
+formulation, as the port always does (under the dry run's mesh too, where
+DTensor shards the local formulation by the ``constrain`` placements).
 
 Everything is static-shape: no host synchronization and no
 data-dependent size.  The combine is a gather and a sum in a fixed order,
@@ -131,13 +131,50 @@ def route(p, x: torch.Tensor, cfg: C.ModelConfig):
                                      moe.num_experts)
 
 
+def _dispatch(flat: torch.Tensor, top_e: torch.Tensor, e: int, cap: int, dispatch: str):
+    """The kept pairs' tokens in an (E, C, d) buffer, and the plan the
+    combine reads: (buf, keep, slot, pair, by_token)."""
+    tok, exp, rank, pair, by_token = dispatch_plan(top_e, e, dispatch)
+    keep = rank < cap
+    slot = exp * cap + torch.where(keep, rank, 0)
+    # kept pairs copy their token into the (E*C, d) buffer; dropped ones
+    # land on a spare row that is cut off (kept slots are unique)
+    d = flat.shape[-1]
+    buf = torch.zeros((e * cap + 1, d), dtype=flat.dtype, device=flat.device)
+    buf.index_copy_(0, torch.where(keep, slot, e * cap), flat[tok])
+    return buf[:-1].reshape(e, cap, d), keep, slot, pair, by_token
+
+
+def _combine(out_e: torch.Tensor, top_w: torch.Tensor, keep: torch.Tensor,
+             slot: torch.Tensor, pair: torch.Tensor, by_token: torch.Tensor,
+             cdt: torch.dtype | None) -> torch.Tensor:
+    """Each token's K weighted expert outputs summed in the dispatch's
+    order: (T, d).  ``cdt`` None is the cumsum dispatch (weights and sum
+    in float32), else the sort dispatch's combine dtype (weights in the
+    outputs' dtype)."""
+    w = torch.where(keep, top_w.reshape(-1)[pair], 0.0)
+    gathered = out_e.reshape(-1, out_e.shape[-1])[slot]            # (T*K, d)
+    if cdt is None:
+        contrib = gathered.to(torch.float32) * w[:, None]
+    else:
+        contrib = (gathered * w.to(out_e.dtype)[:, None]).to(cdt)
+    per_token = contrib[by_token]                                  # (T, K, d)
+    combined = per_token[:, 0]
+    for kk in range(1, by_token.shape[1]):
+        combined = combined + per_token[:, kk]
+    return combined
+
+
 def moe_block(p, x: torch.Tensor, cfg: C.ModelConfig):
-    """x: (B, S, d) -> (out, aux) with aux = {load_balance, router_z}."""
+    """x: (B, S, d) -> (out, aux) with aux = {load_balance, router_z}.
+    Under a sharding context the dispatch and the combine (a sort and
+    gathers over the whole token set) run replicated on each rank
+    (``common.local_region``); the experts' products shard by the
+    ``constrain`` on their buffer."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s
     e = moe.num_routed_padded
-    k = moe.top_k
     cap = capacity(moe, t)
 
     flat, logits, gates, top_w, top_e = route(p, x, cfg)
@@ -148,32 +185,22 @@ def moe_block(p, x: torch.Tensor, cfg: C.ModelConfig):
     load_balance = e * torch.sum(me * ce)
     router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
-    tok, exp, rank, pair, by_token = dispatch_plan(top_e, e, cfg.moe_dispatch)
-    keep = rank < cap
-    slot = exp * cap + torch.where(keep, rank, 0)
-
-    # kept pairs copy their token into the (E*C, d) buffer; dropped ones
-    # land on a spare row that is cut off (kept slots are unique)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, torch.where(keep, slot, e * cap), flat[tok])
-    buf = buf[:-1].reshape(e, cap, d)
+    buf, keep, slot, pair, by_token = C.local_region(
+        "moe.dispatch", _dispatch, flat, top_e, e, cap, cfg.moe_dispatch, replicate=True)
+    buf = C.constrain(buf, "expert", None, "embed")
 
     gate = torch.bmm(buf, p["we_gate"])
     up = torch.bmm(buf, p["we_in"])
     act = C.activation("swiglu", up, gate)
-    out_e = torch.bmm(act, p["we_out"]).reshape(e * cap, d)
+    out_e = torch.bmm(act, p["we_out"])
 
-    w = torch.where(keep, top_w.reshape(-1)[pair], 0.0)
-    gathered = out_e[slot]                                         # (T*K, d)
-    if cfg.moe_dispatch == "cumsum":
-        contrib = gathered.to(torch.float32) * w[:, None]
-    else:
-        cdt = torch.float32 if cfg.moe_combine_f32 else x.dtype
-        contrib = (gathered * w.to(x.dtype)[:, None]).to(cdt)
-    per_token = contrib[by_token]                                  # (T, K, d)
-    combined = per_token[:, 0]
-    for kk in range(1, k):
-        combined = combined + per_token[:, kk]
+    cdt = None if cfg.moe_dispatch == "cumsum" else \
+        (torch.float32 if cfg.moe_combine_f32 else x.dtype)
+    combined = C.local_region("moe.combine", _combine, out_e, top_w, keep, slot, pair,
+                              by_token, cdt, replicate=True)
+    if cfg.moe_dispatch != "cumsum":
+        combined = C.constrain(combined.reshape(b, s, d), "batch", "seq",
+                               "embed").reshape(t, d)
 
     # --- shared experts (always-on dense SwiGLU) ----------------------------
     if moe.num_shared > 0:
@@ -182,5 +209,5 @@ def moe_block(p, x: torch.Tensor, cfg: C.ModelConfig):
         shared = C.activation("swiglu", su, sg) @ p["ws_out"]
         combined = combined + shared.to(torch.float32)
 
-    out = combined.reshape(b, s, d).to(x.dtype)
+    out = C.constrain(combined.reshape(b, s, d).to(x.dtype), "batch", "seq", "embed")
     return out, {"load_balance": load_balance, "router_z": router_z}

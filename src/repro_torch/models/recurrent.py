@@ -56,12 +56,14 @@ def rglru_block(p, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     h = C.rms_norm(x, p["norm"])
     gate = C.activation("gelu", torch.einsum("bsd,dw->bsw", h, p["w_gate"]))
     rec = torch.einsum("bsd,dw->bsw", h, p["w_rec"])
-    xc = causal_conv(rec, p["conv_w"], p["conv_b"])
+    rec = C.constrain(rec, "batch", "seq", "rnn")
+    xc = C.local_region("rglru.causal_conv", causal_conv, rec, p["conv_w"], p["conv_b"],
+                        whole=(1,))
 
     a, bx = _rglru_terms(p, xc, cfg)
-    hs = C.linear_scan_(a, bx)
+    hs = C.local_region("rglru.linear_scan", C.linear_scan_, a, bx, whole=(1,))
     y = hs.to(x.dtype) * gate
-    return torch.einsum("bsw,wd->bsd", y, p["w_out"])
+    return C.constrain(torch.einsum("bsw,wd->bsd", y, p["w_out"]), "batch", "seq", "embed")
 
 
 def init_rglru_cache(cfg: C.ModelConfig, batch: int, n_layers: int, device=None) -> dict:
@@ -89,4 +91,4 @@ def rglru_decode_block(p, x: torch.Tensor, conv_state: torch.Tensor,
     new_h = a[:, 0] * h_state + bx[:, 0]
     y = new_h[:, None, :].to(x.dtype) * gate
     out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
-    return out, new_conv, new_h
+    return C.constrain(out, "batch", None, "embed"), new_conv, new_h

@@ -71,7 +71,8 @@ def _selective_terms(p, x_conv: torch.Tensor, cfg: C.ModelConfig):
     proj = torch.einsum("bsd,de->bse", x_conv, p["w_x"])
     dt_r, b_mat, c_mat = torch.split(proj, [dr, ds, proj.shape[-1] - dr - ds], dim=-1)
     dt_full = torch.einsum("bsr,rd->bsd", dt_r, p["w_dt"]).to(torch.float32)
-    dt_full = softplus(dt_full + p["dt_bias"])                 # (B,S,di)
+    # (a sharding context reduces the product's partial sums before the bias)
+    dt_full = softplus(C.constrain(dt_full, "batch", "seq", "rnn") + p["dt_bias"])  # (B,S,di)
     a = -torch.exp(p["a_log"])                                 # (di, ds)
     dA = torch.exp_(dt_full[..., None] * a)                    # (B,S,di,ds)
     dBx = (dt_full * x_conv.to(torch.float32))[..., None] * \
@@ -84,16 +85,18 @@ def ssm_block(p, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     h = C.rms_norm(x, p["norm"])
     xz = torch.einsum("bsd,de->bse", h, p["w_in"])
     xs, z = torch.chunk(xz, 2, dim=-1)
-    x_conv = F.silu(causal_conv(xs, p["conv_w"], p["conv_b"]))
+    xs = C.constrain(xs, "batch", "seq", "rnn")
+    x_conv = F.silu(C.local_region("ssm.causal_conv", causal_conv, xs, p["conv_w"],
+                                   p["conv_b"], whole=(1,)))
 
     dA, dBx, c_mat = _selective_terms(p, x_conv, cfg)
-    hs = C.linear_scan_(dA, dBx)                               # (B,S,di,ds)
+    hs = C.local_region("ssm.linear_scan", C.linear_scan_, dA, dBx, whole=(1,))  # (B,S,di,ds)
     del dA
     y = torch.einsum("bsdn,bsn->bsd", hs, c_mat.to(torch.float32))
     del hs, dBx
     y = y + p["d_skip"] * x_conv.to(torch.float32)
     y = y.to(x.dtype) * F.silu(z)
-    return torch.einsum("bse,ed->bsd", y, p["w_out"])
+    return C.constrain(torch.einsum("bse,ed->bsd", y, p["w_out"]), "batch", "seq", "embed")
 
 
 def init_ssm_cache(cfg: C.ModelConfig, batch: int, n_layers: int, device=None) -> dict:
@@ -124,4 +127,4 @@ def ssm_decode_block(p, x: torch.Tensor, conv_state: torch.Tensor,
     y = y + p["d_skip"] * x_conv[:, 0].to(torch.float32)
     y = y.to(x.dtype) * F.silu(z[:, 0])
     out = torch.einsum("be,ed->bd", y, p["w_out"])[:, None, :]
-    return out, new_conv, new_ssm
+    return C.constrain(out, "batch", None, "embed"), new_conv, new_ssm

@@ -14,11 +14,12 @@ Layer iteration: the block pattern's smallest repeating unit (the *period*)
 is stacked on a leading axis, as in the reference; where the reference runs
 ``jax.lax.scan`` over that axis, the port loops over it in Python (each
 stacked leaf unbound once, so a backward pass stacks its layers' gradients
-in one step), and the non-divisible tail is unrolled.  ``cfg.remat`` (with
-the reference's ``"nothing"`` policy, the only one a config uses) wraps
+in one step), and the non-divisible tail is unrolled.  ``cfg.remat`` wraps
 each superblock, and each encoder block, in ``torch.utils.checkpoint``
-(non-reentrant) when autograd records: its activations are recomputed in
-the backward.  Decode unrolls all layers and carries heterogeneous caches
+(non-reentrant) when autograd records, under the reference's two policies:
+``"nothing"`` recomputes every activation in the backward; ``"dots"``
+saves the products that have no batch dimension (:func:`_dots_policy`)
+and recomputes the rest.  Decode unrolls all layers and carries heterogeneous caches
 (KV / conv+ssm / conv+h per kind), each indexed by its kind's own layer
 counter; on an encoder-decoder config it runs the decoder stack with no
 cross-attention, as the reference's does.  The stack returns the MoE aux
@@ -33,7 +34,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                   create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as A
 from repro_torch.models import common as C
@@ -45,14 +47,34 @@ KINDS = ("attn", "swa", "moe", "mamba", "rglru")
 ATTN_KINDS = ("attn", "swa", "moe")
 
 
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save
+    the products with no batch dimension, recompute everything else.  The
+    port's projections are ``torch.einsum("bsd,df->bsf", ...)``, which
+    reaches the dispatcher as ``aten.bmm`` with a batch of one, so a
+    ``bmm`` whose leading size is 1 counts as unbatched; attention's
+    products (batch B*H), the experts' (batch E), B7 and every elementwise
+    op are recomputed."""
+    if op in _DOTS or (op == _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg: C.ModelConfig):
     """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` asks and
-    autograd records, else ``fn`` itself."""
+    autograd records, else ``fn`` itself.  ``remat_policy="dots"`` keeps
+    :func:`_dots_policy`'s products; any other string saves nothing, as in
+    the reference."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
-    if cfg.remat_policy != "nothing":
-        raise ValueError(f"remat_policy {cfg.remat_policy!r}: the port has "
-                         f"'nothing' (every activation recomputed)")
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
@@ -76,9 +98,11 @@ def mlp_param_specs(cfg: C.ModelConfig) -> dict:
 def mlp_block(p, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     h = C.rms_norm(x, p["norm"])
     up = torch.einsum("bsd,df->bsf", h, p["w_in"])
+    up = C.constrain(up, "batch", "seq", "mlp")
     gate = torch.einsum("bsd,df->bsf", h, p["w_gate"]) if cfg.mlp_act == "swiglu" else None
     act = C.activation(cfg.mlp_act, up, gate)
-    return torch.einsum("bsf,fd->bsd", act, p["w_out"])
+    out = torch.einsum("bsf,fd->bsd", act, p["w_out"])
+    return C.constrain(out, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +201,7 @@ def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
 
     def superblock(x, layer_params):
         aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
-        for kind, p in zip(per, layer_params):
+        for kind, p in zip(per, C.gather_fsdp(layer_params)):
             x, aux = apply_block(kind, p, x, cfg, positions=positions)
             if aux:
                 aux_sum = aux_sum + torch.stack([aux["load_balance"], aux["router_z"]])
@@ -189,7 +213,7 @@ def apply_stack(params, x: torch.Tensor, cfg: C.ModelConfig,
         x, aux = body(x, layer_params)
         aux_sum = aux_sum + aux
     for kind, p in zip(tail, params["tail"]):
-        x, aux = apply_block(kind, p, x, cfg, positions=positions)
+        x, aux = apply_block(kind, C.gather_fsdp(p), x, cfg, positions=positions)
         if aux:
             aux_sum = aux_sum + torch.stack([aux["load_balance"], aux["router_z"]])
     x = C.rms_norm(x, params["final_norm"])
@@ -231,13 +255,20 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tens
     # does (50.5 in bfloat16 for d_model 2,560, not 50.596)
     scale = torch.full((), cfg.d_model ** 0.5, dtype=cfg.param_dtype,
                        device=params["embed"].device)
-    return params["embed"][tokens] * scale
+    # under a sharding context the lookup takes the table whole (DTensor's
+    # vocab-sharded lookup leaves a masked partial sum that not every torch
+    # the port runs on can differentiate); F.embedding is the same row
+    # gather as indexing
+    x = F.embedding(tokens, C.constrain(params["embed"], None, None)) * scale
+    return C.constrain(x, "batch", "seq", "embed")
 
 
 def logits_from_hidden(params, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        logits = torch.einsum("bsd,vd->bsv", x, C.gather_fsdp(params["embed"]))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, C.gather_fsdp(params["lm_head"]))
+    return C.constrain(logits, "batch", "seq", "vocab")
 
 
 def forward_hidden(params, tokens: torch.Tensor, cfg: C.ModelConfig,
@@ -303,6 +334,7 @@ def encode(params, frames: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     enc = params["encoder"]
 
     def block(x, p):
+        p = C.gather_fsdp(p)
         x = x + A.attn_block(p["mixer"], x, cfg, causal=False)
         return x + mlp_block(p["mlp"], x, cfg)
 
@@ -323,6 +355,7 @@ def encdec_forward(params, tokens: torch.Tensor, frames: torch.Tensor,
     n_full, tail = _split_layers(cfg)
 
     def superblock(x, layer_params, cross_p):
+        layer_params, cross_p = C.gather_fsdp((layer_params, cross_p))
         for kind, p in zip(per, layer_params):
             x, _ = apply_block(kind, p, x, cfg)
         return x + A.cross_attn_block(cross_p, x, A.encoder_kv(cross_p, enc_out, cfg), cfg)
@@ -332,6 +365,7 @@ def encdec_forward(params, tokens: torch.Tensor, frames: torch.Tensor,
                                      _unstack(params["cross"]["period"], n_full)):
         x = body(x, layer_params, cross_p)
     for kind, p, cross_p in zip(tail, params["stack"]["tail"], params["cross"]["tail"]):
+        p, cross_p = C.gather_fsdp((p, cross_p))
         x, _ = apply_block(kind, p, x, cfg)
         x = x + A.cross_attn_block(cross_p, x, A.encoder_kv(cross_p, enc_out, cfg), cfg)
     x = C.rms_norm(x, params["stack"]["final_norm"])
@@ -405,7 +439,7 @@ def decode_step(params, token: torch.Tensor, cache: dict, cfg: C.ModelConfig):
         rec = new_cache["rec"] = {k: t.clone() for k, t in cache["rec"].items()}
     i_attn = i_ssm = i_rec = 0
     for i, kind in enumerate(cfg.pattern):
-        p = _layer_params(params["stack"], cfg, i)
+        p = C.gather_fsdp(_layer_params(params["stack"], cfg, i))
         if kind in ATTN_KINDS:
             window = cfg.window_size if kind == "swa" else 0
             out, _, _, _ = A.attn_decode_block(

@@ -13,8 +13,7 @@ would: a full-width step would otherwise hold the old and the new moments
 at once (2 x 32 GB for qwen3-4b).  Clone a tree whose values must outlive
 the step.  The step counter, the learning rate and the gradient norm are
 0-dim tensors on the parameters' device, so a step never waits on the
-device.
-``abstract_state`` (the dry run's) is not ported.
+device.  ``abstract_state`` gives the dry run's meta tensors.
 """
 
 from __future__ import annotations
@@ -45,6 +44,17 @@ def init(params, cfg: AdamWConfig) -> dict:
         return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
     return {"mu": tree_map(zero, params), "nu": tree_map(zero, params), "step": step}
+
+
+def abstract_state(param_specs_tree, cfg: AdamWConfig) -> dict:
+    """Meta-tensor optimizer state for the dry run (no allocation)."""
+    from repro_torch.models.common import is_spec_leaf
+
+    def zero(s):
+        return torch.empty(s.shape, dtype=cfg.moment_dtype, device="meta")
+    return {"mu": tree_map(zero, param_specs_tree, is_spec_leaf),
+            "nu": tree_map(zero, param_specs_tree, is_spec_leaf),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def _schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:

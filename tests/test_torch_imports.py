@@ -21,8 +21,8 @@ for name in names:
     importlib.import_module(name)
 # the walk reaches the study service and its runtime helpers, the MoE
 # family with its capture and the host copy of jax.random's draws, and the
-# SSM / hybrid family beside the lane mesh, the enc-dec / VLM family and
-# the training path
+# SSM / hybrid family beside the lane mesh, the enc-dec / VLM family, the
+# training path, and the launch mesh, the dry run and the roofline
 missing = {"repro_torch.runtime.fault_tolerance", *(f"repro_torch.serve.{m}" for m in (
     "chaos", "clock", "coalesce", "policy", "queueing", "request", "retry", "server",
     "warm")), "repro_torch.models.moe", "repro_torch.capture.moe_experts",
@@ -33,7 +33,8 @@ missing = {"repro_torch.runtime.fault_tolerance", *(f"repro_torch.serve.{m}" for
     "repro_torch.models.frontends", "repro_torch.configs.seamless_m4t_large_v2",
     "repro_torch.configs.internvl2_26b", "repro_torch.data.pipeline",
     "repro_torch.optim.adamw", "repro_torch.checkpoint.manager",
-    "repro_torch.launch.train"} - set(names)
+    "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+    "repro_torch.roofline.analysis"} - set(names)
 assert not missing, missing
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)

@@ -26,14 +26,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import os
 import threading
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.checkpoint.manager import CheckpointManager as RCheckpointManager
 from repro.configs import get_smoke_config as r_get_smoke_config
@@ -260,19 +263,68 @@ def test_arch_smoke_train_step_grads(arch):
     assert any(bool((g != 0).any()) for g in grads)
 
 
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
 @pytest.mark.parametrize("arch", ["qwen3_4b", "seamless_m4t_large_v2", "recurrentgemma_2b",
                                   "qwen2_moe_a2_7b"])
-def test_remat_on_and_off_give_equal_grads(arch):
+def test_remat_on_and_off_give_equal_grads(arch, policy):
+    """Both of the reference's remat policies give remat off's loss and
+    gradients bit for bit."""
     _, t_model, t_params, _, _, t_batch = _f32_pair(arch)
-    on = Model(dataclasses.replace(t_model.cfg, remat=True))
+    on = Model(dataclasses.replace(t_model.cfg, remat=True, remat_policy=policy))
     off = Model(dataclasses.replace(t_model.cfg, remat=False))
     l_on, g_on = _value_and_grad(on, t_params, t_batch)
     l_off, g_off = _value_and_grad(off, t_params, t_batch)
     assert torch.equal(l_on, l_off)
     assert all(torch.equal(a, b) for a, b in zip(g_on, g_off))
-    with pytest.raises(ValueError, match="remat_policy"):
-        _value_and_grad(Model(dataclasses.replace(on.cfg, remat_policy="dots")),
-                        t_params, t_batch)
+
+
+class _KeptStorages(TorchDispatchMode):
+    """Weak references to the storage of every op's output while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.refs = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.refs.append(weakref.ref(t.untyped_storage()))
+        return out
+
+
+def _kept_storage_count(model, params, batch) -> int:
+    """Storages made by ``model.loss``'s forward that are still alive once
+    it returns, while its loss (and so the autograd graph) is held: what
+    the backward keeps, remat's saved products included."""
+    leaves = [p.detach().requires_grad_() for p in C.tree_leaves(params)]
+    with _KeptStorages() as mode:
+        loss = model.loss(C.tree_unflatten(params, leaves), batch)
+    gc.collect()
+    ids = {id(s) for s in (r() for r in mode.refs) if s is not None}
+    del loss
+    return len(ids)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "qwen2_moe_a2_7b"])
+def test_remat_dots_saves_the_unbatched_products(arch):
+    """``"dots"`` keeps the projections' outputs (``einsum`` reaches them as
+    a batch-of-one ``bmm``), so the forward leaves strictly more tensors
+    alive for the backward than ``"nothing"`` does (counted by storage),
+    and an unknown policy string saves what ``"nothing"`` saves, as in the
+    reference."""
+    _, t_model, t_params, _, _, t_batch = _f32_pair(arch)
+    count = {pol: _kept_storage_count(
+        Model(dataclasses.replace(t_model.cfg, remat=True, remat_policy=pol)), t_params, t_batch)
+        for pol in ("nothing", "dots", "no-such-policy")}
+    assert count["dots"] > count["nothing"]
+    assert count["no-such-policy"] == count["nothing"]
+    _, grads = _value_and_grad(Model(dataclasses.replace(t_model.cfg, remat=True,
+                                                         remat_policy="no-such-policy")),
+                               t_params, t_batch)
+    _, want = _value_and_grad(Model(dataclasses.replace(t_model.cfg, remat=False)),
+                              t_params, t_batch)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
 
 
 def test_linear_scan_grad_path_is_bit_for_bit():
