@@ -21,6 +21,7 @@ from repro_torch.sim.engine import (
     run_sweep,
     run_workload,
     summarize,
+    sweep_cache_sizes,
 )
 from repro_torch.sim.prep import TraceTensors, prepare
 from repro_torch.sim.study import (
@@ -42,5 +43,5 @@ __all__ = [
     "HWParams", "LazyPIMConfig", "SignatureSpec",
     "SimResult", "TraceTensors", "MECHANISMS",
     "run_all", "run_batch", "run_sweep", "run_workload", "summarize",
-    "prepare", "make_trace", "all_workloads",
+    "sweep_cache_sizes", "prepare", "make_trace", "all_workloads",
 ]

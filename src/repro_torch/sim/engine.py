@@ -16,8 +16,14 @@
 Both paths run the very same lane-batched window loop — the sequential
 engine is the one-lane case — and both turn ``HWParams`` and the numeric
 ``LazyPIMConfig`` knobs into tensors at the declared dtypes the same way,
-so batch and sequential agree bit for bit.  The reference's jit compile
-keys have no counterpart here: PyTorch runs eagerly.
+so batch and sequential agree bit for bit.
+
+PyTorch runs eagerly, so the port has no jit cache.  What the reference's
+cache counts — the distinct argument signatures a dispatch specialised on
+— the port records itself (:func:`_dispatch_shape`), so
+:func:`sweep_cache_sizes` and :func:`sequential_cache_sizes` give the
+numbers the reference's compile budget is held to
+(:attr:`repro_torch.sim.study.StudyPlan.compiles_per_mechanism`).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from repro_torch.sim import mesh as _mesh
 from repro_torch.sim.costmodel import HWParams, hw_leaf_dtypes
 from repro_torch.sim.prep import (
     TRACE_DATA_FIELDS,
+    TRACE_META_FIELDS,
     TraceTensors,
     neutral_trace,
     prepare,
@@ -127,6 +134,52 @@ def stack_traces(tts: list[TraceTensors]) -> TraceTensors:
 # ---------------------------------------------------------------------------
 
 
+# The dispatch shapes seen in this process, per mechanism: the batched
+# dispatches' (every mesh width) and the sequential per-trace runs'.  Like
+# the reference's jit caches they live as long as the process.
+_SWEEP_SHAPES: dict[str, set] = {m: set() for m in MECHANISMS}
+_SEQUENTIAL_SHAPES: dict[str, set] = {m: set() for m in MECHANISMS}
+
+
+def _leaf_shapes(record, names) -> tuple:
+    return tuple((n, tuple(getattr(record, n).shape), getattr(record, n).dtype)
+                 for n in names)
+
+
+def _dispatch_shape(mechanism: str, stt: TraceTensors, shw: HWParams,
+                    scfg: LazyPIMConfig, devices: int) -> tuple:
+    """The key the reference's jit specialises a dispatch on: the trace's
+    metadata and every tensor field's shape and dtype, the hardware
+    record's fields, the LazyPIM config's static flags and fields (its
+    window loop alone takes the config) and the mesh width (the reference
+    builds one jitted function per width)."""
+    key = (tuple(getattr(stt, f) for f in TRACE_META_FIELDS),
+           _leaf_shapes(stt, TRACE_DATA_FIELDS),
+           _leaf_shapes(shw, tuple(hw_leaf_dtypes())), devices)
+    if mechanism == "lazypim":
+        key += (tuple(getattr(scfg, f) for f in _LAZY_STATIC_FIELDS),
+                _leaf_shapes(scfg, tuple(_LAZY_DATA_DTYPES)))
+    return key
+
+
+def sweep_cache_sizes(mechanisms: tuple[str, ...] = MECHANISMS) -> dict[str, int]:
+    """Distinct dispatch shapes per mechanism that the batched dispatches
+    (``run_sweep``, ``run_batch``, the ``Study`` planner, the study
+    service; every mesh width) have run in this process: the count the
+    reference's ``sweep_cache_sizes`` reads from its jit caches.  Its delta
+    across a run is what ``Study.plan().compiles_per_mechanism`` predicts."""
+    return {m: len(_SWEEP_SHAPES[m]) for m in mechanisms}
+
+
+def sequential_cache_sizes(
+    mechanisms: tuple[str, ...] = MECHANISMS,
+) -> dict[str, int]:
+    """Distinct dispatch shapes per mechanism of the sequential per-trace
+    runs behind :func:`run_all` / :func:`run_mechanism` in this process
+    (one per distinct trace geometry, as the reference's per-trace jits)."""
+    return {m: len(_SEQUENTIAL_SHAPES[m]) for m in mechanisms}
+
+
 def _run_lanes(mechanism: str, stt: TraceTensors, shw: HWParams,
                scfg: LazyPIMConfig) -> dict:
     """One mechanism's window loop over every lane of a stacked trace."""
@@ -136,8 +189,8 @@ def _run_lanes(mechanism: str, stt: TraceTensors, shw: HWParams,
 
 
 def _sweep_accs(stt: TraceTensors, shw: HWParams, mechanisms: tuple[str, ...],
-                scfg: LazyPIMConfig, boundary=None,
-                devices: int = 1) -> dict[str, dict]:
+                scfg: LazyPIMConfig, boundary=None, devices: int = 1,
+                _shapes: dict[str, set] = _SWEEP_SHAPES) -> dict[str, dict]:
     """Run one stacked execution per mechanism and return host-side numpy
     accumulators with a leading lane axis — THE shared dispatch of every
     batched engine.  ``boundary`` is the per-dispatch error/cancellation
@@ -150,14 +203,17 @@ def _sweep_accs(stt: TraceTensors, shw: HWParams, mechanisms: tuple[str, ...],
     the lane count must already be a multiple of ``devices`` — the planner
     pads with :func:`repro_torch.sim.prep.dummy_lane_triple` lanes).
     ``devices=1`` runs the single-device dispatch itself: no shard call, no
-    split, no copy."""
+    split, no copy.  Each dispatch that runs adds its
+    :func:`_dispatch_shape` to ``_shapes`` (the sequential runs keep
+    theirs apart)."""
     out = {}
     for m in mechanisms:
         run = functools.partial(_run_lanes, m)
         if devices > 1:
             run = _mesh.shard_lanes(run, devices, stt.device)
 
-        def thunk(run=run):
+        def thunk(run=run, m=m):
+            _shapes[m].add(_dispatch_shape(m, stt, shw, scfg, devices))
             return {k: v.cpu().numpy() for k, v in run(stt, shw, scfg).items()}
 
         out[m] = thunk() if boundary is None else boundary(m, thunk)
@@ -171,7 +227,8 @@ def run_mechanism(tt: TraceTensors, hw: HWParams, mechanism: str,
     window loop, with the same tensor conversions as the batched path."""
     dev = _check_on(tt, device)
     acc = _sweep_accs(stack_traces([neutral_trace(tt)]), stack_hw([hw], dev),
-                      (mechanism,), stack_lazy([lazy_cfg or LazyPIMConfig()], dev))
+                      (mechanism,), stack_lazy([lazy_cfg or LazyPIMConfig()], dev),
+                      _shapes=_SEQUENTIAL_SHAPES)
     return finalize_result(tt.name, mechanism,
                            {k: v[0] for k, v in acc[mechanism].items()})
 
@@ -267,4 +324,4 @@ def run_workload(app: str, graph_name: str | None = None, threads: int = 16,
 
 __all__ = ["MECHANISMS", "run_mechanism", "run_all", "run_sweep", "run_batch",
            "run_workload", "summarize", "stack_hw", "stack_lazy",
-           "stack_traces"]
+           "stack_traces", "sweep_cache_sizes", "sequential_cache_sizes"]

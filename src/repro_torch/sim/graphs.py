@@ -91,6 +91,16 @@ class GraphLayout:
     def total_lines(self) -> int:
         return self.edge_base + self.edge_lines
 
+    # The line helpers take numpy arrays or int tensors of ids.
+    def vertex_line(self, base: int, vertex_ids):
+        return base + vertex_ids // (64 // VERTEX_VALUE_BYTES)
+
+    def frontier_line(self, vertex_ids):
+        return self.frontier_base + vertex_ids // 64  # 1 B per flag
+
+    def edge_line(self, edge_ids):
+        return self.edge_base + edge_ids // (64 // EDGE_BYTES)
+
 
 def layout_for_graph(g: Graph) -> GraphLayout:
     per_line_v = 64 // VERTEX_VALUE_BYTES
@@ -187,6 +197,11 @@ class IMDBLayout:
     @property
     def total_lines(self) -> int:
         return self.tables * self.table_lines + self.hash_area_lines
+
+    def tuple_line(self, table, tup, field_line):
+        """Line of ``field_line`` in tuple ``tup`` of ``table`` (numpy
+        arrays or int tensors)."""
+        return table * self.table_lines + tup * self.tuple_lines + field_line
 
     @property
     def hash_base(self) -> int:

@@ -42,9 +42,24 @@ LANE_AXIS = "lanes"
 MESH_ENV_VAR = "XLA_FORCE_HOST_PLATFORM_DEVICE_COUNT"
 
 __all__ = [
-    "LANE_AXIS", "MESH_ENV_VAR", "available_devices", "resolve_devices",
-    "devices_for", "mesh_lane_width", "lane_mesh", "shard_lanes",
+    "LANE_AXIS", "MESH_ENV_VAR", "force_host_device_count",
+    "available_devices", "resolve_devices", "devices_for", "mesh_lane_width",
+    "lane_mesh", "shard_lanes",
 ]
+
+
+def force_host_device_count() -> int | None:
+    """The CPU device count :data:`MESH_ENV_VAR` forces, or ``None`` when it
+    is unset or empty; a value that is not an integer raises ``ValueError``,
+    as the reference's ``int(n)`` does.
+
+    The reference translates the variable into ``XLA_FLAGS`` at import,
+    because XLA fixes its host device count when its backend starts.  The
+    port sets no ``XLA_FLAGS``: torch has no such backend setting, and
+    :func:`available_devices` reads the variable at each call, so nothing
+    has to run before a device is touched."""
+    n = os.environ.get(MESH_ENV_VAR)
+    return int(n) if n else None
 
 
 def available_devices(device=None) -> int:
@@ -54,8 +69,7 @@ def available_devices(device=None) -> int:
     dev = resolve_device(device)
     if dev.type == "cuda":
         return torch.cuda.device_count()
-    n = os.environ.get(MESH_ENV_VAR)
-    return int(n) if n else 1
+    return force_host_device_count() or 1
 
 
 def resolve_devices(devices: int | None = None, device=None) -> int:

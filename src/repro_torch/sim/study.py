@@ -331,8 +331,11 @@ class BucketLanes:
 @dataclasses.dataclass(frozen=True)
 class StudyPlan:
     """The planner's predicted execution shape: geometry buckets with their
-    lane counts, computed before anything runs.  The port runs eagerly, so
-    unlike the reference's plan it has no compile budget to predict."""
+    lane counts, computed before anything runs, and the budget of dispatch
+    shapes (the reference's compile budget): at most one new shape per
+    (mechanism, bucket).  The port runs eagerly and compiles nothing; what
+    it counts against the budget is
+    :func:`repro_torch.sim.engine.sweep_cache_sizes`."""
 
     buckets: tuple[dict, ...]
     mechanisms: tuple[str, ...]
@@ -349,10 +352,23 @@ class StudyPlan:
         bucket)."""
         return len(self.mechanisms) * self.num_buckets
 
+    @property
+    def compiles_per_mechanism(self) -> dict[str, int]:
+        """Predicted new dispatch shapes per mechanism in a fresh process:
+        one per geometry bucket, whatever ``devices`` is (each bucket runs
+        once, at its routed mesh width, and ``sweep_cache_sizes`` sums
+        every width).  Shapes seen before can only lower the measured
+        ``sweep_cache_sizes`` delta."""
+        return {m: self.num_buckets for m in self.mechanisms}
+
+    @property
+    def total_compiles(self) -> int:
+        return len(self.mechanisms) * self.num_buckets
+
     def describe(self) -> str:
         lines = [f"{self.num_points} points x {len(self.mechanisms)} "
                  f"mechanisms in {self.num_buckets} geometry buckets "
-                 f"({self.dispatches} batched dispatches; eager PyTorch, "
+                 f"(<= {self.total_compiles} dispatch shapes; eager PyTorch, "
                  f"nothing is compiled)"]
         if self.devices > 1:
             lines[0] += f", lane mesh over {self.devices} devices"

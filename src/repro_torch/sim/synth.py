@@ -22,12 +22,14 @@ families is :mod:`repro_torch.sim._traceref`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import zlib
 
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.sim import graphs as G
 
 MAX_SIG_ADDRS = 250
@@ -784,15 +786,27 @@ _EDGE_FNS = {GraphPlan: _graph_arrays, FrontierPlan: _frontier_arrays,
 _TABLE_FNS = {HtapPlan: _htap_arrays, StreamPlan: _stream_arrays}
 
 
-def synthesize(plan, seed: int, edges: np.ndarray | None,
-               device: torch.device) -> dict:
-    """All WindowTrace tensors of ``plan`` at ``seed``, generated on
-    ``device``."""
+def generator(plan, seed: int = 0, edges: np.ndarray | None = None,
+              device=None) -> tuple:
+    """``(fn, args)``: ``fn(*args)`` gives all WindowTrace tensors of
+    ``plan`` at ``seed`` on ``device`` (``None``: the CUDA card) — the unit
+    the trace-synthesis benchmark times.  The Threefry keys, and the edge
+    tensor for the edge families, are the arguments, so another seed
+    reuses ``fn``."""
+    dev = resolve_device(device)
     keys = [tuple(int(v) for v in row) for row in derive_keys(
         plan.app, getattr(plan, "graph_name", None), seed, type(plan).STREAMS)]
     if type(plan) in _EDGE_FNS:
-        e = torch.from_numpy(np.asarray(edges, dtype=np.int64)).to(device)
-        return _EDGE_FNS[type(plan)](plan, keys, e)
+        e = torch.from_numpy(np.asarray(edges, dtype=np.int64)).to(dev)
+        return functools.partial(_EDGE_FNS[type(plan)], plan), (keys, e)
     if type(plan) in _TABLE_FNS:
-        return _TABLE_FNS[type(plan)](plan, keys, device)
+        return functools.partial(_TABLE_FNS[type(plan)], plan, dev=dev), (keys,)
     raise TypeError(f"no generator for {type(plan).__name__}")
+
+
+def synthesize(plan, seed: int = 0, edges: np.ndarray | None = None,
+               device=None) -> dict:
+    """Run :func:`generator`: all WindowTrace tensors of ``plan`` at
+    ``seed``, generated on ``device``."""
+    fn, args = generator(plan, seed, edges, device)
+    return fn(*args)

@@ -15,8 +15,8 @@ both kernels' registers and shared memory as the loaded binary reports
 them; for bloom_intersect's pair-and-any form 1 to 48 lanes, 1 or 16
 registers, 1 to 32 segments and all-zero banks and images),
 and small end-to-end runs (the Fig. 7 study, the capture study, the seed
-engine, nine LazySync steps, a smoke prefill and the smoke serve loop)
-held against the CPU path.  The Bloom kernels give integers and the merge
+engine, nine LazySync steps, a smoke prefill, the smoke serve loop and the
+torch examples) held against the CPU path.  The Bloom kernels give integers and the merge
 sums in the plain version's order, so their tolerance is exact equality.
 Flash attention is held element by element to |kernel - plain| <= rtol
 |plain| + row_tol rms(plain row), the RMS taken over each output row's
@@ -1664,3 +1664,78 @@ def test_ssm_smoke_trains_on_card(dev, arch):
         m = step(params, state, host_batch(data, i, dev))
         assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"]))
     assert all(not torch.equal(a, b) for a, b in zip(tree_leaves(params), before))
+
+
+def _example(name: str):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_EXAMPLE_SIZE = ["--scale", "0.004", "--num-kernels", "3", "--windows-per-kernel", "2"]
+
+
+def _same_points(a, b):
+    assert len(a.points) == len(b.points)
+    for p, q in zip(a.points, b.points):
+        assert (p.workload, p.hw_index, p.lazy_index) == (q.workload, q.hw_index, q.lazy_index)
+        for m in p.results:
+            assert dataclasses.asdict(p.results[m]) == dataclasses.asdict(q.results[m])
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_study_grid"])
+def test_study_examples_on_card_equal_cpu(dev, name):
+    """The quickstart and the study grid at a small size on the card give
+    the CPU run's results on every field (and the same verdicts, pivot and
+    DBI writebacks)."""
+    mod = _example(name)
+    got = mod.main(["--device", str(dev), *_EXAMPLE_SIZE])
+    want = mod.main(["--device", "cpu", *_EXAMPLE_SIZE])
+    _same_points(got["results"], want["results"])
+    for k in got:
+        if k not in ("results", "plan", "study"):
+            assert got[k] == want[k], k
+
+
+def test_lazy_demo_on_card_equals_cpu(dev):
+    """The LazySync demo (9 steps, one commit) on the card: the CPU run's
+    conflict rows, commit flags and bytes, exactly."""
+    mod = _example("torch_lazy_coherence_demo")
+    got = mod.main(["--device", str(dev), "--steps", "9"])
+    assert got == mod.main(["--device", "cpu", "--steps", "9"])
+
+
+def test_train_100m_example_on_card(dev):
+    """The 100M trainer (its batch, sequence and depth) for 60 steps on the
+    card: the failure at step 30 restarts the run from scratch (no
+    checkpoint yet), every loss is finite, and the loss falls from the
+    initial one (about 10.6 at 12 layers, falling to about 9.8 by step 60
+    in both packages)."""
+    import math
+
+    out = _example("torch_train_100m").main(["--device", str(dev), "--steps", "60"])
+    assert out["restored_step"] is None and len(out["losses"]) == 60
+    assert all(math.isfinite(x) for x in out["losses"])
+    assert out["last_loss"] < out["first_loss"]
+
+
+def test_serve_example_on_card_equals_cpu(dev):
+    """The serving demo on the card (8 study requests): every request ends
+    as on the CPU, and every served study answers as the CPU's did."""
+    mod = _example("torch_serve_batched")
+    got = mod.main(["--device", str(dev), "--storm", "8"])
+    want = mod.main(["--device", "cpu", "--storm", "8"])
+    assert [(r.rid, r.prompt, len(r.out)) for r in got["served"]] == \
+        [(r.rid, r.prompt, len(r.out)) for r in want["served"]]
+    assert got["injected"] == want["injected"]
+    assert sorted(got["responses"]) == sorted(want["responses"])
+    for rid, r in got["responses"].items():
+        w = want["responses"][rid]
+        assert (r.status, r.engine, r.attempts) == (w.status, w.engine, w.attempts), rid
+        if r.served:
+            assert r.results.to_rows() == w.results.to_rows(), rid

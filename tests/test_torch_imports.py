@@ -8,6 +8,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
@@ -64,6 +66,30 @@ def test_chip_smoke_imports_nothing_of_jax_or_repro():
             roots.add(node.module.split(".")[0])
     assert "repro_torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+EXAMPLES = ("torch_quickstart", "torch_study_grid", "torch_lazy_coherence_demo",
+            "torch_serve_batched", "torch_train_100m")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_torch_example_imports_nothing_of_jax_or_repro(name):
+    """Each ``examples/torch_*.py`` imports ``repro_torch`` (and torch,
+    numpy, the standard library) and nothing of ``jax``, ``jaxlib`` or
+    ``repro``."""
+    import ast
+
+    path = SRC.parent / "examples" / f"{name}.py"
+    assert sorted(p.stem for p in path.parent.glob("torch_*.py")) == sorted(EXAMPLES)
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert roots <= {"repro_torch", "torch", "numpy"} | set(sys.stdlib_module_names), roots
 
 
 def test_chip_smoke_fails_without_a_card():

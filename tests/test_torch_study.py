@@ -7,20 +7,31 @@ missing-baseline errors, the ``ResultSet`` container (``to_rows`` /
 helpers.  Grid labels and ``HWParams`` defaults are held to ``repro``'s;
 ``tests/test_torch_engine.py`` holds a study's results to ``repro``'s.
 
-Left out: ``test_measured_compiles_within_plan`` (XLA compile counts; the
-port compiles nothing, and its dispatch-count API is queued in ROADMAP A13).
+The compile budget: the port compiles nothing, and counts the distinct
+dispatch shapes its batched dispatches ran (``sweep_cache_sizes``, the
+reference's jit-cache count); ``test_measured_compiles_within_plan`` holds
+their deltas to ``plan().compiles_per_mechanism`` in this process, and
+``test_cold_dispatch_shapes_equal_plan`` to equality in a fresh one (the
+reference's ``benchmarks/check_budget.py --live``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
 import typing
 
 import pytest
 import torch
 
 from repro.api import HWParams as RHWParams
+from repro.api import LazyPIMConfig as RLazyPIMConfig
+from repro.api import Study as RStudy
 from repro.api import grid as r_grid
+from repro.api import workload as r_workload
 from repro_torch.api import (
     HWParams,
     LazyPIMConfig,
@@ -31,6 +42,7 @@ from repro_torch.api import (
     make_trace,
     prepare,
     run_all,
+    sweep_cache_sizes,
     workload,
 )
 from repro_torch.core.mechanisms import finalize_result
@@ -114,22 +126,97 @@ def test_grid_points_cross_product_order():
 
 @pytest.fixture(scope="module")
 def hw_grid_study():
+    """The study, its plan, its batch and sequential results and the
+    ``sweep_cache_sizes`` deltas of its batch run."""
     lazy = [LazyPIMConfig(use_dbi=True), LazyPIMConfig(use_dbi=False)]
     study = _small_study(hw=grid(offchip_bw_gbs=[16.0, 32.0, 64.0]), lazy=lazy)
     plan = study.plan()
-    return study, plan, study.run(), study.run(engine="sequential")
+    before = sweep_cache_sizes()
+    results = study.run()
+    after = sweep_cache_sizes()
+    deltas = {m: after[m] - before[m] for m in study.mechanisms}
+    return study, plan, results, study.run(engine="sequential"), deltas
 
 
 def test_plan_shape(hw_grid_study):
-    study, plan, results, _ = hw_grid_study
+    study, plan, results, _, _ = hw_grid_study
     assert plan.num_points == 2 * 3 * 2 == len(results.points)
     assert plan.num_buckets == 2  # pagerank-arxiv and htap128 buckets
+    assert plan.compiles_per_mechanism == {m: 2 for m in study.mechanisms}
+    assert plan.total_compiles == 6
     assert sum(b["lanes"] for b in plan.buckets) == plan.num_points
     assert "geometry buckets" in plan.describe()
+    assert "<= 6 dispatch shapes" in plan.describe()
+
+
+def test_measured_compiles_within_plan(hw_grid_study):
+    """At most one new dispatch shape per (mechanism, bucket), whatever the
+    hw x lazy cross-product size (shapes this process ran before can only
+    lower the deltas; exact equality in a fresh process is
+    ``test_cold_dispatch_shapes_equal_plan``)."""
+    _, plan, _, _, deltas = hw_grid_study
+    for m, d in deltas.items():
+        assert d <= plan.compiles_per_mechanism[m], (m, d, plan.buckets)
+
+
+_COLD_BUDGET = """
+from repro_torch.api import LazyPIMConfig, Study, grid, sweep_cache_sizes, workload
+from repro_torch.sim.engine import sequential_cache_sizes
+
+SMALL = dict(num_kernels=3, windows_per_kernel=2)
+study = Study(workloads=[workload("pagerank", "arxiv", scale=0.4, **SMALL),
+                         workload("htap128", scale=0.004, **SMALL)],
+              hw=grid(offchip_bw_gbs=[16.0, 32.0, 64.0]), mechanisms=("cpu", "cg", "lazypim"),
+              lazy=[LazyPIMConfig(use_dbi=True), LazyPIMConfig(use_dbi=False)], device="cpu")
+plan = study.plan()
+assert sweep_cache_sizes() == {m: 0 for m in sweep_cache_sizes()}
+study.run()
+got = {m: n for m, n in sweep_cache_sizes().items() if n}
+assert got == plan.compiles_per_mechanism, (got, plan.compiles_per_mechanism)
+study.run()
+assert {m: n for m, n in sweep_cache_sizes().items() if n} == got, "a warm rerun added shapes"
+assert sequential_cache_sizes() == {m: 0 for m in got} | {"fg": 0, "nc": 0, "ideal": 0}
+study.run(engine="sequential")
+seq = sequential_cache_sizes()
+assert {m: seq[m] for m in got} == plan.compiles_per_mechanism, seq
+print("COLD-OK")
+"""
+
+
+def test_cold_dispatch_shapes_equal_plan():
+    """In a fresh process the batch run's ``sweep_cache_sizes`` deltas equal
+    ``plan().compiles_per_mechanism`` exactly, a warm rerun adds none, and
+    the sequential engine's per-trace shapes (one per distinct geometry:
+    two workloads) stay apart from the batched ones."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _COLD_BUDGET], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "COLD-OK" in out.stdout, out.stderr[-2000:]
+
+
+def test_plan_budget_equals_reference():
+    """``compiles_per_mechanism``, ``total_compiles`` and ``num_buckets``
+    equal the reference plan's on the same spec, with and without the hw x
+    lazy axes."""
+    small = dict(num_kernels=3, windows_per_kernel=2)
+    mech = ("cpu", "cg", "lazypim")
+    hw = [16.0, 32.0, 64.0]
+    ours = _small_study(hw=grid(offchip_bw_gbs=hw),
+                        lazy=[LazyPIMConfig(use_dbi=True), LazyPIMConfig(use_dbi=False)])
+    ref = RStudy(workloads=[r_workload("pagerank", "arxiv", scale=0.4, **small),
+                            r_workload("htap128", scale=0.004, **small)],
+                 mechanisms=mech, hw=r_grid(offchip_bw_gbs=hw),
+                 lazy=[RLazyPIMConfig(use_dbi=True), RLazyPIMConfig(use_dbi=False)])
+    for a, b in ((ours.plan(), ref.plan()), (_small_study().plan(), RStudy(
+            workloads=ref.workloads, mechanisms=mech).plan())):
+        assert a.num_buckets == b.num_buckets
+        assert a.compiles_per_mechanism == b.compiles_per_mechanism
+        assert a.total_compiles == b.total_compiles
 
 
 def test_batched_study_bit_exact_vs_sequential(hw_grid_study):
-    study, _, results, seq = hw_grid_study
+    study, _, results, seq, _ = hw_grid_study
     assert len(results.points) == len(seq.points)
     for bp, sp in zip(results.points, seq.points):
         assert (bp.workload, bp.hw_index, bp.lazy_index) == \
@@ -176,7 +263,7 @@ def test_unknown_engine_rejected():
 
 
 def test_resultset_rows_pivot_normalized(hw_grid_study):
-    study, _, results, _ = hw_grid_study
+    study, _, results, _, _ = hw_grid_study
     rows = results.to_rows()
     assert len(rows) == len(results.points) * len(study.mechanisms)
     assert {r["mechanism"] for r in rows} == set(study.mechanisms)
@@ -199,7 +286,7 @@ def test_normalized_requires_baseline():
 
 
 def test_resultset_save_load_round_trip(tmp_path, hw_grid_study):
-    _, _, results, _ = hw_grid_study
+    _, _, results, _, _ = hw_grid_study
     loaded = ResultSet.load_json(results.save_json(tmp_path / "rs.json"))
     assert loaded.mechanisms == results.mechanisms
     assert len(loaded.points) == len(results.points)
@@ -212,7 +299,7 @@ def test_resultset_save_load_round_trip(tmp_path, hw_grid_study):
 
 
 def test_resultset_concat(hw_grid_study):
-    _, _, results, _ = hw_grid_study
+    _, _, results, _, _ = hw_grid_study
     both = ResultSet.concat([results, results])
     assert len(both) == 2 * len(results)
     assert both.mechanisms == results.mechanisms
