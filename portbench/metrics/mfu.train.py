@@ -1,0 +1,10 @@
+"""Useful training work (the frozen count) over the bf16 peak times the
+traced window's span, in %."""
+
+from portbench.metrics import _count, _window
+
+
+def read(ctx):
+    if ctx.kind != "train":
+        return None
+    return _window.work(ctx, _count.train_flops(ctx.cfg, ctx.batch, ctx.seq))

@@ -1,0 +1,7 @@
+"""Prompt tokens of completed requests over the window's span."""
+
+from portbench.metrics import _window
+
+
+def read(ctx):
+    return _window.rate(ctx) if ctx.kind == "prefill" else None
