@@ -9,6 +9,7 @@ constraints.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any
 
 import torch
@@ -25,27 +26,37 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
     (zeros for a leaf the loss does not reach, as ``jax.value_and_grad``
     gives), then one AdamW update written into ``params`` and
     ``opt_state`` (:func:`adamw.step_`), where the reference's step
-    returns new trees."""
+    returns new trees.  Each call runs in the span ``step.train``, whose
+    argument is the call's number (0, 1, ...)."""
+    calls = itertools.count()
+
     def train_step(params, opt_state, batch):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        loss = model.loss(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(params, (torch.zeros_like(p) if g is None else g
-                                        for p, g in zip(leaves, grads)))
-        metrics = adamw.step_(params, grads, opt_state, opt_cfg)
-        return {"loss": loss.detach(), **metrics}
+        with C.span("step.train", next(calls)):
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            loss = model.loss(tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = tree_unflatten(params, (torch.zeros_like(p) if g is None else g
+                                            for p, g in zip(leaves, grads)))
+            metrics = adamw.step_(params, grads, opt_state, opt_cfg)
+            return {"loss": loss.detach(), **metrics}
     return train_step
 
 
 def make_prefill_step(model: Model):
+    """``prefill_step(params, batch) -> (B, V)`` last-position logits; each
+    call runs in the span ``step.prefill``, whose argument is the call's
+    number (0, 1, ...)."""
+    calls = itertools.count()
+
     def prefill_step(params, batch: dict) -> torch.Tensor:
-        logits, _ = model.apply(
-            params, batch["tokens"],
-            prefix_embeds=batch.get("prefix_embeds"),
-            frames=batch.get("frames"))
-        # serving prefill returns only the last position's logits (a copy,
-        # so the (B, S, V) logits are freed)
-        return logits[:, -1, :].clone()
+        with C.span("step.prefill", next(calls)):
+            logits, _ = model.apply(
+                params, batch["tokens"],
+                prefix_embeds=batch.get("prefix_embeds"),
+                frames=batch.get("frames"))
+            # serving prefill returns only the last position's logits (a
+            # copy, so the (B, S, V) logits are freed)
+            return logits[:, -1, :].clone()
     return prefill_step
 
 

@@ -15,8 +15,9 @@ hand-written CUDA kernel, on a CPU tensor its plain version, the TPU
 kernel's float32 math (ROADMAP §C) — and its backward recomputes
 ``mha_chunked`` on the saved q, k and v and differentiates it, the
 gradient the reference's ``jax.value_and_grad`` takes (the TPU kernel has
-no backward).  Both run inside a ``torch.profiler.record_function`` range
-(:data:`PROFILE_RANGES`), so a profile can read attention's device time.
+no backward).  Both run inside a span (:func:`C.span`, a
+``torch.profiler.record_function`` range while a profile records) of
+:data:`PROFILE_RANGES`, so a profile can read attention's device time.
 """
 from __future__ import annotations
 
@@ -123,12 +124,12 @@ class _FlashMHA(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: int):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        with torch.profiler.record_function(PROFILE_RANGES[0]):
+        with C.span(PROFILE_RANGES[0]):
             return flash.mha(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.profiler.record_function(PROFILE_RANGES[1]):
+        with C.span(PROFILE_RANGES[1]):
             dq, dk, dv = C.local_region("flash_mha.backward", _mha_chunked_grad,
                                         *ctx.saved_tensors, grad, ctx.causal, ctx.window,
                                         whole=(1,))

@@ -258,6 +258,56 @@ def regions() -> dict[str, int]:
     return dict(_CTX.regions)
 
 
+# ---------------------------------------------------------------------------
+# Spans and counters (recorded only while a torch.profiler profile records)
+# ---------------------------------------------------------------------------
+
+_PROFILER = torch.autograd.profiler  # its _is_profiler_enabled: a profile is recording
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: dict[str, Any] = {}
+
+
+def span(name: str, args: Any = None):
+    """A ``torch.profiler.record_function`` range ``name`` (``args``, made a
+    string, its argument) while a profile is recording, so that it lies in
+    the kineto trace on the device operations' clock; otherwise a shared
+    no-op context, at the cost of one flag check."""
+    if not _PROFILER._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name, None if args is None else str(args))
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` to the counter ``name`` while a profile is recording;
+    nothing otherwise.  A host int adds on the host; a tensor's sum adds
+    into a 0-dim int64 tensor on its device, without waiting for it."""
+    if not _PROFILER._is_profiler_enabled:
+        return
+    if not isinstance(value, torch.Tensor):
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(value)
+        return
+    acc = _COUNTS.get(name)
+    if acc is None:
+        # a plain tensor, so that it takes adds inside and outside inference mode
+        with torch.inference_mode(False):
+            acc = _COUNTS[name] = torch.zeros((), dtype=torch.int64, device=value.device)
+    acc.add_(value.detach().sum())
+
+
+def counters() -> dict[str, int]:
+    """``{counter: total}`` since the last :func:`reset_counters`; the
+    device counters are read with one synchronization."""
+    on_dev = [n for n, v in _COUNTS.items() if isinstance(v, torch.Tensor)]
+    out = {n: v for n, v in _COUNTS.items() if n not in on_dev}
+    if on_dev:
+        out.update(zip(on_dev, torch.stack([_COUNTS[n] for n in on_dev]).tolist()))
+    return out
+
+
+def reset_counters() -> None:
+    _COUNTS.clear()
+
+
 def constrain(x: torch.Tensor, *logical_axes: Any) -> torch.Tensor:
     """Redistribute ``x`` to its logical axes' placements under the active
     :func:`sharding_ctx` (``with_sharding_constraint``; a plain tensor

@@ -31,6 +31,13 @@ added as float32.
 
 Aux losses: load balancing (Switch) and the router z-loss, returned for
 the training objective.
+
+While a profile records, :func:`moe_block` opens the spans (``common.span``)
+``moe.route`` (the norm, router, top-k and aux losses), ``moe.dispatch``,
+``moe.experts`` (the three products and the SwiGLU) and ``moe.combine``,
+and counts (``common.count``) ``moe.pairs_routed`` (T * K),
+``moe.rows_computed`` (E * C, the rows the expert products compute) and
+``moe.pairs_kept`` (on the device); pairs dropped are routed minus kept.
 """
 
 from __future__ import annotations
@@ -177,27 +184,34 @@ def moe_block(p, x: torch.Tensor, cfg: C.ModelConfig):
     e = moe.num_routed_padded
     cap = capacity(moe, t)
 
-    flat, logits, gates, top_w, top_e = route(p, x, cfg)
+    with C.span("moe.route"):
+        flat, logits, gates, top_w, top_e = route(p, x, cfg)
 
-    # --- aux losses (Switch §2.2 + z-loss) --------------------------------
-    me = torch.mean(gates, dim=0)                                  # (E,)
-    ce = torch.mean(F.one_hot(top_e[:, 0], e).to(torch.float32), dim=0)
-    load_balance = e * torch.sum(me * ce)
-    router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        # --- aux losses (Switch §2.2 + z-loss) ----------------------------
+        me = torch.mean(gates, dim=0)                              # (E,)
+        ce = torch.mean(F.one_hot(top_e[:, 0], e).to(torch.float32), dim=0)
+        load_balance = e * torch.sum(me * ce)
+        router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
-    buf, keep, slot, pair, by_token = C.local_region(
-        "moe.dispatch", _dispatch, flat, top_e, e, cap, cfg.moe_dispatch, replicate=True)
+    with C.span("moe.dispatch"):
+        buf, keep, slot, pair, by_token = C.local_region(
+            "moe.dispatch", _dispatch, flat, top_e, e, cap, cfg.moe_dispatch, replicate=True)
+    C.count("moe.pairs_routed", t * moe.top_k)
+    C.count("moe.rows_computed", e * cap)
+    C.count("moe.pairs_kept", keep)
     buf = C.constrain(buf, "expert", None, "embed")
 
-    gate = torch.bmm(buf, p["we_gate"])
-    up = torch.bmm(buf, p["we_in"])
-    act = C.activation("swiglu", up, gate)
-    out_e = torch.bmm(act, p["we_out"])
+    with C.span("moe.experts"):
+        gate = torch.bmm(buf, p["we_gate"])
+        up = torch.bmm(buf, p["we_in"])
+        act = C.activation("swiglu", up, gate)
+        out_e = torch.bmm(act, p["we_out"])
 
     cdt = None if cfg.moe_dispatch == "cumsum" else \
         (torch.float32 if cfg.moe_combine_f32 else x.dtype)
-    combined = C.local_region("moe.combine", _combine, out_e, top_w, keep, slot, pair,
-                              by_token, cdt, replicate=True)
+    with C.span("moe.combine"):
+        combined = C.local_region("moe.combine", _combine, out_e, top_w, keep, slot, pair,
+                                  by_token, cdt, replicate=True)
     if cfg.moe_dispatch != "cumsum":
         combined = C.constrain(combined.reshape(b, s, d), "batch", "seq",
                                "embed").reshape(t, d)

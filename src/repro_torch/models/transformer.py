@@ -264,10 +264,12 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tens
 
 
 def logits_from_hidden(params, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, C.gather_fsdp(params["embed"]))
-    else:
-        logits = torch.einsum("bsd,dv->bsv", x, C.gather_fsdp(params["lm_head"]))
+    """The LM head at every position of x, inside the span ``model.head``."""
+    with C.span("model.head"):
+        if cfg.tie_embeddings:
+            logits = torch.einsum("bsd,vd->bsv", x, C.gather_fsdp(params["embed"]))
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x, C.gather_fsdp(params["lm_head"]))
     return C.constrain(logits, "batch", "seq", "vocab")
 
 

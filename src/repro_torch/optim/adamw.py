@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import span, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,26 +74,28 @@ def global_norm(tree) -> torch.Tensor:
 def step_(params, grads, state: dict, cfg: AdamWConfig) -> dict:
     """One AdamW update in place: ``params``, ``state["mu"]``,
     ``state["nu"]`` and ``state["step"]`` are overwritten.  Returns the
-    metrics ``{"grad_norm", "lr"}``."""
-    count = state["step"].add_(1)
-    gnorm = global_norm(grads)
-    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
-    lr = _schedule(count, cfg)
-    countf = count.to(torch.float32)
-    bc1 = 1 - cfg.b1 ** countf
-    bc2 = 1 - cfg.b2 ** countf
-    for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
-                            tree_leaves(state["mu"]), tree_leaves(state["nu"]), strict=True):
-        g = g.to(torch.float32) * scale
-        mu_n = cfg.b1 * mu.to(torch.float32) + (1 - cfg.b1) * g
-        nu_n = cfg.b2 * nu.to(torch.float32) + (1 - cfg.b2) * g * g
-        del g
-        delta = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + cfg.eps)
-        mu.copy_(mu_n)
-        nu.copy_(nu_n)
-        del mu_n, nu_n
-        # decoupled weight decay on matrices only (ndim >= 2)
-        if p.dim() >= 2:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * delta)
-    return {"grad_norm": gnorm, "lr": lr}
+    metrics ``{"grad_norm", "lr"}``.  The whole update runs in the span
+    ``adamw.step``."""
+    with span("adamw.step"):
+        count = state["step"].add_(1)
+        gnorm = global_norm(grads)
+        scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+        lr = _schedule(count, cfg)
+        countf = count.to(torch.float32)
+        bc1 = 1 - cfg.b1 ** countf
+        bc2 = 1 - cfg.b2 ** countf
+        for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
+                                tree_leaves(state["mu"]), tree_leaves(state["nu"]), strict=True):
+            g = g.to(torch.float32) * scale
+            mu_n = cfg.b1 * mu.to(torch.float32) + (1 - cfg.b1) * g
+            nu_n = cfg.b2 * nu.to(torch.float32) + (1 - cfg.b2) * g * g
+            del g
+            delta = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + cfg.eps)
+            mu.copy_(mu_n)
+            nu.copy_(nu_n)
+            del mu_n, nu_n
+            # decoupled weight decay on matrices only (ndim >= 2)
+            if p.dim() >= 2:
+                delta = delta + cfg.weight_decay * p.to(torch.float32)
+            p.copy_(p.to(torch.float32) - lr * delta)
+        return {"grad_norm": gnorm, "lr": lr}

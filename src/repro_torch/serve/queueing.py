@@ -22,7 +22,6 @@ class BoundedQueue:
         self._q: deque = deque()
         self.shed = 0       # offers refused because the queue was full
         self.accepted = 0   # offers admitted
-        self.high_water = 0  # deepest backlog ever held (telemetry)
 
     def __len__(self) -> int:
         return len(self._q)
@@ -34,7 +33,6 @@ class BoundedQueue:
             return False
         self._q.append(item)
         self.accepted += 1
-        self.high_water = max(self.high_water, len(self._q))
         return True
 
     def pop(self):
